@@ -7,25 +7,44 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (any failure exits nonzero before a result is printed):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
- 2. build the CUDA kernels from prealps_tpu_torch/csrc (nvcc, sm_90a);
- 3. the main path's build at full size: elasticity3d 36³ (n = 147,852),
+ 2. build the CUDA kernels from prealps_tpu_torch/csrc (one nvcc per
+    source, all started together, sm_90a);
+ 3. the headline path's build at full size: elasticity3d 36³ (n = 147,852),
     stencil format, two-level block Jacobi (240-row blocks), ECG t = 12;
- 4. every kernel of the path against its plain PyTorch version on the
-    card, at the shapes the path gives it (t = 12 for the solver, t = 1 for
-    the refinement residual) plus a br = 1 and a generic shape; CUDA-event
-    times of both (median of 5 batches of 20 back-to-back calls each, in
-    turns plain, kernel, kernel, plain);
- 5. the main path: kernel launch counts zeroed, one solve of
+ 4. ``[kernel]`` B1 (``stencil_flat_ext``) against its plain PyTorch version
+    on the card, at the shapes the path gives it (t = 12 for the solver,
+    t = 1 for the refinement residual) plus a br = 1 and a generic shape;
+    CUDA-event times of both (median of 5 batches of 20 back-to-back calls
+    each, in turns plain, kernel, kernel, plain);
+ 5. ``[main]`` the headline path: launch counts zeroed, one solve of
     b = default_rng(0).standard_normal(n) to tol 1e-5 (f32 with
     double-float refinement), counts read back; then three timed solves
-    and one under torch.profiler (device time by kernel, also written to
-    chiprun_out/profile_solve.txt);
- 6. a small f32 solve on the card against a scipy direct solve.
+    and one under torch.profiler (chiprun_out/profile_solve.txt);
+ 6. ``[small]`` a small f32 solve on the card against a scipy direct solve;
+ 7. the general-sparse path's build at full size: the same operator,
+    fmt="block_ell" (bm 8, bk 128), host block Jacobi (240-row blocks), ECG
+    t = 12 odir_fused on row-major panels;
+ 8. ``[kernel]`` B5 (``block_ell_spmm_pallas``) against ``block_ell_spmm``
+    at the path's shape (t = 12), at t = 1 and at bk = 8, timed in turns;
+ 9. ``[general]`` the general path: counts zeroed, one warm solve and three
+    timed solves; host f64 relres < 1e-5, no breakdown, B5 launches >=
+    iterations, iterations within 5 % of GENERAL_ANCHOR_ITERS (the JAX
+    package's CPU run of the same build with fmt="block_ell_xla"); one solve
+    under torch.profiler (chiprun_out/profile_general.txt);
+10. ``[ell]`` fmt="ell" f32 at elasticity3d 20³ through the device
+    double-float refinement rounds;
+11. ``[bj]`` the stencil path with precond="bj" (block Jacobi alone, the
+    JAX driver's "bj_flat") at full size, within 5 % of the JAX package's
+    TPU record of 199 iterations;
+12. ``[kernel]`` B6 (``bj_apply_pallas``) on the [bj] build's packed
+    inverses at t = 12 against its plain version, with ``torch.bmm`` on the
+    unpadded inverses (the driver's apply) timed beside them.
 
 The last lines of standard output are a ``[summary]`` JSON line (every
-check, the main path's numbers), the card's ``nvidia-smi`` name and power
-limit, the kernels' JSON record (``ms``/``plain_ms``/``max_abs_err`` at the
-headline shape t = 12, ``launches`` from the main path's solve), and last
+check, every path's numbers), the card's ``nvidia-smi`` name and power
+limit, the kernels' JSON record (``ms``/``plain_ms``/``max_abs_err`` at each
+kernel's first shape, ``launches`` from its path's solve — for B6, which no
+driver path runs, chip_smoke's own calls), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,6 +61,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-5          # max |y_kernel - y_plain| <= KERNEL_TOL * max(|B|·|x|)
 SOLVE_TOL = 1e-5
 TPU_ANCHOR_ITERS = 130     # iterations of the same solve in the JAX package's record
+# the general path (block-ELL, host block Jacobi, nt, f32, tol 1e-5): the JAX
+# package's run on a CPU with fmt="block_ell_xla" (2 host refinement rounds
+# of 97 + 105 iterations, PERF.md)
+GENERAL_ANCHOR_ITERS = 202
+BJ_ANCHOR_ITERS = 199      # stencil + bj: BENCH_r05.json ..._t12_tol1e-5_bj
+ANCHOR_BAND = 0.05
 
 
 def log(msg: str) -> None:
@@ -108,25 +133,179 @@ def check_kernel(name, blocks_flat, offsets, halo, br, t, seed):
         fail(f"{name}: kernel output not finite")
     if err > bound:
         fail(f"{name}: max|kernel - plain| = {err:.3e} > {bound:.3e}")
-    # in turns: plain, kernel, kernel, plain
-    p1, pt1 = event_ms(lambda: stencil_flat_ext_ref(blocks_flat, offsets, x_ext, halo, br))
-    k1, kt1 = event_ms(lambda: stencil_flat_ext(blocks_flat, offsets, x_ext, halo, br))
-    k2, kt2 = event_ms(lambda: stencil_flat_ext(blocks_flat, offsets, x_ext, halo, br))
-    p2, pt2 = event_ms(lambda: stencil_flat_ext_ref(blocks_flat, offsets, x_ext, halo, br))
-    ms = statistics.median(kt1 + kt2)
-    plain_ms = statistics.median(pt1 + pt2)
     nbytes = 4 * (blocks_flat.numel() + x_ext.numel() + y_k.numel())
     rec = {"shape": name, "br": br, "t": t, "S": len(offsets), "nrb": nrb,
-           "halo": halo, "max_abs_err": err, "bound": bound, "ms": ms,
-           "plain_ms": plain_ms, "reckoned_MB": nbytes / 1e6,
-           "GBps": nbytes / (ms * 1e-3) / 1e9,
-           "plain_GBps": nbytes / (plain_ms * 1e-3) / 1e9,
-           "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
+           "halo": halo, "max_abs_err": err, "bound": bound,
+           **in_turns(lambda: stencil_flat_ext(blocks_flat, offsets, x_ext, halo, br),
+                      lambda: stencil_flat_ext_ref(blocks_flat, offsets, x_ext, halo, br),
+                      nbytes)}
     log(f"[kernel] {name}: br={br} t={t} S={len(offsets)} nrb={nrb} "
-        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {ms:.4f} ms "
-        f"({rec['GBps']:.0f} GB/s) plain {plain_ms:.4f} ms "
+        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
+        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
         f"({rec['plain_GBps']:.0f} GB/s)")
     return rec
+
+
+def in_turns(kernel_fn, plain_fn, nbytes, reps=20):
+    """CUDA-event times of a kernel and its plain version, in turns plain,
+    kernel, kernel, plain; GB/s from the reckoned bytes of one call."""
+    p1, pt1 = event_ms(plain_fn, reps=reps)
+    k1, kt1 = event_ms(kernel_fn, reps=reps)
+    k2, kt2 = event_ms(kernel_fn, reps=reps)
+    p2, pt2 = event_ms(plain_fn, reps=reps)
+    ms = statistics.median(kt1 + kt2)
+    plain_ms = statistics.median(pt1 + pt2)
+    return {"ms": ms, "plain_ms": plain_ms, "reckoned_MB": nbytes / 1e6,
+            "GBps": nbytes / (ms * 1e-3) / 1e9,
+            "plain_GBps": nbytes / (plain_ms * 1e-3) / 1e9,
+            "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
+
+
+def check_block_ell(name, mat, t, seed):
+    """B5 against block_ell_spmm on the card for one shape; returns a record."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.ops.formats import BlockEllMatrix
+    from prealps_tpu_torch.ops.spmm import block_ell_spmm, block_ell_spmm_pallas
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((mat.shape[1], t)).astype(
+        np.float32)).to(mat.blocks.device)
+    y_k = block_ell_spmm_pallas(mat, x)
+    y_p = block_ell_spmm(mat, x)
+    scale = block_ell_spmm(BlockEllMatrix(mat.blocks.abs(), mat.blkcols,
+                                          mat.shape), x.abs())
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    bound = KERNEL_TOL * float(scale.max())
+    del scale, y_p
+    if not bool(torch.isfinite(y_k).all()):
+        fail(f"{name}: kernel output not finite")
+    if err > bound:
+        fail(f"{name}: max|kernel - plain| = {err:.3e} > {bound:.3e}")
+    nrb, s_max, bm, bk = mat.blocks.shape
+    nbytes = (4 * (mat.blocks.numel() + x.numel() + y_k.numel())
+              + 4 * mat.blkcols.numel())
+    rec = {"shape": name, "nrb": nrb, "S": s_max, "bm": bm, "bk": bk, "t": t,
+           "max_abs_err": err, "bound": bound,
+           **in_turns(lambda: block_ell_spmm_pallas(mat, x),
+                      lambda: block_ell_spmm(mat, x), nbytes, reps=10)}
+    log(f"[kernel] {name}: nrb={nrb} S={s_max} bm={bm} bk={bk} t={t} "
+        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
+        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
+        f"({rec['plain_GBps']:.0f} GB/s)")
+    return rec
+
+
+def check_bj_apply(inv_f, br, t, seed):
+    """B6 against its plain version, and torch.bmm on the unpadded inverses
+    (the driver's apply), on the card; returns a record."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.direct.device_bj import (
+        bj_apply_flat,
+        bj_apply_pallas,
+        bj_apply_pallas_ref,
+        pack_bj_dense,
+    )
+
+    nb, mb, _ = inv_f.shape
+    b2 = pack_bj_dense(inv_f)
+    nrb = nb * mb // br
+    z = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (t, br, nrb)).astype(np.float32)).to(inv_f.device)
+    w_k = bj_apply_pallas(b2, z, br)
+    w_p = bj_apply_pallas_ref(b2, z, br)
+    scale = bj_apply_pallas_ref(b2.abs(), z.abs(), br)
+    torch.cuda.synchronize()
+    err = float((w_k - w_p).abs().max())
+    err_bmm = float((w_k - bj_apply_flat(inv_f, z)).abs().max())
+    bound = KERNEL_TOL * float(scale.max())
+    if not bool(torch.isfinite(w_k).all()):
+        fail("bj_apply_pallas: kernel output not finite")
+    if max(err, err_bmm) > bound:
+        fail(f"bj_apply_pallas: max|kernel - plain| = {err:.3e}, "
+             f"|kernel - bmm| = {err_bmm:.3e} > {bound:.3e}")
+    nbytes = 4 * (b2.numel() + 2 * z.numel())
+    rec = {"shape": f"nb={nb} mb={mb} mbp={b2.shape[1]} t={t}", "t": t,
+           "max_abs_err": err, "max_abs_err_vs_bmm": err_bmm, "bound": bound,
+           **in_turns(lambda: bj_apply_pallas(b2, z, br),
+                      lambda: bj_apply_pallas_ref(b2, z, br), nbytes)}
+    bmm_ms, _ = event_ms(lambda: bj_apply_flat(inv_f, z))
+    rec["bmm_ms"] = bmm_ms
+    rec["bmm_GBps"] = 4 * (inv_f.numel() + 2 * z.numel()) / (bmm_ms * 1e-3) / 1e9
+    log(f"[kernel] bj_apply_pallas {rec['shape']}: max_abs_err={err:.3e} "
+        f"(vs bmm {err_bmm:.3e}, bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
+        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
+        f"({rec['plain_GBps']:.0f} GB/s) torch.bmm unpadded {bmm_ms:.4f} ms "
+        f"({rec['bmm_GBps']:.0f} GB/s)")
+    return rec
+
+
+def profile_solve(solver, b, name):
+    """One solve under torch.profiler; the table goes to chiprun_out/."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.solve(b)
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    with open(os.path.join(HERE, "chiprun_out", f"profile_{name}.txt"), "w") as f:
+        f.write(table)
+    log(f"[profile] one {name} solve by device time:")
+    for line in table.splitlines()[:15]:
+        log("[profile] " + line)
+
+
+def timed_solves(solver, b, iters, tag):
+    """Three timed solves (host clock around work that ends in a sync)."""
+    import torch
+
+    timed = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ik = solver.solve(b)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        if int(ik["iters"]) != iters or ik["breakdown"]:
+            log(f"[{tag}] note: timed solve ran {ik['iters']} iterations")
+    return timed
+
+
+def checked_solve(solver, a, b, tag, counter=None):
+    """One solve with the launch count zeroed just before and read just
+    after; fails on a wrong shape, non-finite values, breakdown or host f64
+    relres >= SOLVE_TOL. Returns (info dict, launches, seconds)."""
+    import numpy as np
+    import torch
+
+    if counter is not None:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counter.launches if counter is not None else None
+    relres = float(np.linalg.norm(b - a @ x) / np.linalg.norm(b))
+    if x.shape != (a.shape[0],) or not np.all(np.isfinite(x)):
+        fail(f"[{tag}] solution not finite or of the wrong shape")
+    if info["breakdown"]:
+        fail(f"[{tag}] ECG breakdown")
+    if not relres < SOLVE_TOL:
+        fail(f"[{tag}] host f64 relres {relres:.3e} >= {SOLVE_TOL}")
+    info = dict(info, relres=relres)
+    info.pop("history", None)
+    return info, launches, secs
+
+
+def within(iters, anchor):
+    return abs(iters - anchor) <= ANCHOR_BAND * anchor
 
 
 def main() -> int:
@@ -143,9 +322,15 @@ def main() -> int:
 
     from prealps_tpu_torch import strict_fp32
     from prealps_tpu_torch.core.generators import elasticity3d, poisson3d
+    from prealps_tpu_torch.core.layout import permute_and_pad_matrix
+    from prealps_tpu_torch.direct.device_bj import bj_apply_pallas
     from prealps_tpu_torch.ops import _kernels
-    from prealps_tpu_torch.ops.formats import csr_to_stencil_bsr_t, stencil_blocks_flat
-    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
+    from prealps_tpu_torch.ops.formats import (
+        csr_to_block_ell,
+        csr_to_stencil_bsr_t,
+        stencil_blocks_flat,
+    )
+    from prealps_tpu_torch.ops.spmm import block_ell_spmm_pallas, stencil_flat_ext
     from prealps_tpu_torch.parallel.driver import DistributedECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
 
@@ -162,12 +347,13 @@ def main() -> int:
     # --- 2. build the kernels ---
     t0 = time.perf_counter()
     _kernels.load()
-    log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_kernels.build_info['seconds']:.2f} s) -> "
-        f"{os.path.relpath(_kernels.build_info['path'], HERE)}")
-    for line in _kernels.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build] {line.strip()}")
+    log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
+    for src, binfo in _kernels.build_info.items():
+        log(f"[build] {src}: nvcc {binfo['seconds']:.2f} s -> "
+            f"{os.path.relpath(binfo['path'], HERE)}")
+        for line in binfo["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build] {line.strip()}")
 
     # --- 3. main path build at full size ---
     nel = 36
@@ -213,53 +399,27 @@ def main() -> int:
     del pois
 
     # --- 5. the main path, through the user's entry points ---
-    stencil_flat_ext.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x, info = solver.solve(b)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = stencil_flat_ext.launches
-    relres = float(np.linalg.norm(b - a @ x) / np.linalg.norm(b))
+    info, launches, warm_s = checked_solve(solver, a, b, "main", stencil_flat_ext)
     iters = int(info["iters"])
     log(f"[main] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
-        f"{info.get('refine_rounds')} relres={relres:.3e} breakdown="
+        f"{info.get('refine_rounds')} relres={info['relres']:.3e} breakdown="
         f"{info['breakdown']} stencil_flat_ext launches={launches}")
-    if not np.all(np.isfinite(x)) or x.shape != (n,):
-        fail("solution not finite or of the wrong shape")
-    if info["breakdown"]:
-        fail("ECG breakdown")
-    if not relres < SOLVE_TOL:
-        fail(f"host f64 relres {relres:.3e} >= {SOLVE_TOL}")
     if launches < iters:
         fail(f"kernel launched {launches} times for {iters} iterations")
-    timed = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xk, ik = solver.solve(b)
-        torch.cuda.synchronize()
-        timed.append(time.perf_counter() - t0)
-        if int(ik["iters"]) != iters or ik["breakdown"]:
-            log(f"[main] note: timed solve ran {ik['iters']} iterations")
+    timed = timed_solves(solver, b, iters, "main")
     solve_s = statistics.median(timed)
     log(f"[main] timed solves (s): {[round(v, 4) for v in timed]}; median "
         f"{solve_s:.4f} s, {1e3 * solve_s / iters:.3f} ms/iteration "
         f"(iterations {iters}; the JAX package's record of this solve: "
         f"{TPU_ANCHOR_ITERS} iterations)")
-
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solver.solve(b)
-        torch.cuda.synchronize()
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
-    with open(os.path.join(HERE, "chiprun_out", "profile_solve.txt"), "w") as f:
-        f.write(table)
-    log("[profile] one solve by device time:")
-    for line in table.splitlines()[:25]:
-        log("[profile] " + line)
+    profile_solve(solver, b, "solve")
+    main_path = {
+        "n": n, "nnz": int(a.nnz), "iters": iters,
+        "refine_rounds": info.get("refine_rounds"), "relres": info["relres"],
+        "solve_s": timed, "ms_per_iter": 1e3 * solve_s / iters,
+        "build_s": build_s, "build_stages_s": solver.timings,
+        "df_residual_ms": df_ms}
+    del solver, ops, x1
 
     # --- 6. a small solve against a scipy direct solve ---
     a_s = elasticity3d(8, 8, 8, heterogeneous=False)
@@ -277,17 +437,123 @@ def main() -> int:
         f"|x - x_direct|/|x_direct|={err_s:.3e}")
     if not (rel_s < 1e-8 and err_s < 1e-5):
         fail("small solve disagrees with the scipy direct solve")
+    del small
 
-    head = checks[0]
+    # --- 7. the general path's build at full size ---
+    gopts = ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="odir_fused",
+                       layout="nt")
+    t0 = time.perf_counter()
+    gsolver = DistributedECG.build(
+        a, nshards=1, fmt="block_ell", precond="bj", block_size=240,
+        opts=gopts, dtype=np.float32, device=dev)
+    gbuild_s = time.perf_counter() - t0
+    gops = gsolver.operands
+    nrb, s_max, bm, bk = gops.mat.blocks.shape
+    fill = int(a.nnz) / gops.mat.blocks.numel()
+    log(f"[general] built in {gbuild_s:.2f} s, stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in gsolver.timings.items()})
+        + f"; n_pad={gsolver.layout.n_pad} block-ELL nrb={nrb} S={s_max} "
+        f"bm={bm} bk={bk} ({gops.mat.blocks.numel() * 4 / 1e9:.3f} GB, fill "
+        f"{100 * fill:.1f} %); block Jacobi nb={gops.bj.factors.shape[0]} "
+        f"mb={gops.bj.factors.shape[1]} mode={gops.bj.mode}")
+
+    # --- 8. B5 vs its plain version on the card ---
+    b5_checks = [check_block_ell("general solver apply (bk128,t12)", gops.mat,
+                                 12, seed=11),
+                 check_block_ell("single vector (bk128,t1)", gops.mat, 1,
+                                 seed=12)]
+    bell8 = csr_to_block_ell(permute_and_pad_matrix(gsolver.a_scaled,
+                                                    gsolver.layout),
+                             bm=8, bk=8, dtype=np.float32, device=dev)
+    b5_checks.append(check_block_ell("bk8 generic (bk8,t12)", bell8, 12,
+                                     seed=13))
+    del bell8
+
+    # --- 9. the general path, through the user's entry points ---
+    ginfo, glaunches, gwarm_s = checked_solve(gsolver, a, b, "general",
+                                              block_ell_spmm_pallas)
+    giters = int(ginfo["iters"])
+    log(f"[general] warm solve {gwarm_s:.3f} s: iters={giters} refine_rounds="
+        f"{ginfo['refine_rounds']} relres={ginfo['relres']:.3e} breakdown="
+        f"{ginfo['breakdown']} block_ell_spmm_pallas launches={glaunches} "
+        f"(JAX package on a CPU, fmt='block_ell_xla': {GENERAL_ANCHOR_ITERS} "
+        "iterations)")
+    if glaunches < giters:
+        fail(f"block-ELL kernel launched {glaunches} times for {giters} iterations")
+    if not within(giters, GENERAL_ANCHOR_ITERS):
+        fail(f"general path ran {giters} iterations, outside "
+             f"{GENERAL_ANCHOR_ITERS} ± {100 * ANCHOR_BAND:.0f} %")
+    gtimed = timed_solves(gsolver, b, giters, "general")
+    gsolve_s = statistics.median(gtimed)
+    log(f"[general] timed solves (s): {[round(v, 4) for v in gtimed]}; median "
+        f"{gsolve_s:.4f} s, {1e3 * gsolve_s / giters:.3f} ms/iteration")
+    profile_solve(gsolver, b, "general")
+    general_path = {
+        "fmt": "block_ell", "nrb": nrb, "S": s_max, "bk": bk, "fill": fill,
+        "iters": giters, "refine_rounds": ginfo["refine_rounds"],
+        "relres": ginfo["relres"], "launches": glaunches, "solve_s": gtimed,
+        "ms_per_iter": 1e3 * gsolve_s / giters, "build_s": gbuild_s,
+        "build_stages_s": gsolver.timings, "anchor_iters": GENERAL_ANCHOR_ITERS}
+    del gsolver, gops
+
+    # --- 10. fmt="ell" through the device double-float rounds ---
+    nel_e = 20
+    a_e = elasticity3d(nel_e, nel_e, nel_e, heterogeneous=False)
+    b_e = np.random.default_rng(0).standard_normal(a_e.shape[0])
+    esolver = DistributedECG.build(a_e, nshards=1, fmt="ell", precond="bj",
+                                   block_size=240, opts=gopts,
+                                   dtype=np.float32, device=dev)
+    einfo, _, ewarm_s = checked_solve(esolver, a_e, b_e, "ell")
+    log(f"[ell] elasticity3d({nel_e}³) n={a_e.shape[0]} ELL width "
+        f"{esolver.operands.mat.vals.shape[1]}: {ewarm_s:.3f} s, iters="
+        f"{einfo['iters']} refine_rounds={einfo['refine_rounds']} (device "
+        f"double-float rounds {einfo['device_rounds']}) relres="
+        f"{einfo['relres']:.3e}")
+    if einfo["device_rounds"] < 1:
+        fail("[ell] no device double-float refinement round ran")
+    ell_path = {"n": a_e.shape[0], "iters": einfo["iters"],
+                "refine_rounds": einfo["refine_rounds"],
+                "device_rounds": einfo["device_rounds"],
+                "relres": einfo["relres"], "solve_s": ewarm_s}
+    del esolver
+
+    # --- 11. the stencil path with block Jacobi alone (bj_flat) ---
+    t0 = time.perf_counter()
+    bsolver = DistributedECG.build(
+        a, nshards=1, fmt="stencil", br=3, precond="bj", block_size=240,
+        grid=(nel + 1, nel + 1, nel), bj_dedupe=False, opts=opts,
+        dtype=np.float32, device=dev)
+    bbuild_s = time.perf_counter() - t0
+    binfo, blaunches, bwarm_s = checked_solve(bsolver, a, b, "bj", stencil_flat_ext)
+    biters = int(binfo["iters"])
+    btimed = timed_solves(bsolver, b, biters, "bj")
+    log(f"[bj] stencil + bj ({bsolver.operands.precond_kind}): built in "
+        f"{bbuild_s:.2f} s; iters={biters} refine_rounds="
+        f"{binfo['refine_rounds']} relres={binfo['relres']:.3e} "
+        f"stencil_flat_ext launches={blaunches}; timed solves (s): "
+        f"{[round(v, 4) for v in btimed]} (the JAX package's TPU record: "
+        f"{BJ_ANCHOR_ITERS} iterations)")
+    if blaunches < biters:
+        fail(f"[bj] stencil kernel launched {blaunches} times for {biters} iterations")
+    if not within(biters, BJ_ANCHOR_ITERS):
+        fail(f"[bj] ran {biters} iterations, outside {BJ_ANCHOR_ITERS} ± "
+             f"{100 * ANCHOR_BAND:.0f} %")
+    bj_path = {"iters": biters, "refine_rounds": binfo["refine_rounds"],
+               "relres": binfo["relres"], "solve_s": btimed,
+               "build_s": bbuild_s, "anchor_iters": BJ_ANCHOR_ITERS}
+
+    # --- 12. B6 vs its plain version and torch.bmm, on the bj inverses ---
+    bj_apply_pallas.launches = 0
+    b6 = check_bj_apply(bsolver.operands.inv_f, 3, 12, seed=21)
+    b6_launches = bj_apply_pallas.launches
+    del bsolver
+
     log("[summary] " + json.dumps({
-        "checks": checks,
-        "main_path": {
-            "n": n, "nnz": int(a.nnz), "iters": iters,
-            "refine_rounds": info.get("refine_rounds"), "relres": relres,
-            "solve_s": timed, "ms_per_iter": 1e3 * solve_s / iters,
-            "build_s": build_s, "build_stages_s": solver.timings,
-            "df_residual_ms": df_ms},
+        "checks": checks, "block_ell_checks": b5_checks, "bj_apply_check": b6,
+        "main_path": main_path, "general_path": general_path,
+        "ell_path": ell_path, "bj_path": bj_path,
         "total_s": time.perf_counter() - t_start}))
+    head, b5 = checks[0], b5_checks[0]
     kernels = {"kernels": [{
         "name": "stencil_flat_ext",
         "route": "cuda",
@@ -297,6 +563,24 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
+    }, {
+        "name": "block_ell_spmm_pallas",
+        "route": "cuda",
+        "source": "prealps_tpu_torch/csrc/block_ell.cu",
+        "replaces": "prealps_tpu/ops/spmm.py:69",
+        "launches": glaunches,
+        "max_abs_err": max(c["max_abs_err"] for c in b5_checks),
+        "ms": b5["ms"],
+        "plain_ms": b5["plain_ms"],
+    }, {
+        "name": "bj_apply_pallas",
+        "route": "cuda",
+        "source": "prealps_tpu_torch/csrc/bj_apply.cu",
+        "replaces": "prealps_tpu/direct/device_bj.py:159",
+        "launches": b6_launches,
+        "max_abs_err": b6["max_abs_err"],
+        "ms": b6["ms"],
+        "plain_ms": b6["plain_ms"],
     }]}
     log(card_line())
     log(json.dumps(kernels))

@@ -1,12 +1,16 @@
 """Row layouts: how a global sparse operator maps onto padded device rows.
 
-The stencil subset of ``prealps_tpu/core/layout.py``, copied in numpy: a
+The one-device subset of ``prealps_tpu/core/layout.py``, copied in numpy: a
 ``RowLayout`` records the row permutation and the padding that makes every
 shard's row panel a multiple of the block sizes. Padded rows carry an
 identity diagonal, so the operator stays SPD and padded solution entries
 are exactly zero; with a stencil operator the padded nodes' blocks are zero
 off the diagonal, which is what makes the single-shard wrap halo of the
 stencil SpMM exact (parallel/driver.py).
+
+Two constructors: ``contiguous_row_layout`` (stencil formats: no
+permutation) and ``build_row_layout`` / ``layout_from_part`` (general
+formats: rows grouped by part; with one shard the partition is all zeros).
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
+
+from prealps_tpu_torch.core.partition import partition_to_perm
 
 
 @dataclass(frozen=True)
@@ -49,6 +55,53 @@ def contiguous_row_layout(n: int, nshards: int, row_multiple: int = 8) -> RowLay
     return RowLayout(
         n=n, n_pad=n_pad, nshards=nshards, rows_per_shard=rps,
         perm=perm, inv_perm=inv, offsets=offsets, deps=deps,
+    )
+
+
+def build_row_layout(a: sp.spmatrix, nshards: int, row_multiple: int = 8) -> RowLayout:
+    """Layout of A's rows over ``nshards`` devices. One shard only: its
+    partition puts every row in part 0."""
+    if nshards != 1:
+        raise NotImplementedError(
+            f"build_row_layout(nshards={nshards}): the k-way partition of the "
+            "multi-GPU driver is not ported yet (ROADMAP.md queue A, item 3)")
+    n = sp.csr_matrix(a).shape[0]
+    return layout_from_part(a, np.zeros(n, dtype=np.int64), 1,
+                            row_multiple=row_multiple)
+
+
+def layout_from_part(a: sp.spmatrix, part: np.ndarray, nshards: int,
+                     row_multiple: int = 8) -> RowLayout:
+    """Rows grouped part by part; each shard's panel is rounded up to
+    ``row_multiple`` rows and padded at its own tail."""
+    a = sp.csr_matrix(a)
+    n = a.shape[0]
+    counts = np.bincount(part, minlength=nshards)
+    rows_per_shard = -(-int(counts.max()) // row_multiple) * row_multiple
+    perm_grouped, offsets = partition_to_perm(part, nshards)
+    n_pad = rows_per_shard * nshards
+
+    # dependency sets on the permuted matrix: shard s depends on shard q if
+    # a column of s's rows falls in q's range (one shard depends on none, and
+    # skips the permuted copy of A)
+    ap = a[perm_grouped][:, perm_grouped].tocsr() if nshards > 1 else None
+    deps = [()] if nshards == 1 else []
+    for s in range(nshards if nshards > 1 else 0):
+        cols = ap.indices[ap.indptr[offsets[s]]: ap.indptr[offsets[s + 1]]]
+        owners = np.searchsorted(offsets, cols, side="right") - 1
+        deps.append(tuple(sorted(set(int(o) for o in owners) - {s})))
+
+    # permuted index -> padded index (shard-local padding at the panel tail)
+    idx_perm = np.arange(n)
+    owner = np.searchsorted(offsets, idx_perm, side="right") - 1
+    new_positions = owner * rows_per_shard + (idx_perm - offsets[owner])
+    perm_pad = np.full(n_pad, -1, dtype=np.int64)
+    perm_pad[new_positions] = perm_grouped
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm_grouped] = new_positions
+    return RowLayout(
+        n=n, n_pad=n_pad, nshards=nshards, rows_per_shard=rows_per_shard,
+        perm=perm_pad, inv_perm=inv, offsets=offsets, deps=tuple(deps),
     )
 
 

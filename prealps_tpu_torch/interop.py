@@ -15,7 +15,14 @@ import torch
 
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import RowLayout
-from prealps_tpu_torch.parallel.driver import DistributedECG, StencilOperands
+from prealps_tpu_torch.ops.formats import BlockEllMatrix, EllMatrix
+from prealps_tpu_torch.parallel.driver import (
+    BlockEllOperands,
+    DistributedECG,
+    EllOperands,
+    StencilOperands,
+)
+from prealps_tpu_torch.precond.block_jacobi import BlockJacobi
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 
 
@@ -23,38 +30,70 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
     """Port solver on a reference build's operands.
 
     arrays — numpy unless noted:
-      ``blocks``   stencil block table, (S, br, br, nrb) or flat (S·br², nrb)
-      ``inv_f``    (nb, mb, mb) block inverses
-      ``yq3``      (nb, q, mb) coarse modes
-      ``ac_inv``   (nb·q, nb·q) coarse inverse
       ``scale_d``  (n,) RAC scaling vector, or None
       ``perm``, ``inv_perm``, ``layout_offsets``  the RowLayout arrays
       ``a_scaled`` scipy sparse scaled matrix (needed when refining), or None
+      and by format (``meta["fmt"]``):
+      * "stencil" (default): ``blocks`` stencil block table, (S, br, br, nrb)
+        or flat (S·br², nrb); ``inv_f`` (nb, mb, mb) block inverses; for
+        bj2l also ``yq3`` (nb, q, mb) coarse modes and ``ac_inv`` (nb·q,
+        nb·q) coarse inverse (without them the preconditioner is plain
+        block Jacobi, "bj_flat");
+      * "ell": ``ell_vals``, ``ell_cols`` (n_pad, L);
+      * "block_ell" / "block_ell_xla": ``bell_blocks`` (nrb, S, 8, bk),
+        ``bell_blkcols`` (nrb, S);
+      * general formats also ``bj_factors`` (nb, mb, mb), ``bj_gather_idx``
+        (nb·mb,), ``bj_inv_perm`` (n_pad,) of the host block Jacobi.
     meta:
-      ``stencil_offsets`` (S node offsets), ``br``, ``n``, ``n_pad``,
-      ``rows_per_shard``, ``opts`` (dict of ECGOptions fields, as the
-      reference solver holds them after build), ``target_tol``.
+      ``n``, ``n_pad``, ``rows_per_shard``, ``opts`` (dict of ECGOptions
+      fields, as the reference solver holds them after build),
+      ``target_tol``; ``fmt``; for the stencil ``stencil_offsets`` (S node
+      offsets) and ``br``; for block-ELL ``ncols_pad``; for the general
+      formats ``bj_mode`` ("inverse" or "cholesky").
 
     The operands' dtype (float32 or float64) is the solve's dtype.
     """
     device = resolve_device(device)
     strict_fp32()
-    br = int(meta["br"])
-    offsets = tuple(int(o) for o in meta["stencil_offsets"])
-    blocks = np.asarray(arrays["blocks"])
-    nrb = blocks.shape[-1]
-    # copies: arrays handed over from another framework may be read-only
-    blocks_flat = np.array(blocks.reshape(len(offsets) * br * br, nrb), order="C")
-    dtype = blocks_flat.dtype
+    fmt = meta.get("fmt", "stencil")
 
-    def dev(name):
+    def dev(name, dtype=None):
+        # copies: arrays handed over from another framework may be read-only
         return torch.from_numpy(np.array(arrays[name], dtype=dtype, order="C")).to(device)
 
-    operands = StencilOperands(
-        blocks_flat=torch.from_numpy(blocks_flat).to(device), offsets=offsets,
-        br=br, inv_f=dev("inv_f"), yq3=dev("yq3"), ac_inv=dev("ac_inv"))
+    n_pad = int(meta["n_pad"])
+    if fmt == "stencil":
+        br = int(meta["br"])
+        offsets = tuple(int(o) for o in meta["stencil_offsets"])
+        blocks = np.asarray(arrays["blocks"])
+        blocks_flat = blocks.reshape(len(offsets) * br * br, blocks.shape[-1])
+        dtype = blocks_flat.dtype
+        bj2l = arrays.get("yq3") is not None
+        operands = StencilOperands(
+            blocks_flat=torch.from_numpy(np.array(blocks_flat, order="C")).to(device),
+            offsets=offsets, br=br, inv_f=dev("inv_f", dtype),
+            yq3=dev("yq3", dtype) if bj2l else None,
+            ac_inv=dev("ac_inv", dtype) if bj2l else None)
+    else:
+        bj = BlockJacobi(factors=dev("bj_factors"),
+                         gather_idx=dev("bj_gather_idx", np.int64),
+                         inv_perm=dev("bj_inv_perm", np.int64),
+                         mode=meta["bj_mode"])
+        if fmt == "ell":
+            operands = EllOperands(
+                mat=EllMatrix(dev("ell_vals"), dev("ell_cols", np.int32),
+                              (n_pad, n_pad)),
+                bj=bj)
+        elif fmt in ("block_ell", "block_ell_xla"):
+            operands = BlockEllOperands(
+                mat=BlockEllMatrix(dev("bell_blocks"), dev("bell_blkcols", np.int32),
+                                   (n_pad, int(meta["ncols_pad"]))),
+                bj=bj, kernel=fmt == "block_ell")
+        else:
+            raise ValueError(f"unknown fmt {fmt!r}")
+        dtype = np.asarray(arrays["bj_factors"]).dtype
     layout = RowLayout(
-        n=int(meta["n"]), n_pad=int(meta["n_pad"]), nshards=1,
+        n=int(meta["n"]), n_pad=n_pad, nshards=1,
         rows_per_shard=int(meta["rows_per_shard"]),
         perm=np.asarray(arrays["perm"]), inv_perm=np.asarray(arrays["inv_perm"]),
         offsets=np.asarray(arrays["layout_offsets"]))

@@ -1,8 +1,18 @@
-"""Stencil block-sparse formats and panel layouts.
+"""Sparse formats (ELL, block-ELL, stencil block-sparse) and panel layouts.
 
-The host conversion is numpy (a copy of ``prealps_tpu/ops/formats.py``
-``csr_to_stencil_bsr``/``_t``); the blocks then move to the requested
-device as one tensor.
+The host conversions are numpy copies of ``prealps_tpu/ops/formats.py``
+(``csr_to_ell``, ``csr_to_block_ell``, ``csr_to_stencil_bsr``/``_t``) and
+give the same arrays bit for bit; the arrays then move to the requested
+device as tensors.
+
+General formats (row-major (n, t) panels):
+
+* ELL        vals (n, L), cols (n, L) int32: every row padded to the longest
+             row L; padding entries have value 0 and column 0.
+* block-ELL  blocks (nrb, S, bm, bk), blkcols (nrb, S) int32: for each bm-row
+             block, its S bk-wide column blocks with nonzeros, padded to the
+             longest such list; padding slots point at column block 0 and
+             hold zeros, so they add nothing.
 
 A stencil operator stores, for each node r and each of S constant node
 offsets o_s, one dense br×br block:  y_r = Σ_s B[r, s] · x_{r + o_s}.
@@ -24,6 +34,82 @@ from dataclasses import dataclass
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+
+@dataclass
+class EllMatrix:
+    vals: torch.Tensor   # (n, L)
+    cols: torch.Tensor   # (n, L) int32
+    shape: tuple         # (n, ncols)
+
+
+@dataclass
+class BlockEllMatrix:
+    blocks: torch.Tensor   # (nrb, S, bm, bk)
+    blkcols: torch.Tensor  # (nrb, S) int32
+    shape: tuple           # (n_pad, ncols_pad): multiples of bm and bk
+
+    @property
+    def bm(self) -> int:
+        return int(self.blocks.shape[2])
+
+    @property
+    def bk(self) -> int:
+        return int(self.blocks.shape[3])
+
+
+def csr_to_ell(a: sp.spmatrix, ncols: int | None = None, dtype=None,
+               device="cpu") -> EllMatrix:
+    """CSR -> ELL on ``device``: rows padded to the longest row L."""
+    a = sp.csr_matrix(a)
+    n = a.shape[0]
+    row_len = np.diff(a.indptr)
+    ell_width = max(int(row_len.max()), 1)
+    vals = np.zeros((n, ell_width), dtype=dtype or a.dtype)
+    cols = np.zeros((n, ell_width), dtype=np.int32)
+    rows = np.repeat(np.arange(n), row_len)
+    slot = np.arange(a.nnz) - np.repeat(a.indptr[:-1], row_len)
+    vals[rows, slot] = a.data
+    cols[rows, slot] = a.indices
+    return EllMatrix(torch.from_numpy(vals).to(device),
+                     torch.from_numpy(cols).to(device),
+                     (n, ncols if ncols is not None else a.shape[1]))
+
+
+def csr_to_block_ell(a: sp.spmatrix, bm: int = 8, bk: int = 128,
+                     ncols: int | None = None, dtype=None,
+                     device="cpu") -> BlockEllMatrix:
+    """CSR -> block-ELL on ``device``; n is padded to a multiple of bm and
+    the column count to a multiple of bk."""
+    a = sp.csr_matrix(a)
+    n, m = a.shape
+    ncols = ncols if ncols is not None else m
+    n_pad = -(-n // bm) * bm
+    ncols_pad = -(-ncols // bk) * bk
+    nrb = n_pad // bm
+    ncb = ncols_pad // bk
+
+    coo = a.tocoo()
+    rb = coo.row // bm
+    cb = coo.col // bk
+    # unique (row block, column block) pairs, in order
+    pair_key = rb.astype(np.int64) * ncb + cb
+    uniq_keys = np.unique(pair_key)
+    uniq_rb = (uniq_keys // ncb).astype(np.int64)
+    uniq_cb = (uniq_keys % ncb).astype(np.int64)
+    counts_per_rb = np.bincount(uniq_rb, minlength=nrb)
+    s_max = max(int(counts_per_rb.max() if counts_per_rb.size else 0), 1)
+    # slot of each pair within its row block
+    slot_of_uniq = np.arange(uniq_keys.size) - np.concatenate(
+        [[0], np.cumsum(counts_per_rb)])[uniq_rb]
+
+    blocks = np.zeros((nrb, s_max, bm, bk), dtype=dtype or a.dtype)
+    blkcols = np.zeros((nrb, s_max), dtype=np.int32)
+    blkcols[uniq_rb, slot_of_uniq] = uniq_cb
+    slot = slot_of_uniq[np.searchsorted(uniq_keys, pair_key)]
+    blocks[rb, slot, coo.row % bm, coo.col % bk] = coo.data
+    return BlockEllMatrix(torch.from_numpy(blocks).to(device),
+                          torch.from_numpy(blkcols).to(device), (n_pad, ncols_pad))
 
 
 @dataclass

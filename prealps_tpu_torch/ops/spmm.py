@@ -1,4 +1,20 @@
-"""Stencil-BSR SpMM: the CUDA kernel's wrapper and its plain versions.
+"""SpMM: the CUDA kernels' wrappers and their plain versions.
+
+General formats, row-major (n, t) panels:
+
+* ``ell_spmm`` — ELL gather + contraction (the XLA formulation of
+  ``prealps_tpu/ops/spmm.py::ell_spmm``).
+* ``ell_gather_spmm_df`` — the same contraction in double-float (hi, lo),
+  for the refinement residual of ``fmt="ell"``; eager PyTorch, like
+  ``stencil_scan_accumulate_df`` below.
+* ``block_ell_spmm`` — block-ELL gather + contraction: the plain version of
+  the block-ELL kernel, and the route of ``fmt="block_ell_xla"``.
+* ``block_ell_spmm_pallas`` — the block-ELL SpMM (the TPU kernel
+  ``prealps_tpu/ops/spmm.py::block_ell_spmm_pallas``). CUDA tensors launch
+  the hand-written kernel (``csrc/block_ell.cu``), CPU tensors run
+  ``block_ell_spmm``; anything else raises.
+
+Stencil formats, lane-major panels:
 
 * ``stencil_flat_ext`` — the flat stencil SpMM on a pre-extended k-major
   panel (the TPU kernel ``prealps_tpu/ops/spmm.py::stencil_flat_ext``). For
@@ -24,6 +40,83 @@ import torch
 
 from prealps_tpu_torch.ops import _kernels
 from prealps_tpu_torch.ops.doublefloat import two_prod, two_sum
+from prealps_tpu_torch.ops.formats import BlockEllMatrix, EllMatrix
+
+
+def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x with A in ELL. x: (ncols, t) -> y: (n, t)."""
+    return torch.einsum("nl,nlt->nt", a.vals, x[a.cols])
+
+
+def ell_gather_spmm_df(vals: torch.Tensor, gathered: torch.Tensor):
+    """einsum('ml,mlt->mt') in double-float: returns (y_hi, y_lo).
+
+    vals: (m, L) ELL values; gathered: (m, L, t) pre-gathered x rows. Every
+    product is an error-free two_prod and the L-axis reduction a compensated
+    two_sum, in slot order (the JAX version's scan)."""
+    p, e = two_prod(vals[:, :, None], gathered)     # (m, L, t)
+    hi = torch.zeros((p.shape[0], p.shape[2]), dtype=p.dtype, device=p.device)
+    lo = torch.zeros_like(hi)
+    for j in range(p.shape[1]):
+        hi, e1 = two_sum(hi, p[:, j])
+        lo = lo + (e1 + e[:, j])
+    return hi, lo
+
+
+def block_ell_spmm(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x with A in block-ELL, plain PyTorch. x: (ncols_pad, t).
+
+    Gathers the (nrb, S, bk, t) tensor of referenced X blocks first (t/bm
+    times the bytes of the blocks themselves), then contracts."""
+    nrb, _, bm, bk = a.blocks.shape
+    t = x.shape[1]
+    gathered = x.reshape(-1, bk, t)[a.blkcols]       # (nrb, S, bk, t)
+    y = torch.einsum("rsmk,rskt->rmt", a.blocks, gathered)
+    return y.reshape(nrb * bm, t)
+
+
+def block_ell_spmm_pallas(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Block-ELL SpMM -> (n_pad, t); x: (ncols_pad, t) = (a.shape[1], t).
+
+    CPU tensors run ``block_ell_spmm``. CUDA tensors launch the CUDA kernel,
+    which takes f32 contiguous operands on one card with bm = 8 and bk a
+    multiple of 8 up to 128, and count one launch in
+    ``block_ell_spmm_pallas.launches``.
+    """
+    blocks, blkcols = a.blocks, a.blkcols
+    if blocks.dim() != 4 or blkcols.shape != blocks.shape[:2]:
+        raise ValueError(f"block-ELL blocks {tuple(blocks.shape)} and blkcols "
+                         f"{tuple(blkcols.shape)} do not match")
+    nrb, s_max, bm, bk = blocks.shape
+    if x.dim() != 2 or x.shape[0] != a.shape[1] or x.shape[0] % bk:
+        raise ValueError(f"x has shape {tuple(x.shape)}; expected "
+                         f"({a.shape[1]}, t) with a multiple of bk={bk} rows")
+    devs = {blocks.device, blkcols.device, x.device}
+    if devs == {torch.device("cpu")}:
+        return block_ell_spmm(a, x)
+    if len(devs) != 1 or blocks.device.type != "cuda":
+        raise ValueError(f"block_ell_spmm_pallas: operands on {sorted(map(str, devs))}; "
+                         "all must be on one CUDA card (or all on the CPU)")
+    if blocks.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"block_ell_spmm_pallas kernel takes float32, got "
+                        f"{blocks.dtype} and {x.dtype}")
+    if blkcols.dtype != torch.int32:
+        raise TypeError(f"blkcols must be int32, got {blkcols.dtype}")
+    if not (blocks.is_contiguous() and blkcols.is_contiguous() and x.is_contiguous()):
+        raise ValueError("block_ell_spmm_pallas kernel takes contiguous operands")
+    if bm != 8 or bk % 8 or not 8 <= bk <= 128:
+        raise ValueError(f"block_ell_spmm_pallas kernel takes bm = 8 and bk a "
+                         f"multiple of 8 up to 128, got bm={bm} bk={bk}")
+    t = x.shape[1]
+    y = torch.empty((nrb * bm, t), dtype=torch.float32, device=x.device)
+    if nrb == 0 or t == 0:
+        return y
+    _kernels.block_ell_f32(blocks, blkcols, x, y, s_max, bk, t)
+    block_ell_spmm_pallas.launches += 1
+    return y
+
+
+block_ell_spmm_pallas.launches = 0
 
 
 def stencil_flat_ext_ref(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,

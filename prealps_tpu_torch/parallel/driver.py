@@ -1,27 +1,41 @@
-"""DistributedECG on one GPU: stencil operator, two-level block Jacobi, ECG.
+"""DistributedECG on one GPU.
 
-The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` for the path
-of the headline solve: ``fmt="stencil"``, ``layout="tbn"``,
-``precond="bj2l"``, one device (``nshards=1``), float32 or float64.
+The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
+(``nshards=1``), float32 or float64, for these paths:
+
+* ``fmt="stencil"``, ``layout="tbn"`` (lane-major panels), with
+  ``precond="bj2l"`` (two-level block Jacobi, the headline solve) or
+  ``precond="bj"`` (device block Jacobi, the JAX driver's "bj_flat");
+* ``fmt="ell"``, ``"block_ell"`` or ``"block_ell_xla"``, ``layout="nt"``
+  (row-major panels), with ``precond="bj"`` (block Jacobi built on the
+  host: RCM-ordered blocks, f64 factors) — the general-sparse path.
 
 Build (host, then device):
-  RAC scaling -> contiguous row layout with padded identity rows -> stencil
-  block table (flat (S·br², nrb) on the device) -> device block-Jacobi
-  inverses -> geometric rigid-body coarse space and its banded-Cholesky
-  coarse inverse on the host.
+  RAC scaling -> row layout with padded identity rows (stencil: contiguous;
+  general: ``build_row_layout``) -> format conversion -> preconditioner.
+
+Each format has an operands object with the same surface (``a_apply``,
+``a_apply_df``, ``m_apply``, ``split_assign`` and the panel helpers), so the
+solve does not branch on the format.
 
 Solve:
   * float64 (or tol above ``inner_tol``): one ECG solve on the device.
-  * float32 with tol below ``inner_tol``: iterative refinement on the
-    device. Each round runs an f32 ECG solve to ``inner_tol`` (with a stall
-    window) and recomputes the residual in double-float (compensated
-    stencil SpMM), so the rounds reach tolerances below the f32 floor. The
-    result is then checked against a host f64 residual, and host-f64
-    refinement rounds polish it if the device rounds fell short.
+  * float32 with tol below ``inner_tol``: iterative refinement. Where a
+    double-float SpMM exists (stencil, ell), the rounds run on the device:
+    each runs an f32 ECG solve to ``inner_tol`` (with a stall window) and
+    recomputes the residual in double-float, so the rounds reach
+    tolerances below the f32 floor; the result is then checked against a
+    host f64 residual, and host-f64 rounds polish it if the device rounds
+    fell short. Block-ELL has no double-float product: its rounds take host
+    f64 residuals with device inner solves, as in the JAX driver.
 
-The operator apply attaches single-shard wrap halos and runs the flat
-stencil kernel (``ops/spmm.py::stencil_flat_ext``: the CUDA kernel on the
-card, plain PyTorch on the CPU).
+The operator applies go through the hand-written CUDA kernels on the card
+(``ops/spmm.py::stencil_flat_ext``, ``block_ell_spmm_pallas``) and their
+plain PyTorch versions on the CPU.
+
+Not ported (NotImplementedError): ``nshards > 1``, ``fmt="dia"``/``"auto"``,
+the nt stencil path, ``precond`` chebyshev/none, the bf16 (``bj_lane``) and
+deduplicated (``bj_dedup``) block Jacobi, bj2l without ``grid=``.
 """
 
 from __future__ import annotations
@@ -29,7 +43,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field, replace
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import scipy.linalg as sla
@@ -39,24 +53,37 @@ import torch
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import (
     RowLayout,
+    build_row_layout,
     contiguous_row_layout,
     pad_to_padded,
     permute_and_pad_matrix,
     unpad_from_padded,
 )
 from prealps_tpu_torch.core.scaling import sym_rac_scaling
-from prealps_tpu_torch.direct.device_bj import build_device_block_jacobi_flat
+from prealps_tpu_torch.direct.device_bj import (
+    bj_apply_flat,
+    build_device_block_jacobi_flat,
+)
 from prealps_tpu_torch.ops.doublefloat import df_add
 from prealps_tpu_torch.ops.formats import (
+    BlockEllMatrix,
+    EllMatrix,
+    csr_to_block_ell,
+    csr_to_ell,
     panel_from_flat_kmajor,
     panel_to_flat_kmajor,
     stencil_blocks_host,
 )
 from prealps_tpu_torch.ops.spmm import (
+    block_ell_spmm,
+    block_ell_spmm_pallas,
+    ell_gather_spmm_df,
+    ell_spmm,
     extend_wrap,
     stencil_flat_ext,
     stencil_scan_accumulate_df,
 )
+from prealps_tpu_torch.precond.block_jacobi import BlockJacobi, build_block_jacobi
 from prealps_tpu_torch.precond.twolevel import (
     bj2l_apply,
     coarse_matrix_host,
@@ -98,16 +125,71 @@ def coarse_inverse_host(ac: np.ndarray) -> np.ndarray:
     return 0.5 * (ac_inv + ac_inv.T)
 
 
+class _LaneMajor:
+    """Lane-major ("tbn") panels: a padded vector is the (br, nrb) space."""
+
+    layout = "tbn"
+
+    def to_space(self, v_pad: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(v_pad.reshape(-1, self.br).T)
+
+    def from_space(self, v: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(v.T).reshape(-1)
+
+    @staticmethod
+    def expand(v):
+        return v[None]
+
+    @staticmethod
+    def squeeze(p):
+        return p[0]
+
+
+class _RowMajor:
+    """Row-major ("nt") panels: a padded vector is the (n_pad,) space."""
+
+    layout = "nt"
+
+    @staticmethod
+    def to_space(v_pad: np.ndarray) -> np.ndarray:
+        return v_pad
+
+    @staticmethod
+    def from_space(v: np.ndarray) -> np.ndarray:
+        return v
+
+    @staticmethod
+    def expand(v):
+        return v[:, None]
+
+    @staticmethod
+    def squeeze(p):
+        return p[:, 0]
+
+    def split_assign(self, t: int, n_pad: int) -> torch.Tensor:
+        """rhs split (n_pad,): row g goes to column (g·t) // n_pad."""
+        return (torch.arange(n_pad, device=self.bj.factors.device) * t) // n_pad
+
+
 @dataclass
-class StencilOperands:
-    """Device operands of the stencil + bj2l solve."""
+class StencilOperands(_LaneMajor):
+    """Device operands of the stencil path: the flat block table and the
+    block-Jacobi inverses, plus the coarse space of two-level block Jacobi
+    (precond="bj2l"); without them the preconditioner is plain block Jacobi
+    (precond="bj", the JAX driver's "bj_flat")."""
 
     blocks_flat: torch.Tensor   # (S·br², nrb) block table
     offsets: tuple              # S node offsets
     br: int
     inv_f: torch.Tensor         # (nb, mb, mb) block inverses
-    yq3: torch.Tensor           # (nb, q, mb) coarse modes
-    ac_inv: torch.Tensor        # (nb·q, nb·q) coarse inverse
+    yq3: Optional[torch.Tensor] = None     # (nb, q, mb) coarse modes
+    ac_inv: Optional[torch.Tensor] = None  # (nb·q, nb·q) coarse inverse
+
+    df_ok = True
+
+    @property
+    def precond_kind(self) -> str:
+        return "bj_flat" if self.yq3 is None else "bj2l"
 
     @property
     def nrb(self) -> int:
@@ -132,6 +214,8 @@ class StencilOperands:
                                           extend_wrap(x, self.halo), self.halo)
 
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
+        if self.yq3 is None:
+            return bj_apply_flat(self.inv_f, z)
         return bj2l_apply(self.inv_f, self.yq3, self.ac_inv, z)
 
     def split_assign(self, t: int, n_pad: int) -> torch.Tensor:
@@ -143,9 +227,195 @@ class StencilOperands:
         return ((r_idx * self.br + k_idx) * t) // n_pad
 
 
+@dataclass
+class EllOperands(_RowMajor):
+    """Device operands of fmt="ell": ELL matrix + host-built block Jacobi.
+    The refinement residual runs on the device in double-float."""
+
+    mat: EllMatrix
+    bj: BlockJacobi
+
+    df_ok = True
+
+    def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        return ell_spmm(self.mat, x)
+
+    def a_apply_df(self, x: torch.Tensor):
+        return ell_gather_spmm_df(self.mat.vals, x[self.mat.cols])
+
+    def m_apply(self, z: torch.Tensor) -> torch.Tensor:
+        return self.bj.apply(z)
+
+
+@dataclass
+class BlockEllOperands(_RowMajor):
+    """Device operands of fmt="block_ell" (the block-ELL kernel,
+    ``block_ell_spmm_pallas``) and fmt="block_ell_xla" (its plain version,
+    ``block_ell_spmm``), with host-built block Jacobi. There is no
+    double-float block-ELL product: refinement residuals are host f64."""
+
+    mat: BlockEllMatrix
+    bj: BlockJacobi
+    kernel: bool = True
+
+    df_ok = False
+
+    def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.mat.shape[1] - x.shape[0]
+        if pad:
+            x = torch.cat([x, torch.zeros((pad, x.shape[1]), dtype=x.dtype,
+                                          device=x.device)])
+        if self.kernel:
+            return block_ell_spmm_pallas(self.mat, x.contiguous())
+        return block_ell_spmm(self.mat, x)
+
+    def a_apply_df(self, x: torch.Tensor):
+        raise NotImplementedError(
+            "double-float A-apply exists only for stencil(tbn)/ell")
+
+    def m_apply(self, z: torch.Tensor) -> torch.Tensor:
+        return self.bj.apply(z)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+Operands = Union[StencilOperands, EllOperands, BlockEllOperands]
+_LATER = "is not ported yet (ROADMAP.md queue A, item 1)"
+
+
+def build_sharded_block_jacobi(a_pad: sp.csr_matrix, layout: RowLayout,
+                               nblocks_per_shard: int = 1, dtype=None,
+                               device="cpu") -> BlockJacobi:
+    """Block Jacobi of the shard's diagonal block with local row indexing
+    (prealps_tpu/parallel/driver.py:46-70), on one shard."""
+    if layout.nshards != 1:
+        raise NotImplementedError(
+            "block Jacobi over several shards is not ported yet (ROADMAP.md "
+            "queue A, item 3)")
+    mpl = layout.rows_per_shard
+    local = a_pad if a_pad.shape[0] == mpl else a_pad[:mpl, :mpl]
+    return build_block_jacobi(local, nblocks=nblocks_per_shard, dtype=dtype,
+                              device=device)
+
+
+def _check_options(fmt, precond, opts, grid, bj_dtype, bj_dedupe) -> str:
+    """Refuse what is not ported (NotImplementedError) or not valid
+    (ValueError, as the JAX driver); returns the preconditioner's kind."""
+    if fmt in ("dia", "auto"):
+        raise NotImplementedError(f"fmt={fmt!r} {_LATER}")
+    if fmt not in ("stencil", "ell", "block_ell", "block_ell_xla"):
+        raise ValueError(f"unknown fmt {fmt!r}")
+    lane_major = opts.layout == "tbn"
+    if lane_major and fmt != "stencil":
+        raise ValueError("layout='tbn' requires fmt='stencil' or 'dia'")
+    if fmt == "stencil" and not lane_major:
+        raise NotImplementedError(
+            f"fmt='stencil' with layout={opts.layout!r} {_LATER}; the port "
+            "runs the stencil format on layout='tbn'")
+    if precond in ("bj2l", "block_jacobi_2l"):
+        if not lane_major:
+            raise ValueError(
+                "bj2l requires the lane-major fast path: fmt='stencil' with "
+                f"layout='tbn'; got fmt={fmt!r}, layout={opts.layout!r}")
+        if grid is None:
+            raise NotImplementedError(
+                f"bj2l without grid= (translation-only coarse modes) {_LATER}; "
+                "pass the node grid")
+        return "bj2l"
+    if precond in ("block_jacobi", "bj"):
+        if lane_major and bj_dtype == "bf16":
+            raise NotImplementedError(f"bj_dtype='bf16' (bj_lane) {_LATER}")
+        if lane_major and bj_dedupe and grid is not None:
+            raise NotImplementedError(
+                f"bj_dedupe=True with grid= (grid-aligned bj_dedup) {_LATER}; "
+                "pass bj_dedupe=False or grid=None")
+        return "bj_flat" if lane_major else "bj"
+    if precond in ("chebyshev", "cheby", "none", "identity", "noprec"):
+        raise NotImplementedError(f"precond={precond!r} {_LATER}")
+    raise ValueError(
+        f"DistributedECG supports block_jacobi/bj2l/chebyshev/none, got {precond!r}")
+
+
+def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
+                      stage):
+    """Stencil path: contiguous layout, flat block table, device block
+    Jacobi (+ the bj2l coarse space)."""
+    # device block Jacobi: node-block size, a multiple of 8 nodes
+    mbn = max(8, (int(block_size or 1024) // br // 8) * 8)
+    mult = math.lcm(math.lcm(8, br), mbn * br)
+    layout = contiguous_row_layout(a.shape[0], 1, row_multiple=mult)
+    a_pad = permute_and_pad_matrix(a, layout)
+    stage("layout")
+
+    host = stencil_blocks_host(a_pad, br=br, dtype=dtype)
+    if host is None:
+        raise ValueError("matrix is not stencil-structured; use fmt='ell' or "
+                         "'block_ell'")
+    blocks_host, offsets = host
+    s_off = len(offsets)
+    nrb = layout.n_pad // br
+    if max(abs(o) for o in offsets) > nrb:
+        raise ValueError(f"stencil halo exceeds the node count {nrb}")
+    # flat (S·br², nrb) table: row s·br² + m·br + k
+    blocks_flat = torch.from_numpy(np.ascontiguousarray(
+        blocks_host.transpose(1, 2, 3, 0).reshape(s_off * br * br, nrb)
+    )).to(device)
+    del blocks_host
+    _sync(device)
+    stage("fmt_convert")
+
+    inv_f = build_device_block_jacobi_flat(
+        blocks_flat.reshape(s_off, br, br, nrb), offsets, mbn=mbn)
+    ops = StencilOperands(blocks_flat=blocks_flat, offsets=offsets, br=br,
+                          inv_f=inv_f)
+    if kind == "bj2l":
+        nb = inv_f.shape[0]
+        mb = br * mbn
+        d_pad = pad_to_padded(layout, scale_d) if scale_d is not None else None
+        y5 = geometric_rbm_modes(grid, br, nrb, mbn, scale_d=d_pad, q=Q_MODES)
+        ac = coarse_matrix_host(a_pad, y5, br)
+        # padded rows carry identity blocks; their modes can make A_c
+        # ill-conditioned — regularise lightly
+        nc = ac.shape[0]
+        ac += 1e-10 * np.trace(ac) / nc * np.eye(nc)
+        ac_inv = coarse_inverse_host(ac).astype(dtype)
+        yq3 = np.ascontiguousarray(
+            y5.transpose(0, 3, 1, 2).reshape(nb, -1, mb)).astype(dtype)
+        ops.yq3 = torch.from_numpy(yq3).to(device)
+        ops.ac_inv = torch.from_numpy(ac_inv).to(device)
+    _sync(device)
+    stage("precond")
+    return layout, ops
+
+
+def _general_operands(a, fmt, block_size, nblocks_per_shard, dtype, device,
+                      stage):
+    """General path: partition layout, ELL / block-ELL, host block Jacobi."""
+    bell = fmt in ("block_ell", "block_ell_xla")
+    # block-ELL moves whole bk = 128 column blocks: rows pad to 128
+    layout = build_row_layout(a, 1, row_multiple=128 if bell else 8)
+    a_pad = permute_and_pad_matrix(a, layout)
+    stage("layout")
+
+    if bell:
+        mat = csr_to_block_ell(a_pad, bm=8, bk=128, dtype=dtype, device=device)
+    else:
+        mat = csr_to_ell(a_pad, dtype=dtype, device=device)
+    _sync(device)
+    stage("fmt_convert")
+
+    if block_size is not None:
+        nblocks_per_shard = max(1, -(-layout.rows_per_shard // block_size))
+    bj = build_sharded_block_jacobi(a_pad, layout, nblocks_per_shard,
+                                    dtype=dtype, device=device)
+    ops = (BlockEllOperands(mat=mat, bj=bj, kernel=fmt == "block_ell") if bell
+           else EllOperands(mat=mat, bj=bj))
+    _sync(device)
+    stage("precond")
+    return layout, ops
 
 
 @dataclass
@@ -155,7 +425,7 @@ class DistributedECG:
     layout: RowLayout
     opts: ECGOptions
     scale_d: Optional[np.ndarray]          # RAC scaling vector
-    operands: StencilOperands
+    operands: Operands
     device: torch.device
     dtype: np.dtype
     target_tol: float = 0.0
@@ -168,40 +438,32 @@ class DistributedECG:
         a: sp.spmatrix,
         nshards: Optional[int] = 1,
         opts: ECGOptions = ECGOptions(),
-        precond: str = "bj2l",
+        precond: str = "block_jacobi",
         scale: bool = True,
+        nblocks_per_shard: int = 1,
         block_size: Optional[int] = None,
         dtype=None,
-        fmt: str = "stencil",
+        fmt: str = "ell",
         br: int = 3,
         refine: Optional[bool] = None,
         inner_tol: float = 1e-3,
         grid: Optional[tuple] = None,
+        bj_dtype: str = "f32",
+        bj_dedupe: bool = True,
         device="cuda",
     ) -> "DistributedECG":
         """Build the solver on ``device`` (default "cuda", which raises
-        when there is no card; pass device="cpu" to run on the host)."""
+        when there is no card; pass device="cpu" to run on the host). The
+        other defaults are the JAX driver's: fmt="ell", precond=
+        "block_jacobi", and one block-Jacobi block per shard unless
+        block_size is given."""
         device = resolve_device(device)
         strict_fp32()
         if nshards not in (None, 1):
             raise NotImplementedError(
                 f"nshards={nshards}: the multi-GPU driver is not ported yet "
-                "(ROADMAP.md queue A, item 4)")
-        if fmt != "stencil":
-            raise NotImplementedError(
-                f"fmt={fmt!r} is not ported yet (ROADMAP.md queue A, item 2); "
-                "the port runs fmt='stencil'")
-        if precond not in ("bj2l", "block_jacobi_2l"):
-            raise NotImplementedError(
-                f"precond={precond!r} is not ported yet (ROADMAP.md queue A, "
-                "item 2); the port runs precond='bj2l'")
-        if opts.layout != "tbn":
-            raise ValueError("precond='bj2l' requires layout='tbn' "
-                             f"(got {opts.layout!r})")
-        if grid is None:
-            raise NotImplementedError(
-                "bj2l without grid= (translation-only coarse modes) is not "
-                "ported yet (ROADMAP.md queue A, item 2); pass the node grid")
+                "(ROADMAP.md queue A, item 3)")
+        kind = _check_options(fmt, precond, opts, grid, bj_dtype, bj_dedupe)
         a = sp.csr_matrix(a)
         tb: dict = {}
         mark = [time.perf_counter()]
@@ -225,67 +487,17 @@ class DistributedECG:
             # remaining work to the next refinement round
             opts = replace(opts, tol=inner_tol,
                            stall_window=opts.stall_window or 250)
-
-        # device block Jacobi: node-block size, a multiple of 8 nodes
-        mbn = max(8, (int(block_size or 1024) // br // 8) * 8)
-        mult = math.lcm(math.lcm(8, br), mbn * br)
-        layout = contiguous_row_layout(a.shape[0], 1, row_multiple=mult)
-        a_pad = permute_and_pad_matrix(a, layout)
-        stage("layout")
-
-        host = stencil_blocks_host(a_pad, br=br, dtype=dtype)
-        if host is None:
-            raise ValueError("matrix is not stencil-structured")
-        blocks_host, offsets = host
-        s_off = len(offsets)
-        n_pad = layout.n_pad
-        nrb = n_pad // br
-        if max(abs(o) for o in offsets) > nrb:
-            raise ValueError(f"stencil halo exceeds the node count {nrb}")
-        # flat (S·br², nrb) table: row s·br² + m·br + k
-        blocks_flat = torch.from_numpy(np.ascontiguousarray(
-            blocks_host.transpose(1, 2, 3, 0).reshape(s_off * br * br, nrb)
-        )).to(device)
-        del blocks_host
-        _sync(device)
-        stage("fmt_convert")
-
-        blocks_t = blocks_flat.reshape(s_off, br, br, nrb)
-        inv_f = build_device_block_jacobi_flat(blocks_t, offsets, mbn=mbn)
-        nb = inv_f.shape[0]
-        mb = br * mbn
-        d_pad = pad_to_padded(layout, scale_d) if scale_d is not None else None
-        y5 = geometric_rbm_modes(grid, br, nrb, mbn, scale_d=d_pad, q=Q_MODES)
-        ac = coarse_matrix_host(a_pad, y5, br)
-        # padded rows carry identity blocks; their modes can make A_c
-        # ill-conditioned — regularise lightly
-        nc = ac.shape[0]
-        ac += 1e-10 * np.trace(ac) / nc * np.eye(nc)
-        ac_inv = coarse_inverse_host(ac).astype(dtype)
-        yq3 = np.ascontiguousarray(
-            y5.transpose(0, 3, 1, 2).reshape(nb, -1, mb)).astype(dtype)
-        operands = StencilOperands(
-            blocks_flat=blocks_flat, offsets=offsets, br=br, inv_f=inv_f,
-            yq3=torch.from_numpy(yq3).to(device),
-            ac_inv=torch.from_numpy(ac_inv).to(device))
-        _sync(device)
-        stage("precond")
+        if fmt == "stencil":
+            layout, operands = _stencil_operands(
+                a, kind, br, block_size, grid, scale_d, dtype, device, stage)
+        else:
+            layout, operands = _general_operands(
+                a, fmt, block_size, nblocks_per_shard, dtype, device, stage)
         return cls(
             layout=layout, opts=opts, scale_d=scale_d, operands=operands,
             device=device, dtype=dtype, target_tol=target_tol,
             a_scaled=a if refine else None, timings=tb,
         )
-
-    # --- panels <-> host vectors ------------------------------------------
-
-    def _to_lane_major(self, v_pad: np.ndarray) -> np.ndarray:
-        """(n_pad,) padded vector -> (br, nrb)."""
-        return np.ascontiguousarray(v_pad.reshape(-1, self.operands.br).T)
-
-    def _from_lane_major(self, v: np.ndarray) -> np.ndarray:
-        """(br, nrb) -> original-order vector."""
-        return unpad_from_padded(self.layout,
-                                 np.ascontiguousarray(v.T).reshape(-1))
 
     def _ecg(self, rhs: torch.Tensor) -> ECGResult:
         ops = self.operands
@@ -297,10 +509,11 @@ class DistributedECG:
 
     def _solve_scaled_once(self, b_eff: np.ndarray):
         """One device ECG solve of the scaled, padded system."""
+        ops = self.operands
         b_pad = pad_to_padded(self.layout, b_eff.astype(self.dtype))
-        rhs = torch.from_numpy(self._to_lane_major(b_pad)).to(self.device)
+        rhs = torch.from_numpy(ops.to_space(b_pad)).to(self.device)
         res = self._ecg(rhs)
-        x = self._from_lane_major(res.x.cpu().numpy())
+        x = unpad_from_padded(self.layout, ops.from_space(res.x.cpu().numpy()))
         info = {
             "iters": int(res.iters),
             "res": float(res.res),
@@ -314,7 +527,8 @@ class DistributedECG:
     def local_refine(self, b_hi: torch.Tensor, b_lo: torch.Tensor):
         """Mixed-precision iterative refinement on the device.
 
-        b = b_hi + b_lo (double-float, lane-major (br, nrb)). Each round
+        b = b_hi + b_lo (double-float, in the operands' space: (br, nrb)
+        lane-major or (n_pad,) row-major). Each round
         runs an f32 ECG solve on the current residual, adds the correction
         to x in double-float, and recomputes r = b − A·x with the
         compensated SpMM (A·x_hi in double-float, A·x_lo in f32). Stops
@@ -324,9 +538,9 @@ class DistributedECG:
         ops = self.operands
 
         def resid(xh, xl):
-            yh, yl = ops.a_apply_df(xh[None])
-            y2 = ops.a_apply(xl[None])[0]
-            rh, rl = df_add((b_hi, b_lo), (-yh[0], -yl[0]))
+            yh, yl = ops.a_apply_df(ops.expand(xh))
+            y2 = ops.squeeze(ops.a_apply(ops.expand(xl)))
+            rh, rl = df_add((b_hi, b_lo), (-ops.squeeze(yh), -ops.squeeze(yl)))
             return df_add((rh, rl), (-y2, torch.zeros_like(y2)))
 
         def gnorm(v):
@@ -361,13 +575,15 @@ class DistributedECG:
             "bs": int(bs),
             "breakdown": bool(brk),
             "refine_rounds": rounds,
+            "device_rounds": rounds,
             "history": history.cpu().numpy(),
         }
         return xh, xl, info
 
     def _solve_refined_device(self, b_eff: np.ndarray):
         """Device-resident refinement, then a host f64 cross-check."""
-        b_pad = self._to_lane_major(pad_to_padded(self.layout, b_eff))  # f64
+        ops = self.operands
+        b_pad = ops.to_space(pad_to_padded(self.layout, b_eff))  # f64
         b_hi = b_pad.astype(np.float32)
         b_lo = (b_pad - b_hi.astype(np.float64)).astype(np.float32)
         xh, xl, info = self.local_refine(
@@ -375,7 +591,7 @@ class DistributedECG:
             torch.from_numpy(b_lo).to(self.device))
         x_np = (xh.cpu().numpy().astype(np.float64)
                 + xl.cpu().numpy().astype(np.float64))
-        x = self._from_lane_major(x_np)
+        x = unpad_from_padded(self.layout, ops.from_space(x_np))
         r = b_eff - self.a_scaled @ x
         info["res"] = float(np.linalg.norm(r))
         info["relres_scaled"] = float(info["res"] / np.linalg.norm(b_eff))
@@ -390,15 +606,16 @@ class DistributedECG:
             x, info = self._solve_scaled_once(b_eff)
         else:
             x0, info0 = None, None
-            if self.dtype == np.float32:
+            if self.dtype == np.float32 and self.operands.df_ok:
                 x0, info0 = self._solve_refined_device(b_eff)
                 if (info0["relres_scaled"] <= self.target_tol
                         or info0["breakdown"]):
                     if self.scale_d is not None:
                         x0 = self.scale_d * x0
                     return x0, info0
-            # the device rounds stopped above the target (or refinement was
-            # requested in f64): host f64 residuals, device solves
+            # the device rounds stopped above the target, the format has no
+            # double-float product (block-ELL), or refinement was requested
+            # in f64: host f64 residuals, device solves
             a = self.a_scaled
             normb = np.linalg.norm(b_eff)
             x = np.zeros_like(b_eff) if x0 is None else x0
@@ -424,6 +641,7 @@ class DistributedECG:
             info = dict(info or info0 or {})
             info["iters"] = total_iters
             info["refine_rounds"] = rounds
+            info["device_rounds"] = 0 if info0 is None else info0["device_rounds"]
             info["res"] = float(np.linalg.norm(r))
             info["relres_scaled"] = float(np.linalg.norm(r) / normb)
 

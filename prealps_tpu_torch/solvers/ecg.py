@@ -1,9 +1,14 @@
-"""Enlarged Conjugate Gradient (ECG), stacked ODIR-fused variant.
+"""Enlarged Conjugate Gradient (ECG): omin, odir and odir_fused.
 
-The PyTorch counterpart of ``prealps_tpu/solvers/ecg.py`` for the path the
-headline solve takes: layout "tbn", variant "odir_fused", stacked state.
-The seven solver panels [X, R, P, P_prev, AP, AP_prev, Z] live in ONE flat
-(7t, N) tensor, so an iteration is
+The PyTorch counterpart of ``prealps_tpu/solvers/ecg.py``. Two state forms:
+
+* unstacked (``_iter_omin``, ``_iter_odir``, ``_iter_odir_fused``): the
+  panels X, R, P, AP, P_prev, AP_prev, Z are separate tensors and every
+  layout-dependent step goes through ``panels.NT`` (rows-major (m, t), the
+  general-sparse path) or ``panels.TBN`` (lane-major);
+* stacked ODIR-fused (the default for layout "tbn" + "odir_fused", the
+  headline stencil path): the seven panels [X, R, P, P_prev, AP, AP_prev, Z]
+  live in ONE flat (7t, N) tensor, so an iteration is
 
     G  = W Wᵀ                      one (7t)² Gram (all five t×t reductions)
     W' = Cᵀ W                      one coefficient GEMM composing the update
@@ -15,20 +20,25 @@ Python loop with the same stop rules (residual vs tol, maxiter, active
 block size, breakdown, stall window); evaluating them costs one host
 synchronisation per iteration.
 
-Other variants (omin, odir, unstacked odir_fused) and the row-major "nt"
-layout are not ported yet (ROADMAP.md queue A, item 1): ``ecg_solve``
-raises NotImplementedError for them.
+Not ported yet (ROADMAP.md queue A, item 1): the stacked omin state
+(``stacked=True`` with omin), the warm start ``ecg_solve(x0=...)`` and
+``ecg_run(max_steps=...)``; they raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from prealps_tpu_torch.ops.blockops import chol_masked, psum, tri_inv
-from prealps_tpu_torch.solvers.panels import TBN
+from prealps_tpu_torch.ops.blockops import (
+    chol_masked,
+    pivoted_cholesky,
+    psum,
+    tri_inv,
+)
+from prealps_tpu_torch.solvers.panels import LAYOUTS, TBN
 
 
 @dataclass(frozen=True)
@@ -96,20 +106,41 @@ class ECGState:
     stall: torch.Tensor      # 0-d int32: iterations since real progress
 
 
+@dataclass
+class ECGPanelState:
+    """Unstacked solver state: one tensor per panel, in the layout's panel
+    shape ((m, t) for "nt", (t, *space) for "tbn")."""
+
+    x_blk: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    ap: torch.Tensor
+    p_prev: torch.Tensor
+    ap_prev: torch.Tensor
+    z: torch.Tensor
+    mask: torch.Tensor
+    it: int
+    res: torch.Tensor
+    breakdown: torch.Tensor
+    history: torch.Tensor
+    best_res: torch.Tensor
+    stall: torch.Tensor
+
+
 _SX, _SR, _SP, _SPP, _SAP, _SAPP, _SZ = range(7)
 
-_LATER = ("not ported yet (ROADMAP.md queue A, item 1): the PyTorch port "
-          "runs the stacked odir_fused step on layout='tbn'")
 
-
-def _check_supported(opts: ECGOptions) -> None:
-    if opts.variant != "odir_fused" or opts.layout != "tbn" or opts.stacked is False:
+def _use_stacked(opts: ECGOptions) -> bool:
+    if opts.stacked and opts.variant == "omin":
         raise NotImplementedError(
-            f"ECG variant={opts.variant!r} layout={opts.layout!r} "
-            f"stacked={opts.stacked!r} is {_LATER}")
+            "the stacked omin state (stacked=True with variant='omin') is not "
+            "ported yet (ROADMAP.md queue A, item 1); use stacked=None")
+    if opts.stacked is not None:
+        return opts.stacked
+    return opts.layout == "tbn" and opts.variant == "odir_fused"
 
 
-def _track_stall(state: ECGState, res, stall_rtol):
+def _track_stall(state, res, stall_rtol):
     # an improvement below stall_rtol does not count as progress
     improved = res < (1.0 - stall_rtol) * state.best_res
     best = torch.minimum(state.best_res, res)
@@ -117,13 +148,176 @@ def _track_stall(state: ECGState, res, stall_rtol):
     return best, stall
 
 
-def split_rhs(b: torch.Tensor, t: int, assign=None) -> torch.Tensor:
+def split_rhs(b: torch.Tensor, t: int, assign=None, ops=LAYOUTS["nt"]) -> torch.Tensor:
     """Split rhs b into t disjoint groups; default: contiguous equal split of
     the flattened entries."""
     if assign is None:
         m = b.numel()
         assign = ((torch.arange(m, device=b.device) * t) // m).reshape(b.shape)
-    return TBN.split(b, t, assign)
+    return ops.split(b, t, assign)
+
+
+def _record(state, res, opts):
+    history = state.history
+    if opts.record_history:
+        history = history.clone()
+        history[state.it] = res
+    return history
+
+
+def _cholqr_factor(mu, mask, dtype):
+    """Masked upper Cholesky of PᵀAP and its inverse; a failed factor
+    (breakdown) is replaced by the identity."""
+    u = chol_masked(mu, mask)
+    breakdown = torch.isnan(u).any()
+    eye = torch.eye(mu.shape[0], dtype=dtype, device=mu.device)
+    u = torch.where(breakdown, eye, u)
+    return tri_inv(u), breakdown
+
+
+def _rotate_reduce(ops, alpha, p, ap, z, mask, red_tol):
+    """Adaptive search-direction reduction (prealps_tpu/solvers/ecg.py:173-196).
+
+    SVD of alpha = U Σ Vᵀ; directions rotated by U, those with σ ≤ red_tol
+    deactivated. ``jax.lax.cond`` becomes a host branch here: deciding it
+    costs one host synchronisation per iteration (adaptive runs only)."""
+    t = alpha.shape[0]
+    u_svd, sig, _ = torch.linalg.svd(alpha * mask[:, None])
+    t1 = torch.sum(sig > red_tol)
+    bs = torch.sum(mask).to(t1.dtype)
+    do_red = (t1 > 0) & (t1 < bs)
+    new_mask = (torch.arange(t, device=alpha.device)
+                < torch.where(do_red, t1, bs)).to(alpha.dtype)
+    if bool(do_red):
+        alpha = u_svd.T @ alpha
+        p, ap, z = ops.rotate(p, u_svd), ops.rotate(ap, u_svd), ops.rotate(z, u_svd)
+    alpha = alpha * new_mask[:, None]
+    return alpha, p, ap, ops.scale_dirs(z, new_mask), new_mask
+
+
+def _iter_omin(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops):
+    """One orthomin iteration (prealps_tpu/solvers/ecg.py:199-242)."""
+    p, ap, r, x_blk, mask = state.p, state.ap, state.r, state.x_blk, state.mask
+    dtype = state.res.dtype
+    # A-CholQR of P against AP
+    u_inv, breakdown = _cholqr_factor(psum(ops.gram(ap, p)), mask, dtype)
+    p = ops.mix(p, u_inv)
+    ap = ops.mix(ap, u_inv)
+    # alpha and update
+    alpha = psum(ops.gram(p, r))
+    x_blk = ops.update(x_blk, p, alpha)
+    r = ops.downdate(r, ap, alpha)
+    res = torch.sqrt(torch.trace(psum(ops.gram(r, r))))
+    # new direction: Z = M⁻¹R, A-orthogonalised against P
+    z = m_apply(r)
+    beta = psum(ops.gram(ap, z))
+    p_new = ops.downdate(z, p, beta)
+    if opts.adaptive:
+        # rank-revealing pivoted Cholesky of PᵀP (BF-Omin)
+        u2, piv, rank = pivoted_cholesky(psum(ops.gram(p_new, p_new)), -1.0)
+        bs = torch.sum(mask).to(rank.dtype)
+        t1 = torch.minimum(rank, bs)
+        new_mask = (torch.arange(mask.shape[0], device=mask.device) < t1).to(dtype)
+        u2 = u2 + torch.diag((torch.diagonal(u2).abs() == 0).to(dtype))
+        p_new = ops.scale_dirs(ops.right_solve(u2, ops.take_dirs(p_new, piv)),
+                               new_mask)
+        mask = new_mask
+    p_new = ops.scale_dirs(p_new, mask)
+    ap_new = a_apply(p_new)
+    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    return replace(
+        state, x_blk=x_blk, r=r, p=p_new, ap=ap_new, z=z, mask=mask,
+        it=state.it + 1, res=res, breakdown=state.breakdown | breakdown,
+        history=_record(state, res, opts), best_res=best_res, stall=stall)
+
+
+def _iter_odir(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops):
+    """One orthodir iteration (prealps_tpu/solvers/ecg.py:245-297)."""
+    p, ap, r, x_blk, mask = state.p, state.ap, state.r, state.x_blk, state.mask
+    p_prev, ap_prev = state.p_prev, state.ap_prev
+    dtype = state.res.dtype
+    u_inv, breakdown = _cholqr_factor(psum(ops.gram(ap, p)), mask, dtype)
+    p = ops.mix(p, u_inv)
+    ap = ops.mix(ap, u_inv)
+    alpha = psum(ops.gram(p, r))
+    if opts.adaptive:
+        alpha, p, ap, _, mask = _rotate_reduce(
+            ops, alpha, p, ap, torch.zeros_like(p), mask, red_tol)
+        if opts.adaptive_mode == "truncate":
+            # drop the reduced directions, like the reference
+            p = ops.scale_dirs(p, mask)
+            ap = ops.scale_dirs(ap, mask)
+    x_blk = ops.update(x_blk, p, alpha)
+    r = ops.downdate(r, ap, alpha)
+    res = torch.sqrt(torch.trace(psum(ops.gram(r, r))))
+    # new direction: Z = M⁻¹AP, A-orthogonalised against [P, P_prev]
+    z = m_apply(ap)
+    beta1 = psum(ops.gram(ap, z))
+    beta2 = psum(ops.gram(ap_prev, z))
+    z = ops.downdate(z, p, beta1)
+    z = ops.downdate(z, p_prev, beta2)
+    z = ops.scale_dirs(z, mask)
+    p_new = z
+    if opts.adaptive and opts.adaptive_mode == "freeze":
+        p_new = z + ops.scale_dirs(p, 1.0 - mask)
+    ap_new = a_apply(p_new)
+    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    return replace(
+        state, x_blk=x_blk, r=r, p=p_new, ap=ap_new,
+        p_prev=ops.scale_dirs(p, mask), ap_prev=ops.scale_dirs(ap, mask),
+        z=z, mask=mask, it=state.it + 1, res=res,
+        breakdown=state.breakdown | breakdown,
+        history=_record(state, res, opts), best_res=best_res, stall=stall)
+
+
+def _iter_odir_fused(state: ECGPanelState, a_apply, m_apply, opts, normb,
+                     red_tol, ops):
+    """One ODIR-fused iteration with a single fused reduction of five t×t
+    blocks (prealps_tpu/solvers/ecg.py:300-368): the Gram blocks are taken on
+    the raw P/AP and corrected through the Cholesky factor afterwards."""
+    p, ap, r, x_blk, mask = state.p, state.ap, state.r, state.x_blk, state.mask
+    p_prev, ap_prev, z = state.p_prev, state.ap_prev, state.z
+    dtype = state.res.dtype
+    fused = psum(torch.stack([ops.gram(p, r), ops.gram(ap, z),
+                              ops.gram(ap_prev, z), ops.gram(ap, p),
+                              ops.gram(r, r)]))
+    alpha, beta1, beta2, mu, rtr = fused.unbind(0)
+    res = torch.sqrt(torch.trace(rtr))
+    u_inv, breakdown = _cholqr_factor(mu, mask, dtype)
+    p = ops.mix(p, u_inv)
+    ap = ops.mix(ap, u_inv)
+    z = ops.mix(z, u_inv)
+    alpha = (u_inv.T @ alpha) * mask[:, None]
+    beta1 = u_inv.T @ beta1 @ u_inv
+    beta2 = beta2 @ u_inv
+    # Z -= V beta
+    z = ops.downdate(z, p, beta1)
+    z = ops.downdate(z, p_prev, beta2)
+    if opts.adaptive:
+        alpha, p, ap, z, mask = _rotate_reduce(ops, alpha, p, ap, z, mask, red_tol)
+    x_blk = ops.update(x_blk, p, alpha)
+    r = ops.downdate(r, ap, alpha)
+    # roll V; dropped directions are truncated unless adaptive_mode="freeze"
+    z = ops.scale_dirs(z, mask)
+    p_new = z
+    if opts.adaptive and opts.adaptive_mode == "freeze":
+        p_new = z + ops.scale_dirs(p, 1.0 - mask)
+    ap_new = a_apply(p_new)
+    z_new = m_apply(ap_new)
+    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    return replace(
+        state, x_blk=x_blk, r=r, p=p_new, ap=ap_new,
+        p_prev=ops.scale_dirs(p, mask), ap_prev=ops.scale_dirs(ap, mask),
+        z=z_new, mask=mask, it=state.it + 1, res=res,
+        breakdown=state.breakdown | breakdown,
+        history=_record(state, res, opts), best_res=best_res, stall=stall)
+
+
+_ITER_FNS = {
+    "omin": _iter_omin,
+    "odir": _iter_odir,
+    "odir_fused": _iter_odir_fused,
+}
 
 
 def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
@@ -146,11 +340,8 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
     res = torch.sqrt(torch.trace(rtr))
 
     # --- factor + corrections ---
-    u = chol_masked(mu, mask)
-    breakdown = torch.isnan(u).any()
+    ui, breakdown = _cholqr_factor(mu, mask, dtype)
     eye = torch.eye(t, dtype=dtype, device=dev)
-    u = torch.where(breakdown, eye, u)
-    ui = tri_inv(u)
     alpha = (ui.T @ alpha_raw) * mask[:, None]
     beta1 = ui.T @ beta1_raw @ ui
     beta2 = beta2_raw @ ui
@@ -196,59 +387,67 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
     wn[_SZ * t:(_SZ + 1) * t] = z_new.reshape(t, -1)
 
     best_res, stall = _track_stall(state, res, opts.stall_rtol)
-    history = state.history
-    if opts.record_history:
-        history = history.clone()
-        history[state.it] = res
     return ECGState(
         w=wn, panel_shape=state.panel_shape, mask=mask, it=state.it + 1,
-        res=res, breakdown=state.breakdown | breakdown, history=history,
-        best_res=best_res, stall=stall,
+        res=res, breakdown=state.breakdown | breakdown,
+        history=_record(state, res, opts), best_res=best_res, stall=stall,
     )
 
 
 def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
              split_assign=None):
-    """Initial stacked state + normb (prealps_tpu/solvers/ecg.py:602-655)."""
-    _check_supported(opts)
+    """Initial state + normb (prealps_tpu/solvers/ecg.py:602-655): stacked
+    for tbn + odir_fused, unstacked otherwise."""
+    stacked = _use_stacked(opts)
+    ops = LAYOUTS[opts.layout]
     t = opts.t
     dtype = b.dtype
     dev = b.device
     normb = torch.sqrt(psum(torch.sum(b * b)))
-    r0 = split_rhs(b, t, split_assign)
+    r0 = split_rhs(b, t, split_assign, ops)
     # exactly-zero split columns would make the first A-CholQR singular:
     # move them behind the active prefix (stable order) and start with a
     # reduced mask; the column sum in ecg_finalize is order-invariant
-    col2 = torch.diagonal(psum(TBN.gram(r0, r0)))
+    col2 = torch.diagonal(psum(ops.gram(r0, r0)))
     nz = col2 > 0
     order = torch.argsort(torch.where(nz, 0, 1), stable=True)
-    r0 = TBN.take_dirs(r0, order)
+    r0 = ops.take_dirs(r0, order)
     mask0 = (torch.arange(t, device=dev) < torch.sum(nz)).to(dtype)
     p0 = m_apply(r0)
     ap0 = a_apply(p0)
-    z0 = m_apply(ap0)
+    z0 = m_apply(ap0) if opts.variant == "odir_fused" else torch.zeros_like(p0)
     zeros = torch.zeros_like(p0)
-    w0 = torch.stack([zeros, r0, p0, zeros, ap0, zeros, z0])
-    w0 = w0.reshape(7 * t, -1)
-    history = torch.full((opts.maxiter,), -1.0, dtype=dtype, device=dev)
-    state0 = ECGState(
-        w=w0, panel_shape=tuple(p0.shape), mask=mask0, it=0,
-        res=normb.clone(), breakdown=torch.zeros((), dtype=torch.bool, device=dev),
-        history=history, best_res=normb.clone(),
-        stall=torch.zeros((), dtype=torch.int32, device=dev),
-    )
-    return state0, normb
+    common = dict(
+        mask=mask0, it=0, res=normb.clone(),
+        breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+        history=torch.full((opts.maxiter,), -1.0, dtype=dtype, device=dev),
+        best_res=normb.clone(),
+        stall=torch.zeros((), dtype=torch.int32, device=dev))
+    if stacked:
+        w0 = torch.stack([zeros, r0, p0, zeros, ap0, zeros, z0]).reshape(7 * t, -1)
+        return ECGState(w=w0, panel_shape=tuple(p0.shape), **common), normb
+    return ECGPanelState(x_blk=zeros, r=r0, p=p0, ap=ap0, p_prev=zeros,
+                         ap_prev=zeros, z=z0, **common), normb
 
 
-def ecg_run(a_apply, m_apply, state: ECGState, normb: torch.Tensor,
-            opts: ECGOptions) -> ECGState:
+def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
+            max_steps: Optional[int] = None):
     """Iterate from ``state`` until convergence, maxiter, breakdown, an
     empty active block or a stall (stall_window > 0)."""
-    _check_supported(opts)
+    if max_steps is not None:
+        raise NotImplementedError(
+            "ecg_run(max_steps=...) is not ported yet (ROADMAP.md queue A, "
+            "item 1)")
     dtype = state.res.dtype
     sqrt_t = torch.sqrt(torch.tensor(float(opts.t), dtype=dtype, device=normb.device))
     red_tol = (opts.tol * normb / sqrt_t).to(dtype)
     tol_abs = (opts.tol * normb).to(dtype)
+    if _use_stacked(opts):
+        step = lambda s: _iter_odir_fused_stacked(s, a_apply, m_apply, opts,
+                                                  normb, red_tol)
+    else:
+        iter_fn, ops = _ITER_FNS[opts.variant], LAYOUTS[opts.layout]
+        step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol, ops)
 
     while state.it < opts.maxiter:
         ok = (state.res > tol_abs) & (torch.sum(state.mask) > 0) & ~state.breakdown
@@ -256,17 +455,19 @@ def ecg_run(a_apply, m_apply, state: ECGState, normb: torch.Tensor,
             ok = ok & (state.stall < opts.stall_window)
         if not bool(ok):            # the one host synchronisation per step
             break
-        state = _iter_odir_fused_stacked(state, a_apply, m_apply, opts, normb,
-                                         red_tol)
+        state = step(state)
     return state
 
 
-def ecg_finalize(state: ECGState, normb: torch.Tensor) -> ECGResult:
-    """Sum the solution columns."""
-    t = state.mask.shape[0]
-    x_blk = state.w[_SX * t:(_SX + 1) * t].reshape(state.panel_shape)
+def ecg_finalize(state, normb: torch.Tensor, layout: str = "nt") -> ECGResult:
+    """Sum the solution columns (a stacked state is always lane-major)."""
+    if isinstance(state, ECGState):
+        t = state.mask.shape[0]
+        x = TBN.sum_dirs(state.w[_SX * t:(_SX + 1) * t].reshape(state.panel_shape))
+    else:
+        x = LAYOUTS[layout].sum_dirs(state.x_blk)
     return ECGResult(
-        x=TBN.sum_dirs(x_blk),
+        x=x,
         iters=state.it,
         res=state.res,
         normb=normb,
@@ -282,13 +483,18 @@ def ecg_solve(
     b: torch.Tensor,
     opts: ECGOptions,
     split_assign: Optional[torch.Tensor] = None,
+    x0: Optional[torch.Tensor] = None,
 ) -> ECGResult:
-    """Solve A x = b from x = 0 on lane-major panels: b is (*space), panels
-    (t, *space).
+    """Solve A x = b from x = 0. Panels are (m, t) for layout "nt" with b
+    (m,), and (t, *space) for layout "tbn" with b (*space).
 
     a_apply / m_apply: panel -> panel operator callbacks (matrix-free)."""
+    if x0 is not None:
+        raise NotImplementedError(
+            "ecg_solve(x0=...) (warm start) is not ported yet (ROADMAP.md "
+            "queue A, item 1)")
     if m_apply is None:
         m_apply = lambda v: v
     state0, normb = ecg_init(a_apply, m_apply, b, opts, split_assign)
     final = ecg_run(a_apply, m_apply, state0, normb, opts)
-    return ecg_finalize(final, normb)
+    return ecg_finalize(final, normb, opts.layout)

@@ -1,14 +1,76 @@
 """Panel layout operations for the ECG state.
 
-The lane-major "tbn" layout of ``prealps_tpu/solvers/panels.py``: panels are
-(t, *space) with space typically (br, nrb), so the long node axis is the
-contiguous one. Every layout-dependent operation the solver needs goes
-through this namespace.
+The two layouts of ``prealps_tpu/solvers/panels.py``:
+
+* "nt"  — rows-major (m, t) panels: the general-sparse formats (ELL,
+  block-ELL) and the host block-Jacobi preconditioner work on them.
+* "tbn" — lane-major (t, *space) panels with space typically (br, nrb), so
+  the long node axis is the contiguous one: the stencil formats.
+
+Every layout-dependent operation the solver needs goes through one of these
+namespaces; the solver algebra in ecg.py is layout-blind. Products are
+plain matmuls, which run in true f32 once ``config.strict_fp32`` has
+switched TF32 off (the JAX versions ask for ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+class NT:
+    """Rows-major (m, t) panels."""
+
+    name = "nt"
+
+    @staticmethod
+    def gram(x, y):
+        """(t, s) block xᵀy."""
+        return x.mT @ y
+
+    @staticmethod
+    def update(x, p, coef):
+        """x + p·coef with coef (d, r): combine direction columns."""
+        return x + p @ coef
+
+    @staticmethod
+    def downdate(x, p, coef):
+        return x - p @ coef
+
+    @staticmethod
+    def right_solve(u, p):
+        """P U⁻¹ (mix direction columns by the inverse factor)."""
+        return torch.linalg.solve_triangular(u, p, upper=True, left=False)
+
+    @staticmethod
+    def rotate(p, q):
+        """P Q (direction mixing by a small t×t matrix)."""
+        return p @ q
+
+    mix = rotate
+
+    @staticmethod
+    def scale_dirs(p, mask):
+        return p * mask[None, :]
+
+    @staticmethod
+    def sum_dirs(x_blk):
+        return torch.sum(x_blk, dim=1)
+
+    @staticmethod
+    def split(b, t, assign):
+        """b: (m,); assign: (m,) ints -> (m, t): column j holds the entries
+        of b assigned to j."""
+        onehot = torch.nn.functional.one_hot(assign.long(), t).to(b.dtype)
+        return onehot * b[:, None]
+
+    @staticmethod
+    def zeros_like_panel(b, t):
+        return torch.zeros(tuple(b.shape) + (t,), dtype=b.dtype, device=b.device)
+
+    @staticmethod
+    def take_dirs(p, idx):
+        return p[:, idx]
 
 
 class TBN:
@@ -29,6 +91,13 @@ class TBN:
     @staticmethod
     def downdate(x, p, coef):
         return x - TBN.rotate(p, coef)
+
+    @staticmethod
+    def right_solve(u, p):
+        """(P U⁻¹) in lane-major is U⁻ᵀ applied on the left: solve Uᵀ X = P."""
+        t = p.shape[0]
+        out = torch.linalg.solve_triangular(u.mT, p.reshape(t, -1), upper=False)
+        return out.reshape(p.shape)
 
     @staticmethod
     def rotate(p, q):
@@ -61,3 +130,5 @@ class TBN:
     def take_dirs(p, idx):
         return p[idx]
 
+
+LAYOUTS = {"nt": NT, "tbn": TBN}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; skipped without one).
+"""The port's CUDA kernels on the card (marked ``cuda``; skipped without one).
 
 Imports neither JAX nor the JAX package, so it runs on the GPU machine,
 which has no JAX; tests/conftest.py imports JAX, so run it there without
@@ -6,9 +6,11 @@ the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same inputs:
-max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise — the two sum the
-same products in the same order, the kernel with FMAs.
+Each kernel is held against its plain PyTorch version on the same inputs:
+max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise. The stencil kernel
+sums the same products in the same order, with FMAs; the block-ELL and
+block-Jacobi kernels sum lane-partial sums through a warp tree, so the two
+agree to f32 rounding of the dot-product length.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from prealps_tpu_torch.core.generators import elasticity3d, poisson3d
+from prealps_tpu_torch.core.layout import contiguous_row_layout, permute_and_pad_matrix
+from prealps_tpu_torch.direct import device_bj as tbj
 from prealps_tpu_torch.ops import formats as tfmt
 from prealps_tpu_torch.ops import spmm as tspmm
 from prealps_tpu_torch.parallel.driver import DistributedECG
@@ -77,6 +81,95 @@ def test_small_solve_on_the_card_matches_cpu(cuda_device):
     before = tspmm.stencil_flat_ext.launches
     x_g, info_g = DistributedECG.build(a, device=cuda_device, **kw).solve(b)
     assert tspmm.stencil_flat_ext.launches - before >= info_g["iters"]
+    x_c, info_c = DistributedECG.build(a, device="cpu", **kw).solve(b)
+    for x in (x_g, x_c):
+        assert np.linalg.norm(b - a @ x) < 1e-7 * np.linalg.norm(b)
+    assert abs(info_g["iters"] - info_c["iters"]) <= 0.25 * info_c["iters"]
+
+
+def _block_ell(a, bk, t, seed, device):
+    m = tfmt.csr_to_block_ell(a, bm=8, bk=bk, dtype=np.float32, device=device)
+    x = np.random.default_rng(seed).standard_normal((m.shape[1], t))
+    return m, torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("bk,t", [(128, 12), (128, 1), (128, 5), (8, 12),
+                                  (8, 1), (64, 3)])
+def test_block_ell_kernel_matches_plain(cuda_device, bk, t):
+    m, x = _block_ell(elasticity3d(7, 6, 5), bk, t, seed=bk + t,
+                      device=cuda_device)
+    before = tspmm.block_ell_spmm_pallas.launches
+    y = tspmm.block_ell_spmm_pallas(m, x)
+    torch.cuda.synchronize()
+    assert tspmm.block_ell_spmm_pallas.launches == before + 1
+    ref = tspmm.block_ell_spmm(m, x)
+    scale = tspmm.block_ell_spmm(tfmt.BlockEllMatrix(m.blocks.abs(), m.blkcols,
+                                                     m.shape), x.abs())
+    assert y.shape == ref.shape
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def test_block_ell_kernel_refuses_what_it_does_not_take(cuda_device):
+    m, x = _block_ell(elasticity3d(5, 5, 4), 128, 4, seed=0, device=cuda_device)
+    m64 = tfmt.BlockEllMatrix(m.blocks.double(), m.blkcols, m.shape)
+    with pytest.raises(TypeError):
+        tspmm.block_ell_spmm_pallas(m64, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tspmm.block_ell_spmm_pallas(m, x.t().contiguous().t())
+    with pytest.raises(ValueError, match="CUDA"):
+        tspmm.block_ell_spmm_pallas(m, x.cpu())
+
+
+def _bj_operands(t, seed, device):
+    a = elasticity3d(6, 5, 5)
+    mbn, br = 24, 3
+    lay = contiguous_row_layout(a.shape[0], 1, row_multiple=mbn * br)
+    st = tfmt.csr_to_stencil_bsr_t(permute_and_pad_matrix(a, lay), br=br,
+                                   dtype=np.float32, device=device)
+    inv_f = tbj.build_device_block_jacobi_flat(st.blocks_t, st.offsets, mbn=mbn)
+    nrb = st.blocks_t.shape[-1]
+    z = np.random.default_rng(seed).standard_normal((t, br, nrb))
+    return inv_f, torch.from_numpy(z.astype(np.float32)).to(device), br
+
+
+@pytest.mark.parametrize("t", [12, 5, 1])
+def test_bj_apply_kernel_matches_plain(cuda_device, t):
+    inv_f, z, br = _bj_operands(t, seed=t, device=cuda_device)
+    b2 = tbj.pack_bj_dense(inv_f)
+    assert b2.shape[1] % 128 == 0
+    before = tbj.bj_apply_pallas.launches
+    w = tbj.bj_apply_pallas(b2, z, br)
+    torch.cuda.synchronize()
+    assert tbj.bj_apply_pallas.launches == before + 1
+    ref = tbj.bj_apply_pallas_ref(b2, z, br)
+    scale = tbj.bj_apply_pallas_ref(b2.abs(), z.abs(), br)
+    assert bool(((w - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    # and the driver's GEMM on the unpadded inverses
+    assert bool(((w - tbj.bj_apply_flat(inv_f, z)).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def test_bj_apply_kernel_refuses_what_it_does_not_take(cuda_device):
+    inv_f, z, br = _bj_operands(4, seed=0, device=cuda_device)
+    b2 = tbj.pack_bj_dense(inv_f)
+    with pytest.raises(TypeError):
+        tbj.bj_apply_pallas(b2.double(), z.double(), br)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbj.bj_apply_pallas(b2.transpose(1, 2), z, br)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbj.bj_apply_pallas(b2, z.cpu(), br)
+
+
+def test_general_solve_on_the_card_matches_cpu(cuda_device):
+    """fmt="block_ell" f32 + host-f64 refinement on the card (the kernel)
+    and on the CPU (the plain version): both reach tol; iteration totals
+    within 25 %."""
+    a = elasticity3d(6, 6, 6, heterogeneous=False)
+    b = np.random.default_rng(1).standard_normal(a.shape[0])
+    kw = dict(fmt="block_ell", precond="bj", block_size=96, dtype=np.float32,
+              opts=ECGOptions(t=4, tol=1e-7, maxiter=2000, layout="nt"))
+    before = tspmm.block_ell_spmm_pallas.launches
+    x_g, info_g = DistributedECG.build(a, device=cuda_device, **kw).solve(b)
+    assert tspmm.block_ell_spmm_pallas.launches - before >= info_g["iters"]
     x_c, info_c = DistributedECG.build(a, device="cpu", **kw).solve(b)
     for x in (x_g, x_c):
         assert np.linalg.norm(b - a @ x) < 1e-7 * np.linalg.norm(b)

@@ -126,9 +126,14 @@ def test_solver_from_reference_reproduces_jax_history(problem, jax_f64):
     assert np.linalg.norm(x - x_j) <= 1e-8 * np.linalg.norm(x_j)
 
 
-@pytest.mark.parametrize("kw", [dict(fmt="ell"), dict(precond="block_jacobi"),
-                                dict(nshards=2), dict(grid=None)])
+@pytest.mark.parametrize("kw", [dict(fmt="dia"), dict(precond="block_jacobi"),
+                                dict(nshards=2), dict(grid=None),
+                                dict(fmt="auto"), dict(precond="chebyshev"),
+                                dict(precond="none"),
+                                dict(precond="bj", bj_dedupe=False, bj_dtype="bf16")])
 def test_unported_options_raise(problem, kw):
+    """precond="block_jacobi" with grid= on the stencil path is the JAX
+    driver's deduplicated block Jacobi (bj_dedup): not ported."""
     a, _ = problem
     args = dict(BUILD, nshards=1)
     args.update(kw)

@@ -227,12 +227,24 @@ def test_tbn_panel_ops_match(op):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13, atol=1e-13)
 
 
-@pytest.mark.parametrize("kw", [dict(variant="omin"), dict(variant="odir"),
-                                dict(stacked=False), dict(layout="nt")])
+@pytest.mark.parametrize("kw", [dict(variant="omin", stacked=True),
+                                dict(variant="omin", stacked=True, adaptive=True),
+                                dict(x0=True), dict(max_steps=5)])
 def test_unported_variants_raise(system, kw):
+    """What ROADMAP A1 still lists: the stacked omin state, the x0 warm
+    start and ecg_run(max_steps=)."""
+    kw = dict(kw)
+    x0, max_steps = kw.pop("x0", None), kw.pop("max_steps", None)
     base = dict(t=4, tol=1e-6, variant="odir_fused", layout="tbn")
     base.update(kw)
     ops = system["ops_t"]
+    b = torch.from_numpy(system["b"])
+    opts = tecg.ECGOptions(**base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tecg.ecg_solve(ops.a_apply, ops.m_apply, torch.from_numpy(system["b"]),
-                       tecg.ECGOptions(**base))
+        if max_steps is not None:
+            state, normb = tecg.ecg_init(ops.a_apply, ops.m_apply, b, opts)
+            tecg.ecg_run(ops.a_apply, ops.m_apply, state, normb, opts,
+                         max_steps=max_steps)
+        else:
+            tecg.ecg_solve(ops.a_apply, ops.m_apply, b, opts,
+                           x0=torch.zeros_like(b) if x0 else None)

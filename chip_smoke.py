@@ -38,13 +38,29 @@ Phases (any failure exits nonzero before a result is printed):
     TPU record of 199 iterations;
 12. ``[kernel]`` B6 (``bj_apply_pallas``) on the [bj] build's packed
     inverses at t = 12 against its plain version, with ``torch.bmm`` on the
-    unpadded inverses (the driver's apply) timed beside them.
+    unpadded inverses (the driver's apply) timed beside them;
+13. ``[lorasc]`` the single-GPU LORASC path at full size:
+    ``StencilLorascECG.build`` of heterogeneous elasticity3d 36³ (nparts 8,
+    ECG t = 12 omin, max_deflation 256, balancing ("deflate") correction,
+    f32 with double-float refinement) as ``bench.py`` configures its het
+    LORASC record; build stages, band shapes, deflated pairs (held to the
+    record's 97 within 10 %) and peak device memory;
+14. ``[kernel]`` B2a (``stencil_bsr_spmm_t_pallas_bs``) on that build's
+    operator at t = 12, 8, 1 and the build's nev, and B2b
+    (``stencil_pallas_bs_ext``) at t = 1, each against its plain version,
+    timed in turns;
+15. ``[lorasc]`` the path's solve: launch counts zeroed, one warm solve to
+    1e-5 (host f64 relres, no breakdown, iterations within 10 % of the
+    record's 65, B2a launches >= 3 × iterations, B2b launched), counts read
+    back; three timed solves; ``with_tol(1e-8)`` to relres < 1e-8 (the
+    record: 128 iterations); one solve under torch.profiler
+    (chiprun_out/profile_lorasc.txt) with its device-busy share.
 
 The last lines of standard output are a ``[summary]`` JSON line (every
 check, every path's numbers), the card's ``nvidia-smi`` name and power
-limit, the kernels' JSON record (``ms``/``plain_ms``/``max_abs_err`` at each
-kernel's first shape, ``launches`` from its path's solve — for B6, which no
-driver path runs, chip_smoke's own calls), and last
+limit, the kernels' JSON record (five entries; ``ms``/``plain_ms``/
+``max_abs_err`` at each kernel's first shape, ``launches`` from its path's
+solve — for B6, which no driver path runs, chip_smoke's own calls), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -67,6 +83,12 @@ TPU_ANCHOR_ITERS = 130     # iterations of the same solve in the JAX package's r
 GENERAL_ANCHOR_ITERS = 202
 BJ_ANCHOR_ITERS = 199      # stencil + bj: BENCH_r05.json ..._t12_tol1e-5_bj
 ANCHOR_BAND = 0.05
+# het LORASC (BENCH_r05.json ecg_tts_elasticity3d_145k_het_lorasc): 65
+# iterations and 97 deflated pairs at tol 1e-5; 128 iterations at 1e-8
+LORASC_ANCHOR_ITERS = 65
+LORASC_ANCHOR_PAIRS = 97
+LORASC_DEEP_ANCHOR_ITERS = 128
+LORASC_BAND = 0.10
 
 
 def log(msg: str) -> None:
@@ -161,6 +183,60 @@ def in_turns(kernel_fn, plain_fn, nbytes, reps=20):
             "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
 
 
+def check_lane(name, a_t, t, seed, ext=False):
+    """B2a (or B2b with ``ext``) against its plain version on the card at
+    width t; returns a record."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.ops.spmm import (
+        extend_wrap,
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_pallas_bs_ext,
+        stencil_scan_accumulate,
+    )
+
+    s_max, br, _, nrb = a_t.blocks_t.shape
+    halo = max(abs(o) for o in a_t.offsets)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (t, br, nrb)).astype(np.float32)).to(a_t.blocks_t.device)
+    x_ext = extend_wrap(x, halo).contiguous()
+    if ext:
+        kernel = lambda: stencil_pallas_bs_ext(a_t.blocks_t, a_t.offsets, x_ext, halo)
+    else:
+        kernel = lambda: stencil_bsr_spmm_t_pallas_bs(a_t, x)
+    plain = lambda: stencil_scan_accumulate(a_t.blocks_t, a_t.offsets, x_ext, halo)
+    y_k = kernel()
+    y_p = plain()
+    scale = stencil_scan_accumulate(a_t.blocks_t.abs(), a_t.offsets, x_ext.abs(), halo)
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    bound = KERNEL_TOL * float(scale.max())
+    del scale, y_p
+    if not bool(torch.isfinite(y_k).all()):
+        fail(f"{name}: kernel output not finite")
+    if err > bound:
+        fail(f"{name}: max|kernel - plain| = {err:.3e} > {bound:.3e}")
+    nbytes = 4 * (a_t.blocks_t.numel() + (x_ext if ext else x).numel() + y_k.numel())
+    rec = {"shape": name, "br": br, "t": t, "S": s_max, "nrb": nrb, "halo": halo,
+           "max_abs_err": err, "bound": bound,
+           **in_turns(kernel, plain, nbytes, reps=5 if t > 12 else 20)}
+    log(f"[kernel] {name}: br={br} t={t} S={s_max} nrb={nrb} "
+        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
+        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
+        f"({rec['plain_GBps']:.0f} GB/s)")
+    return rec
+
+
+def device_busy_ms(prof) -> float:
+    """Device time of a profiled window: the sum of the device events' self
+    time, as torch's own table totals it."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+
+
 def check_block_ell(name, mat, t, seed):
     """B5 against block_ell_spmm on the card for one shape; returns a record."""
     import numpy as np
@@ -245,20 +321,26 @@ def check_bj_apply(inv_f, br, t, seed):
 
 
 def profile_solve(solver, b, name):
-    """One solve under torch.profiler; the table goes to chiprun_out/."""
+    """One solve under torch.profiler; the table goes to chiprun_out/.
+    Returns (device ms, wall ms) of the profiled solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         solver.solve(b)
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
     with open(os.path.join(HERE, "chiprun_out", f"profile_{name}.txt"), "w") as f:
         f.write(table)
-    log(f"[profile] one {name} solve by device time:")
+    busy_ms = device_busy_ms(prof)
+    log(f"[profile] one {name} solve by device time (device {busy_ms:.1f} ms "
+        f"of {wall_ms:.1f} ms wall, busy {100 * busy_ms / wall_ms:.0f} %):")
     for line in table.splitlines()[:15]:
         log("[profile] " + line)
+    return busy_ms, wall_ms
 
 
 def timed_solves(solver, b, iters, tag):
@@ -304,8 +386,118 @@ def checked_solve(solver, a, b, tag, counter=None):
     return info, launches, secs
 
 
-def within(iters, anchor):
-    return abs(iters - anchor) <= ANCHOR_BAND * anchor
+def within(iters, anchor, band=ANCHOR_BAND):
+    return abs(iters - anchor) <= band * anchor
+
+
+def lorasc_phase(dev, nel=36):
+    """Phases 13-15: the single-GPU LORASC path at full size (nel = 36).
+    Returns (B2a checks, B2b checks, path record, B2a launches, B2b
+    launches)."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.ops.spmm import (
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_pallas_bs_ext,
+    )
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    t0 = time.perf_counter()
+    a = elasticity3d(nel, nel, nel, heterogeneous=True)
+    n = a.shape[0]
+    b = np.random.default_rng(0).standard_normal(n)
+    log(f"[lorasc] het elasticity3d({nel}³) n={n} nnz={a.nnz} generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = StencilLorascECG.build(
+        a, nparts=8, br=3, grid=(nel + 1, nel + 1, nel),
+        opts=ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="omin",
+                        layout="tbn"),
+        max_deflation=256, correction="deflate", pencil="agg", inner_tol=1e-3,
+        dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    pc = solver.precond
+    plan = pc.plan
+    ops = pc.operands
+    nev = pc.nev
+    if "w_lift" not in ops:
+        fail("[lorasc] the deflate build attached no deflation lift")
+    lift_k = ops["w_lift"].shape[0]
+    log(f"[lorasc] built in {build_s:.2f} s, stages (s): {json.dumps(pc.timings)}; "
+        f"ng={plan.ng} bs_i={plan.bs_i} nblk_i={plan.nblk_i} bs_g={plan.bs_g} "
+        f"nblk_g={plan.nblk_g} nev={nev} lift width={lift_k} deflated="
+        f"{pc.deflated} (record {LORASC_ANCHOR_PAIRS}); peak device memory "
+        f"{peak_gb:.2f} GB")
+    if not within(pc.deflated, LORASC_ANCHOR_PAIRS, LORASC_BAND):
+        fail(f"[lorasc] {pc.deflated} deflated pairs, outside "
+             f"{LORASC_ANCHOR_PAIRS} ± {100 * LORASC_BAND:.0f} %")
+    log(f"[lorasc] deflated pairs {pc.deflated} within "
+        f"{100 * LORASC_BAND:.0f} % of the record's {LORASC_ANCHOR_PAIRS}")
+
+    a_t = ops["a_stencil"]
+    b2a = [check_lane(f"lorasc {what} (br3,t{t})", a_t, t, seed=30 + t)
+           for what, t in (("ECG + apply", 12), ("Lanczos panel", 8),
+                           ("refinement finish", 1), ("Rayleigh-Ritz nev", nev),
+                           ("deflation lift k", lift_k))]
+    b2b = [check_lane("lorasc finish A_lo·x_hi, pre-extended (br3,t1)", a_t, 1,
+                      seed=41, ext=True)]
+
+    stencil_bsr_spmm_t_pallas_bs.launches = 0
+    stencil_pallas_bs_ext.launches = 0
+    info, _, warm_s = checked_solve(solver, a, b, "lorasc")
+    la, lb = stencil_bsr_spmm_t_pallas_bs.launches, stencil_pallas_bs_ext.launches
+    iters = int(info["iters"])
+    log(f"[lorasc] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
+        f"{info['refine_rounds']} relres={info['relres']:.3e} breakdown="
+        f"{info['breakdown']} B2a launches={la} B2b launches={lb} (record "
+        f"{LORASC_ANCHOR_ITERS} iterations)")
+    if la < 3 * iters:
+        fail(f"[lorasc] B2a launched {la} times for {iters} iterations (< 3×)")
+    if lb < 1:
+        fail("[lorasc] B2b was not launched by the refinement finish")
+    if not within(iters, LORASC_ANCHOR_ITERS, LORASC_BAND):
+        fail(f"[lorasc] {iters} iterations, outside {LORASC_ANCHOR_ITERS} ± "
+             f"{100 * LORASC_BAND:.0f} %")
+    timed = timed_solves(solver, b, iters, "lorasc")
+    solve_s = statistics.median(timed)
+    log(f"[lorasc] timed solves (s): {[round(v, 4) for v in timed]}; median "
+        f"{solve_s:.4f} s, {1e3 * solve_s / iters:.3f} ms/iteration")
+
+    deep = solver.with_tol(1e-8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_d, info_d = deep.solve(b)
+    torch.cuda.synchronize()
+    deep_s = time.perf_counter() - t0
+    rel_d = float(np.linalg.norm(b - a @ x_d) / np.linalg.norm(b))
+    log(f"[lorasc] with_tol(1e-8): {deep_s:.3f} s, iters={info_d['iters']} "
+        f"refine_rounds={info_d['refine_rounds']} relres={rel_d:.3e} (record "
+        f"{LORASC_DEEP_ANCHOR_ITERS} iterations, relres 7.09e-10)")
+    if not (rel_d < 1e-8) or info_d["breakdown"]:
+        fail(f"[lorasc] with_tol(1e-8) reached relres {rel_d:.3e}")
+    busy_ms, wall_ms = profile_solve(solver, b, "lorasc")
+    log(f"[lorasc] device busy {busy_ms:.1f} ms per solve: "
+        f"{100 * busy_ms / (1e3 * solve_s):.0f} % of the timed median "
+        f"{1e3 * solve_s:.1f} ms (idle {100 - 100 * busy_ms / (1e3 * solve_s):.0f} %)")
+    path = {"n": n, "ng": plan.ng, "bs_i": plan.bs_i, "nblk_i": plan.nblk_i,
+            "bs_g": plan.bs_g, "nblk_g": plan.nblk_g, "nev": nev, "lift_k": lift_k,
+            "deflated": pc.deflated, "build_s": build_s,
+            "build_stages_s": pc.timings, "peak_GB": peak_gb, "iters": iters,
+            "refine_rounds": info["refine_rounds"], "relres": info["relres"],
+            "solve_s": timed, "ms_per_iter": 1e3 * solve_s / iters,
+            "b2a_launches": la, "b2b_launches": lb,
+            "deep": {"iters": info_d["iters"], "relres": rel_d, "solve_s": deep_s,
+                     "refine_rounds": info_d["refine_rounds"]},
+            "profile_device_ms": busy_ms, "profile_wall_ms": wall_ms,
+            "anchors": {"iters": LORASC_ANCHOR_ITERS, "pairs": LORASC_ANCHOR_PAIRS,
+                        "deep_iters": LORASC_DEEP_ANCHOR_ITERS}}
+    return b2a, b2b, path, la, lb
 
 
 def main() -> int:
@@ -548,11 +740,14 @@ def main() -> int:
     b6_launches = bj_apply_pallas.launches
     del bsolver
 
+    # --- 13-15. the single-GPU LORASC path, with B2a and B2b ---
+    b2a, b2b, lorasc_path, la, lb = lorasc_phase(dev)
+
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_check": b6,
-        "main_path": main_path, "general_path": general_path,
-        "ell_path": ell_path, "bj_path": bj_path,
-        "total_s": time.perf_counter() - t_start}))
+        "lane_checks": b2a + b2b, "main_path": main_path,
+        "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
+        "lorasc_path": lorasc_path, "total_s": time.perf_counter() - t_start}))
     head, b5 = checks[0], b5_checks[0]
     kernels = {"kernels": [{
         "name": "stencil_flat_ext",
@@ -581,6 +776,24 @@ def main() -> int:
         "max_abs_err": b6["max_abs_err"],
         "ms": b6["ms"],
         "plain_ms": b6["plain_ms"],
+    }, {
+        "name": "stencil_bsr_spmm_t_pallas_bs",
+        "route": "cuda",
+        "source": "prealps_tpu_torch/csrc/stencil_lane.cu",
+        "replaces": "prealps_tpu/ops/spmm.py:482",
+        "launches": la,
+        "max_abs_err": max(c["max_abs_err"] for c in b2a),
+        "ms": b2a[0]["ms"],
+        "plain_ms": b2a[0]["plain_ms"],
+    }, {
+        "name": "stencil_pallas_bs_ext",
+        "route": "cuda",
+        "source": "prealps_tpu_torch/csrc/stencil_lane.cu",
+        "replaces": "prealps_tpu/ops/spmm.py:695",
+        "launches": lb,
+        "max_abs_err": b2b[0]["max_abs_err"],
+        "ms": b2b[0]["ms"],
+        "plain_ms": b2b[0]["plain_ms"],
     }]}
     log(card_line())
     log(json.dumps(kernels))

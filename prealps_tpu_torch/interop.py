@@ -2,9 +2,11 @@
 
 ``solver_from_reference`` builds a port ``DistributedECG`` directly on the
 operands another build produced (the JAX ``DistributedECG``'s, handed over
-as numpy arrays), skipping the port's own build. Both packages can then
-solve on identical operands, which separates solver parity from build
-parity in the tests.
+as numpy arrays), skipping the port's own build; ``lorasc_from_reference``
+does the same for a JAX ``ScalableLorasc``. Both packages can then solve on
+identical operands (for LORASC: identical deflation pairs, which an f32
+Lanczos does not reproduce across implementations), which separates solver
+parity from build parity in the tests.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import RowLayout
-from prealps_tpu_torch.ops.formats import BlockEllMatrix, EllMatrix
+from prealps_tpu_torch.ops.formats import BlockEllMatrix, EllMatrix, StencilBsrTMatrix
 from prealps_tpu_torch.parallel.driver import (
     BlockEllOperands,
     DistributedECG,
@@ -23,6 +25,7 @@ from prealps_tpu_torch.parallel.driver import (
     StencilOperands,
 )
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi
+from prealps_tpu_torch.precond.lorasc_scale import ArrowBandPlan, ScalableLorasc
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 
 
@@ -106,3 +109,36 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         target_tol=float(meta["target_tol"]),
         a_scaled=None if a_scaled is None else sp.csr_matrix(a_scaled),
     )
+
+
+_LORASC_INDEX_OPERANDS = ("int_nodes", "sep_nodes")
+
+
+def lorasc_from_reference(plan_fields: dict, operands_np: dict, meta: dict,
+                          device="cuda") -> ScalableLorasc:
+    """Port ``ScalableLorasc`` on a reference build's plan and operands.
+
+    plan_fields: the ``ArrowBandPlan`` fields (ints and numpy arrays).
+    operands_np: numpy arrays by the operand names of the JAX build —
+      ``blocks_t`` (the stencil table of ``a_stencil``), ``int_nodes``,
+      ``sep_nodes``, ``aii_linv``, ``aii_moff``, ``aii_failed``,
+      ``agg_linv``, ``agg_moff``, ``agg_failed``, ``sep_mask``, ``e_mat``,
+      ``sigma``, and for the balancing correction ``w_lift``, ``aw_sep``,
+      ``coarse_linv``; ``a_lo_blocks`` where the solve refines in f32.
+    meta: ``offsets`` (stencil node offsets), ``shape`` (n, n) and
+      ``deflated``.
+    """
+    device = resolve_device(device)
+    strict_fp32()
+    ops = {}
+    for name, arr in operands_np.items():
+        if name == "blocks_t":
+            continue
+        dtype = np.int64 if name in _LORASC_INDEX_OPERANDS else None
+        ops[name] = torch.from_numpy(np.array(arr, dtype=dtype, order="C")).to(device)
+    ops["a_stencil"] = StencilBsrTMatrix(
+        blocks_t=torch.from_numpy(np.array(operands_np["blocks_t"], order="C")).to(device),
+        offsets=tuple(int(o) for o in meta["offsets"]),
+        shape=tuple(int(v) for v in meta["shape"]))
+    return ScalableLorasc(plan=ArrowBandPlan(**plan_fields), operands=ops,
+                          deflated=int(meta["deflated"]))

@@ -24,6 +24,15 @@ Stencil formats, lane-major panels:
   kernel does not take raises.
 * ``stencil_flat_ext_ref`` — the same product in plain PyTorch, with the
   TPU kernel's summation order (offset, then m, then k).
+* ``stencil_bsr_spmm_t`` — the lane-major stencil SpMM with wrap halos,
+  (t, br, nrb) -> (t, br, nrb), at any width: the operator of the LORASC
+  path. It makes its panel contiguous and calls B2a.
+* ``stencil_bsr_spmm_t_pallas_bs`` (B2a) and ``stencil_pallas_bs_ext``
+  (B2b) — the lane-major stencil SpMM with wrap halos taken inside, and on
+  a pre-extended (t, br, nrb + 2·halo) panel (the TPU kernels of the same
+  names in ``prealps_tpu/ops/spmm.py``, one body). CUDA tensors launch the
+  hand-written kernel (``csrc/stencil_lane.cu``), CPU tensors run
+  ``stencil_scan_accumulate`` (after ``extend_wrap`` for B2a).
 * ``stencil_scan_accumulate`` — the lane-major 4-D oracle every stencil
   kernel is checked against.
 * ``stencil_scan_accumulate_df`` — the double-float (hi, lo) product of the
@@ -40,7 +49,11 @@ import torch
 
 from prealps_tpu_torch.ops import _kernels
 from prealps_tpu_torch.ops.doublefloat import two_prod, two_sum
-from prealps_tpu_torch.ops.formats import BlockEllMatrix, EllMatrix
+from prealps_tpu_torch.ops.formats import (
+    BlockEllMatrix,
+    EllMatrix,
+    StencilBsrTMatrix,
+)
 
 
 def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -247,3 +260,95 @@ def stencil_scan_accumulate_df(blocks_t: torch.Tensor, offsets,
                 l = l + (e1 + e)
             hi[m], lo[m] = h, l
     return torch.stack(hi, dim=1), torch.stack(lo, dim=1)
+
+
+def _check_lane_args(name, blocks_t, offsets, x, halo, wrap):
+    """Shape, device, type and layout checks of B2a / B2b; returns True
+    when every operand lies on the CPU (the plain route)."""
+    if blocks_t.dim() != 4 or x.dim() != 3:
+        raise ValueError(f"{name}: blocks_t must be (S, br, br, nrb) and the "
+                         f"panel (t, br, ncol), got {tuple(blocks_t.shape)} "
+                         f"and {tuple(x.shape)}")
+    s_max, br, br2, nrb = blocks_t.shape
+    if s_max != len(offsets) or br2 != br or x.shape[1] != br:
+        raise ValueError(f"{name}: blocks_t {tuple(blocks_t.shape)} does not "
+                         f"match {len(offsets)} offsets and panel "
+                         f"{tuple(x.shape)}")
+    if x.shape[2] != nrb + 2 * halo:
+        raise ValueError(f"{name}: panel has {x.shape[2]} columns; expected "
+                         f"nrb + 2·halo = {nrb + 2 * halo}")
+    reach = nrb if wrap else halo
+    if offsets and max(abs(o) for o in offsets) > reach:
+        raise ValueError(f"{name}: an offset exceeds the "
+                         f"{'node count' if wrap else 'halo'} {reach}")
+    if blocks_t.device.type == "cpu" and x.device.type == "cpu":
+        return True
+    if blocks_t.device.type != "cuda" or x.device != blocks_t.device:
+        raise ValueError(f"{name}: operands on {blocks_t.device} and "
+                         f"{x.device}; both must be on one CUDA card (or both "
+                         "on the CPU)")
+    if blocks_t.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes float32, got {blocks_t.dtype} "
+                        f"and {x.dtype}")
+    if not (blocks_t.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{name} kernel takes contiguous operands")
+    return False
+
+
+def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
+    """B2a: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same.
+
+    CPU tensors run ``stencil_scan_accumulate`` on ``extend_wrap(xt)``.
+    CUDA tensors launch the CUDA kernel, which takes f32 contiguous operands
+    on one card and wraps the columns itself, and count one launch in
+    ``stencil_bsr_spmm_t_pallas_bs.launches``.
+    """
+    offsets = tuple(int(o) for o in a.offsets)
+    halo = max(abs(o) for o in offsets)
+    if _check_lane_args("stencil_bsr_spmm_t_pallas_bs", a.blocks_t, offsets,
+                        xt, 0, wrap=True):
+        return stencil_scan_accumulate(a.blocks_t, offsets,
+                                       extend_wrap(xt, halo), halo)
+    y = torch.empty(xt.shape, dtype=torch.float32, device=xt.device)
+    if y.numel() == 0:
+        return y
+    _kernels.stencil_lane_f32(a.blocks_t, offsets, xt, y, 0, wrap=True)
+    stencil_bsr_spmm_t_pallas_bs.launches += 1
+    return y
+
+
+stencil_bsr_spmm_t_pallas_bs.launches = 0
+
+
+def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
+                          halo: int) -> torch.Tensor:
+    """B2b: lane-major stencil SpMM on a pre-extended panel,
+    x_ext (t, br, nrb + 2·halo) -> (t, br, nrb).
+
+    CPU tensors run ``stencil_scan_accumulate``. CUDA tensors launch the
+    CUDA kernel (f32, contiguous, one card) and count one launch in
+    ``stencil_pallas_bs_ext.launches``.
+    """
+    offsets = tuple(int(o) for o in offsets)
+    if _check_lane_args("stencil_pallas_bs_ext", blocks_t, offsets, x_ext, halo,
+                        wrap=False):
+        return stencil_scan_accumulate(blocks_t, offsets, x_ext, halo)
+    t, br = x_ext.shape[:2]
+    y = torch.empty((t, br, blocks_t.shape[3]), dtype=torch.float32,
+                    device=x_ext.device)
+    if y.numel() == 0:
+        return y
+    _kernels.stencil_lane_f32(blocks_t, offsets, x_ext, y, halo, wrap=False)
+    stencil_pallas_bs_ext.launches += 1
+    return y
+
+
+stencil_pallas_bs_ext.launches = 0
+
+
+def stencil_bsr_spmm_t(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
+    """Lane-major stencil SpMM: xt (t, br, nrb) -> yt (t, br, nrb), wrap
+    halos. Every width goes to B2a (on the card the lane-major product is
+    the natural form; the TPU's relayouts to the flat kernel for narrow
+    panels have no counterpart here)."""
+    return stencil_bsr_spmm_t_pallas_bs(a, xt.contiguous())

@@ -21,8 +21,8 @@ block size, breakdown, stall window); evaluating them costs one host
 synchronisation per iteration.
 
 Not ported yet (ROADMAP.md queue A, item 1): the stacked omin state
-(``stacked=True`` with omin), the warm start ``ecg_solve(x0=...)`` and
-``ecg_run(max_steps=...)``; they raise NotImplementedError.
+(``stacked=True`` with omin) and the warm start ``ecg_solve(x0=...)``; they
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -433,11 +433,8 @@ def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
 def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
             max_steps: Optional[int] = None):
     """Iterate from ``state`` until convergence, maxiter, breakdown, an
-    empty active block or a stall (stall_window > 0)."""
-    if max_steps is not None:
-        raise NotImplementedError(
-            "ecg_run(max_steps=...) is not ported yet (ROADMAP.md queue A, "
-            "item 1)")
+    empty active block, a stall (stall_window > 0) or, with ``max_steps``,
+    that many more iterations (the chunked-execution primitive)."""
     dtype = state.res.dtype
     sqrt_t = torch.sqrt(torch.tensor(float(opts.t), dtype=dtype, device=normb.device))
     red_tol = (opts.tol * normb / sqrt_t).to(dtype)
@@ -449,7 +446,9 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
         iter_fn, ops = _ITER_FNS[opts.variant], LAYOUTS[opts.layout]
         step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol, ops)
 
-    while state.it < opts.maxiter:
+    it_stop = opts.maxiter if max_steps is None else min(opts.maxiter,
+                                                          state.it + max_steps)
+    while state.it < it_stop:
         ok = (state.res > tol_abs) & (torch.sum(state.mask) > 0) & ~state.breakdown
         if opts.stall_window > 0:
             ok = ok & (state.stall < opts.stall_window)

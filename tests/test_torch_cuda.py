@@ -7,8 +7,9 @@ the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same inputs:
-max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise. The stencil kernel
-sums the same products in the same order, with FMAs; the block-ELL and
+max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise. The stencil kernels
+(flat B1, lane-major B2a / B2b) sum the same products in the same order,
+with FMAs; the block-ELL and
 block-Jacobi kernels sum lane-partial sums through a warp tree, so the two
 agree to f32 rounding of the dot-product length.
 """
@@ -157,6 +158,85 @@ def test_bj_apply_kernel_refuses_what_it_does_not_take(cuda_device):
         tbj.bj_apply_pallas(b2.transpose(1, 2), z, br)
     with pytest.raises(ValueError, match="CUDA"):
         tbj.bj_apply_pallas(b2, z.cpu(), br)
+
+
+def _lane_operands(br, t, seed, device):
+    a = elasticity3d(7, 6, 5) if br == 3 else poisson3d(12, 11, 10)
+    st = tfmt.csr_to_stencil_bsr_t(a, br=br, dtype=np.float32, device=device)
+    halo = max(abs(o) for o in st.offsets)
+    x = np.random.default_rng(seed).standard_normal((t, br, a.shape[0] // br))
+    xf = torch.from_numpy(x.astype(np.float32)).to(device)
+    return st, xf, tspmm.extend_wrap(xf, halo).contiguous(), halo
+
+
+@pytest.mark.parametrize("br,t", [(3, 1), (3, 8), (3, 12), (3, 40), (3, 5),
+                                  (1, 12), (1, 1)])
+def test_lane_kernel_matches_plain(cuda_device, br, t):
+    """B2a (wrap halos inside) at the LORASC path's widths and the tiled
+    kernel's (t = 40, 5, br = 1)."""
+    st, x, x_ext, halo = _lane_operands(br, t, seed=t, device=cuda_device)
+    before = tspmm.stencil_bsr_spmm_t_pallas_bs.launches
+    y = tspmm.stencil_bsr_spmm_t(st, x)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.launches == before + 1
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, st.offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
+                                          x_ext.abs(), halo)
+    assert y.shape == ref.shape == x.shape
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+@pytest.mark.parametrize("t", [1, 12, 20])
+def test_lane_ext_kernel_matches_plain(cuda_device, t):
+    """B2b on the pre-extended panel."""
+    st, _, x_ext, halo = _lane_operands(3, t, seed=50 + t, device=cuda_device)
+    before = tspmm.stencil_pallas_bs_ext.launches
+    y = tspmm.stencil_pallas_bs_ext(st.blocks_t, st.offsets, x_ext, halo)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_pallas_bs_ext.launches == before + 1
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, st.offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
+                                          x_ext.abs(), halo)
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def test_lane_kernels_refuse_what_they_do_not_take(cuda_device):
+    st, x, x_ext, halo = _lane_operands(3, 4, seed=0, device=cuda_device)
+    st64 = tfmt.StencilBsrTMatrix(st.blocks_t.double(), st.offsets, st.shape)
+    with pytest.raises(TypeError):
+        tspmm.stencil_bsr_spmm_t_pallas_bs(st64, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tspmm.stencil_bsr_spmm_t_pallas_bs(st, x.transpose(0, 1).contiguous()
+                                           .transpose(0, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        tspmm.stencil_bsr_spmm_t_pallas_bs(st, x.cpu())
+    with pytest.raises(TypeError):
+        tspmm.stencil_pallas_bs_ext(st.blocks_t.double(), st.offsets,
+                                    x_ext.double(), halo)
+
+
+def test_small_lorasc_solve_on_the_card_matches_cpu(cuda_device):
+    """StencilLorascECG het 8³, f32 with refinement, balancing correction:
+    on the card (B2a, B2b) and on the CPU (their plain versions) both reach
+    tol; iteration totals within 25 %; B2a launched at least 3× per
+    iteration (operator + two sweeps per apply), B2b by the finish."""
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+
+    a = elasticity3d(8, 8, 8, heterogeneous=True)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    kw = dict(nparts=8, br=3, grid=(9, 9, 8), max_deflation=64, correction="deflate",
+              dtype=np.float32,
+              opts=ECGOptions(t=12, tol=1e-5, maxiter=1000, variant="omin", layout="tbn"))
+    s_g = StencilLorascECG.build(a, device=cuda_device, **kw)
+    la = tspmm.stencil_bsr_spmm_t_pallas_bs.launches
+    lb = tspmm.stencil_pallas_bs_ext.launches
+    x_g, info_g = s_g.solve(b)
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.launches - la >= 3 * info_g["iters"]
+    assert tspmm.stencil_pallas_bs_ext.launches - lb >= 1
+    x_c, info_c = StencilLorascECG.build(a, device="cpu", **kw).solve(b)
+    for x in (x_g, x_c):
+        assert np.linalg.norm(b - a @ x) < 1e-5 * np.linalg.norm(b)
+    assert abs(info_g["iters"] - info_c["iters"]) <= 0.25 * info_c["iters"]
 
 
 def test_general_solve_on_the_card_matches_cpu(cuda_device):

@@ -229,22 +229,44 @@ def test_tbn_panel_ops_match(op):
 
 @pytest.mark.parametrize("kw", [dict(variant="omin", stacked=True),
                                 dict(variant="omin", stacked=True, adaptive=True),
-                                dict(x0=True), dict(max_steps=5)])
+                                dict(x0=True)])
 def test_unported_variants_raise(system, kw):
-    """What ROADMAP A1 still lists: the stacked omin state, the x0 warm
-    start and ecg_run(max_steps=)."""
+    """What ROADMAP A1 still lists: the stacked omin state and the x0 warm
+    start."""
     kw = dict(kw)
-    x0, max_steps = kw.pop("x0", None), kw.pop("max_steps", None)
+    x0 = kw.pop("x0", None)
     base = dict(t=4, tol=1e-6, variant="odir_fused", layout="tbn")
     base.update(kw)
     ops = system["ops_t"]
     b = torch.from_numpy(system["b"])
     opts = tecg.ECGOptions(**base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if max_steps is not None:
-            state, normb = tecg.ecg_init(ops.a_apply, ops.m_apply, b, opts)
-            tecg.ecg_run(ops.a_apply, ops.m_apply, state, normb, opts,
-                         max_steps=max_steps)
-        else:
-            tecg.ecg_solve(ops.a_apply, ops.m_apply, b, opts,
-                           x0=torch.zeros_like(b) if x0 else None)
+        tecg.ecg_solve(ops.a_apply, ops.m_apply, b, opts,
+                       x0=torch.zeros_like(b) if x0 else None)
+
+
+@pytest.mark.parametrize("variant", ["odir_fused", "omin"])
+def test_ecg_run_max_steps_matches_jax(system, variant):
+    """ecg_run(max_steps=5) stops after 5 more iterations like the JAX
+    loop, and resuming in chunks of 5 ends where one run ends."""
+    oj, ot = _opts(variant=variant)
+    sj, nj, st, nt = _init_both(system, oj, ot, system["b"])
+    ops = system["ops_t"]
+    sj5 = jecg.ecg_run(system["a_j"], system["m_j"], sj, nj, oj, max_steps=5)
+    st5 = tecg.ecg_run(ops.a_apply, ops.m_apply, st, nt, ot, max_steps=5)
+    assert st5.it == int(sj5.it) == 5
+    np.testing.assert_allclose(float(st5.res), float(sj5.res), rtol=1e-10)
+    x_j = np.asarray(jecg.ecg_finalize(sj5, nj, "tbn").x)
+    x_t = tecg.ecg_finalize(st5, nt, "tbn").x.numpy()
+    np.testing.assert_allclose(x_t, x_j, rtol=1e-10, atol=1e-10 * np.abs(x_j).max())
+    chunked = st5
+    while True:
+        nxt = tecg.ecg_run(ops.a_apply, ops.m_apply, chunked, nt, ot, max_steps=5)
+        if nxt.it == chunked.it:
+            break
+        assert nxt.it - chunked.it <= 5
+        chunked = nxt
+    whole = tecg.ecg_run(ops.a_apply, ops.m_apply, st, nt, ot)
+    assert chunked.it == whole.it < ot.maxiter
+    np.testing.assert_array_equal(tecg.ecg_finalize(chunked, nt, "tbn").x.numpy(),
+                                  tecg.ecg_finalize(whole, nt, "tbn").x.numpy())

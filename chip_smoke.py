@@ -54,14 +54,44 @@ Phases (any failure exits nonzero before a result is printed):
     record's 65, B2a launches >= 3 × iterations, B2b launched), counts read
     back; three timed solves; ``with_tol(1e-8)`` to relres < 1e-8 (the
     record: 128 iterations); one solve under torch.profiler
-    (chiprun_out/profile_lorasc.txt) with its device-busy share.
+    (chiprun_out/profile_lorasc.txt) with its device-busy share;
+16. ``[dia]`` fmt="dia" on lane-major panels at full size: elasticity3d 36³,
+    its promoted diagonals (97 after RAC scaling, plus an ELL remainder) as
+    a br = 1 stencil, device block Jacobi (1024-row blocks) from the
+    diagonals, ECG t = 12, f32 with host-f64 refinement to 1e-5;
+    ``[kernel]`` B1 on that table (t 12, t 1) and B1 (t 12, t 1) and B2b
+    (t 12) at br 1 × D 99 on the unscaled operator's table; the solve with
+    B1's count zeroed
+    (launches >= iterations, iterations within 10 % of DIA_ANCHOR_ITERS,
+    the JAX package's CPU run of the same build); one solve under
+    torch.profiler (chiprun_out/profile_dia.txt) with its device-busy share;
+17. ``[auto]`` fmt="auto" on BENCH_r05.json's structure-hidden record
+    (elasticity3d 20³ under ``default_rng(5).permutation``, bj with
+    240-row blocks, t = 12 on ``nt``, f32, tol 1e-5): the cascade must
+    choose Morton block-ELL, iterations within 10 % of the record's 100;
+18. ``[spmm]`` the SpMM format sweep (prealps_tpu_torch.examples.bench_spmm)
+    at nel = 36, t = 1, 4, 8, 12, 16, all five formats, its JSON lines
+    printed; each format's y held to the ELL product within the kernel
+    bound; B3 (``stencil_t_pallas``) launched.
+
+Beside the headline B1 checks, ``[kernel]`` lines hold B3 at t = 12 / 8 / 1
+and B4 (planar) at t = 12 on the headline operator against their plain
+versions. Every ``[kernel]`` line gives the kernel's and the plain
+version's CUDA-event times, its bound (the larger of the bytes the
+product needs -- each input read once, each output written once, the
+stencil panel without its halo columns, B6's inverses unpadded -- over
+3.35 TB/s and its flops over 67 TFLOP/s f32) and, at each kernel's
+first shape, the library yardstick: ``torch.sparse.mm`` of the same
+operator as a CSR matrix on the row-major (n, t) panel (cuSPARSE SpMM), and
+for B6 ``torch.bmm`` of the unpadded inverses.
 
 The last lines of standard output are a ``[summary]`` JSON line (every
 check, every path's numbers), the card's ``nvidia-smi`` name and power
-limit, the kernels' JSON record (five entries; ``ms``/``plain_ms``/
-``max_abs_err`` at each kernel's first shape, ``launches`` from its path's
-solve — for B6, which no driver path runs, chip_smoke's own calls), and last
-``{"ok": true, "device": {...}}``.
+limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
+``bound_ms``/``library_ms`` at each kernel's first shape, ``max_abs_err``
+over its shapes, ``launches`` from its path's run — for B4 and B6, which no
+path runs, chip_smoke's own calls), and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -89,6 +119,19 @@ LORASC_ANCHOR_ITERS = 65
 LORASC_ANCHOR_PAIRS = 97
 LORASC_DEEP_ANCHOR_ITERS = 128
 LORASC_BAND = 0.10
+# fmt="dia" on lane-major panels (elasticity3d 36³, bj, t 12, f32, tol 1e-5):
+# the JAX package's run of the same build on a CPU
+# (python -m tests.test_torch_anchors --nel 36: 182 iterations in 2 host
+# refinement rounds, relres 1.0e-7)
+DIA_ANCHOR_ITERS = 182
+# fmt="auto" on the shuffled elasticity3d(20³) (BENCH_r05.json
+# ecg_tts_elasticity3d_shuffled_26k_bj: Morton block-ELL, 100 iterations)
+AUTO_ANCHOR_ITERS = 100
+PATH_BAND = 0.10
+# yardsticks: one H100 SXM's HBM3 rate and f32 rate outside the tensor cores
+# (NVIDIA's data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -130,8 +173,67 @@ def event_ms(fn, reps: int = 20, batches: int = 5, warm: int = 3):
     return statistics.median(times), times
 
 
-def check_kernel(name, blocks_flat, offsets, halo, br, t, seed):
-    """Kernel vs plain version on the card for one shape; returns a record."""
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its operations over the f32 rate."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / F32_FLOPS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def stencil_csr(blocks_t, offsets):
+    """The stencil operator (S, br, br, nrb) as a torch CSR matrix on its
+    device, its zero (boundary) entries dropped: the library yardstick's
+    operand (torch.sparse.mm, cuSPARSE SpMM on a row-major (n, t) panel)."""
+    import torch
+
+    _, br, _, nrb = blocks_t.shape
+    r = torch.arange(nrb, device=blocks_t.device)
+    rows, cols, vals = [], [], []
+    for s_i, off in enumerate(offsets):
+        c = r + off
+        inside = (c >= 0) & (c < nrb)
+        for m in range(br):
+            for k in range(br):
+                v = blocks_t[s_i, m, k]
+                keep = inside & (v != 0)
+                rows.append(r[keep] * br + m)
+                cols.append(c[keep] * br + k)
+                vals.append(v[keep])
+    n = nrb * br
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def scipy_csr(a, dev):
+    """A scipy CSR matrix as an f32 torch CSR matrix on the card."""
+    import numpy as np
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data.astype(np.float32)), a.shape).to(dev)
+
+
+def library_ms(csr, t, seed):
+    """CUDA-event time of one torch.sparse.mm of the operator on an (n, t)
+    panel: the library call that computes the kernel's function."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (csr.shape[1], t)).astype(np.float32)).to(csr.device)
+    ms, _ = event_ms(lambda: torch.sparse.mm(csr, x), reps=10)
+    return ms
+
+
+def check_kernel(name, blocks_flat, offsets, halo, br, t, seed, csr=None):
+    """Kernel vs plain version on the card for one shape; returns a record
+    (with the cuSPARSE yardstick where ``csr`` is given)."""
     import numpy as np
     import torch
 
@@ -150,22 +252,33 @@ def check_kernel(name, blocks_flat, offsets, halo, br, t, seed):
     scale = stencil_flat_ext_ref(blocks_flat.abs(), offsets, x_ext.abs(), halo, br)
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    bound = KERNEL_TOL * float(scale.max())
+    err_bound = KERNEL_TOL * float(scale.max())
     if not bool(torch.isfinite(y_k).all()):
         fail(f"{name}: kernel output not finite")
-    if err > bound:
-        fail(f"{name}: max|kernel - plain| = {err:.3e} > {bound:.3e}")
-    nbytes = 4 * (blocks_flat.numel() + x_ext.numel() + y_k.numel())
+    if err > err_bound:
+        fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
+    # the bytes the product needs: the unextended panel (the halo columns
+    # are copies of it)
+    nbytes = 4 * (blocks_flat.numel() + xf.numel() + y_k.numel())
     rec = {"shape": name, "br": br, "t": t, "S": len(offsets), "nrb": nrb,
-           "halo": halo, "max_abs_err": err, "bound": bound,
+           "halo": halo, "max_abs_err": err, "err_bound": err_bound,
            **in_turns(lambda: stencil_flat_ext(blocks_flat, offsets, x_ext, halo, br),
                       lambda: stencil_flat_ext_ref(blocks_flat, offsets, x_ext, halo, br),
-                      nbytes)}
-    log(f"[kernel] {name}: br={br} t={t} S={len(offsets)} nrb={nrb} "
-        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
-        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
-        f"({rec['plain_GBps']:.0f} GB/s)")
+                      nbytes),
+           **bound(nbytes, 2 * len(offsets) * br * br * t * nrb),
+           "library_ms": None if csr is None else library_ms(csr, t, seed)}
+    log_kernel(name, f"br={br} t={t} S={len(offsets)} nrb={nrb}", rec)
     return rec
+
+
+def log_kernel(name, shape, rec):
+    lib = ("" if rec.get("library_ms") is None
+           else f" library {rec['library_ms']:.4f} ms")
+    log(f"[kernel] {name}: {shape} max_abs_err={rec['max_abs_err']:.3e} (bound "
+        f"{rec['err_bound']:.3e}) kernel {rec['ms']:.4f} ms ({rec['GBps']:.0f} "
+        f"GB/s, {rec['reckoned_MB']:.1f} MB) plain {rec['plain_ms']:.4f} ms "
+        f"({rec['plain_GBps']:.0f} GB/s) bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}){lib}")
 
 
 def in_turns(kernel_fn, plain_fn, nbytes, reps=20):
@@ -183,14 +296,15 @@ def in_turns(kernel_fn, plain_fn, nbytes, reps=20):
             "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
 
 
-def check_lane(name, a_t, t, seed, ext=False):
-    """B2a (or B2b with ``ext``) against its plain version on the card at
-    width t; returns a record."""
+def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
+    """B2a (B2b with ``ext``, B3 with ``b3``) against its plain version on
+    the card at width t; returns a record."""
     import numpy as np
     import torch
 
     from prealps_tpu_torch.ops.spmm import (
         extend_wrap,
+        stencil_bsr_spmm_t_pallas,
         stencil_bsr_spmm_t_pallas_bs,
         stencil_pallas_bs_ext,
         stencil_scan_accumulate,
@@ -203,6 +317,8 @@ def check_lane(name, a_t, t, seed, ext=False):
     x_ext = extend_wrap(x, halo).contiguous()
     if ext:
         kernel = lambda: stencil_pallas_bs_ext(a_t.blocks_t, a_t.offsets, x_ext, halo)
+    elif b3:
+        kernel = lambda: stencil_bsr_spmm_t_pallas(a_t, x)
     else:
         kernel = lambda: stencil_bsr_spmm_t_pallas_bs(a_t, x)
     plain = lambda: stencil_scan_accumulate(a_t.blocks_t, a_t.offsets, x_ext, halo)
@@ -211,20 +327,59 @@ def check_lane(name, a_t, t, seed, ext=False):
     scale = stencil_scan_accumulate(a_t.blocks_t.abs(), a_t.offsets, x_ext.abs(), halo)
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    bound = KERNEL_TOL * float(scale.max())
+    err_bound = KERNEL_TOL * float(scale.max())
     del scale, y_p
     if not bool(torch.isfinite(y_k).all()):
         fail(f"{name}: kernel output not finite")
-    if err > bound:
-        fail(f"{name}: max|kernel - plain| = {err:.3e} > {bound:.3e}")
-    nbytes = 4 * (a_t.blocks_t.numel() + (x_ext if ext else x).numel() + y_k.numel())
+    if err > err_bound:
+        fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
+    nbytes = 4 * (a_t.blocks_t.numel() + x.numel() + y_k.numel())
     rec = {"shape": name, "br": br, "t": t, "S": s_max, "nrb": nrb, "halo": halo,
-           "max_abs_err": err, "bound": bound,
-           **in_turns(kernel, plain, nbytes, reps=5 if t > 12 else 20)}
-    log(f"[kernel] {name}: br={br} t={t} S={s_max} nrb={nrb} "
-        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
-        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
-        f"({rec['plain_GBps']:.0f} GB/s)")
+           "max_abs_err": err, "err_bound": err_bound,
+           **in_turns(kernel, plain, nbytes, reps=5 if t > 12 else 20),
+           **bound(nbytes, 2 * s_max * br * br * t * nrb),
+           "library_ms": None if csr is None else library_ms(csr, t, seed)}
+    log_kernel(name, f"br={br} t={t} S={s_max} nrb={nrb}", rec)
+    return rec
+
+
+def check_planar(name, blocks_t, offsets, t, seed, csr=None):
+    """B4 (planar panel, plane-major blocks) against its plain version on
+    the card at width t; returns a record."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.ops.spmm import (
+        stencil_blocks_planar,
+        stencil_spmm_planar,
+        stencil_spmm_planar_ref,
+    )
+
+    s_max, br, _, nrb = blocks_t.shape
+    b3 = stencil_blocks_planar(blocks_t).contiguous()
+    x2 = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (t, br * nrb)).astype(np.float32)).to(blocks_t.device)
+    kw = dict(offsets=offsets, br=br, nrb=nrb)
+    kernel = lambda: stencil_spmm_planar(b3, x2, **kw)
+    plain = lambda: stencil_spmm_planar_ref(b3, x2, **kw)
+    y_k = kernel()
+    y_p = plain()
+    scale = stencil_spmm_planar_ref(b3.abs(), x2.abs(), **kw)
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    err_bound = KERNEL_TOL * float(scale.max())
+    del scale, y_p
+    if not bool(torch.isfinite(y_k).all()):
+        fail(f"{name}: kernel output not finite")
+    if err > err_bound:
+        fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
+    nbytes = 4 * (b3.numel() + x2.numel() + y_k.numel())
+    rec = {"shape": name, "br": br, "t": t, "S": s_max, "nrb": nrb,
+           "max_abs_err": err, "err_bound": err_bound,
+           **in_turns(kernel, plain, nbytes),
+           **bound(nbytes, 2 * s_max * br * br * t * nrb),
+           "library_ms": None if csr is None else library_ms(csr, t, seed)}
+    log_kernel(name, f"br={br} t={t} S={s_max} nrb={nrb}", rec)
     return rec
 
 
@@ -237,7 +392,7 @@ def device_busy_ms(prof) -> float:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
-def check_block_ell(name, mat, t, seed):
+def check_block_ell(name, mat, t, seed, csr=None):
     """B5 against block_ell_spmm on the card for one shape; returns a record."""
     import numpy as np
     import torch
@@ -254,23 +409,22 @@ def check_block_ell(name, mat, t, seed):
                                           mat.shape), x.abs())
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    bound = KERNEL_TOL * float(scale.max())
+    err_bound = KERNEL_TOL * float(scale.max())
     del scale, y_p
     if not bool(torch.isfinite(y_k).all()):
         fail(f"{name}: kernel output not finite")
-    if err > bound:
-        fail(f"{name}: max|kernel - plain| = {err:.3e} > {bound:.3e}")
+    if err > err_bound:
+        fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
     nrb, s_max, bm, bk = mat.blocks.shape
     nbytes = (4 * (mat.blocks.numel() + x.numel() + y_k.numel())
               + 4 * mat.blkcols.numel())
     rec = {"shape": name, "nrb": nrb, "S": s_max, "bm": bm, "bk": bk, "t": t,
-           "max_abs_err": err, "bound": bound,
+           "max_abs_err": err, "err_bound": err_bound,
            **in_turns(lambda: block_ell_spmm_pallas(mat, x),
-                      lambda: block_ell_spmm(mat, x), nbytes, reps=10)}
-    log(f"[kernel] {name}: nrb={nrb} S={s_max} bm={bm} bk={bk} t={t} "
-        f"max_abs_err={err:.3e} (bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
-        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
-        f"({rec['plain_GBps']:.0f} GB/s)")
+                      lambda: block_ell_spmm(mat, x), nbytes, reps=10),
+           **bound(nbytes, 2 * nrb * s_max * bm * bk * t),
+           "library_ms": None if csr is None else library_ms(csr, t, seed)}
+    log_kernel(name, f"nrb={nrb} S={s_max} bm={bm} bk={bk} t={t}", rec)
     return rec
 
 
@@ -298,25 +452,27 @@ def check_bj_apply(inv_f, br, t, seed):
     torch.cuda.synchronize()
     err = float((w_k - w_p).abs().max())
     err_bmm = float((w_k - bj_apply_flat(inv_f, z)).abs().max())
-    bound = KERNEL_TOL * float(scale.max())
+    err_bound = KERNEL_TOL * float(scale.max())
     if not bool(torch.isfinite(w_k).all()):
         fail("bj_apply_pallas: kernel output not finite")
-    if max(err, err_bmm) > bound:
+    if max(err, err_bmm) > err_bound:
         fail(f"bj_apply_pallas: max|kernel - plain| = {err:.3e}, "
-             f"|kernel - bmm| = {err_bmm:.3e} > {bound:.3e}")
-    nbytes = 4 * (b2.numel() + 2 * z.numel())
-    rec = {"shape": f"nb={nb} mb={mb} mbp={b2.shape[1]} t={t}", "t": t,
-           "max_abs_err": err, "max_abs_err_vs_bmm": err_bmm, "bound": bound,
+             f"|kernel - bmm| = {err_bmm:.3e} > {err_bound:.3e}")
+    # the bytes and flops the product needs: the unpadded inverses, not the
+    # kernel's table padded to mbp rows
+    nbytes = 4 * (inv_f.numel() + 2 * z.numel())
+    mbp = b2.shape[1]
+    rec = {"shape": f"nb={nb} mb={mb} mbp={mbp} t={t}", "t": t,
+           "max_abs_err": err, "max_abs_err_vs_bmm": err_bmm, "err_bound": err_bound,
            **in_turns(lambda: bj_apply_pallas(b2, z, br),
-                      lambda: bj_apply_pallas_ref(b2, z, br), nbytes)}
+                      lambda: bj_apply_pallas_ref(b2, z, br), nbytes),
+           **bound(nbytes, 2 * nb * mb * mb * t)}
+    # the library yardstick: one torch.bmm of the unpadded inverses (the
+    # driver's apply)
     bmm_ms, _ = event_ms(lambda: bj_apply_flat(inv_f, z))
-    rec["bmm_ms"] = bmm_ms
-    rec["bmm_GBps"] = 4 * (inv_f.numel() + 2 * z.numel()) / (bmm_ms * 1e-3) / 1e9
-    log(f"[kernel] bj_apply_pallas {rec['shape']}: max_abs_err={err:.3e} "
-        f"(vs bmm {err_bmm:.3e}, bound {bound:.3e}) kernel {rec['ms']:.4f} ms "
-        f"({rec['GBps']:.0f} GB/s) plain {rec['plain_ms']:.4f} ms "
-        f"({rec['plain_GBps']:.0f} GB/s) torch.bmm unpadded {bmm_ms:.4f} ms "
-        f"({rec['bmm_GBps']:.0f} GB/s)")
+    rec["library_ms"] = bmm_ms
+    rec["bmm_GBps"] = nbytes / (bmm_ms * 1e-3) / 1e9
+    log_kernel("bj_apply_pallas", rec["shape"] + f" (vs bmm {err_bmm:.3e})", rec)
     return rec
 
 
@@ -441,12 +597,15 @@ def lorasc_phase(dev, nel=36):
         f"{100 * LORASC_BAND:.0f} % of the record's {LORASC_ANCHOR_PAIRS}")
 
     a_t = ops["a_stencil"]
-    b2a = [check_lane(f"lorasc {what} (br3,t{t})", a_t, t, seed=30 + t)
+    csr = stencil_csr(a_t.blocks_t, a_t.offsets)
+    b2a = [check_lane(f"lorasc {what} (br3,t{t})", a_t, t, seed=30 + t,
+                      csr=csr if t == 12 else None)
            for what, t in (("ECG + apply", 12), ("Lanczos panel", 8),
                            ("refinement finish", 1), ("Rayleigh-Ritz nev", nev),
                            ("deflation lift k", lift_k))]
     b2b = [check_lane("lorasc finish A_lo·x_hi, pre-extended (br3,t1)", a_t, 1,
-                      seed=41, ext=True)]
+                      seed=41, ext=True, csr=csr)]
+    del csr
 
     stencil_bsr_spmm_t_pallas_bs.launches = 0
     stencil_pallas_bs_ext.launches = 0
@@ -500,6 +659,177 @@ def lorasc_phase(dev, nel=36):
     return b2a, b2b, path, la, lb
 
 
+def dia_phase(dev, a, b):
+    """The fmt="dia" path on lane-major panels at full size: the promoted
+    diagonals of elasticity3d(36³) as a br = 1 stencil through B1, device
+    block Jacobi from the diagonals, f32 with host-f64 refinement. The
+    scaled matrix has 97 promoted diagonals and a remainder (scaling drops
+    the stencil's stored zeros); the unscaled operator's table has all 99
+    and is the one of the br 1 × D 99 checks. Returns (B1 checks on both
+    tables, the B2b check at br 1 × D 99, path record, B1 launches of the
+    solve)."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.ops.formats import StencilBsrTMatrix, csr_to_dia_ell
+    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    opts = ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="odir_fused",
+                      layout="tbn")
+    t0 = time.perf_counter()
+    solver = DistributedECG.build(a, nshards=1, fmt="dia", precond="bj", grid=None,
+                                  opts=opts, dtype=np.float32, device=dev)
+    build_s = time.perf_counter() - t0
+    ops = solver.operands
+    n_diags = len(ops.offsets)
+    log(f"[dia] built in {build_s:.2f} s, stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in solver.timings.items()})
+        + f"; n_pad={solver.layout.n_pad} D={n_diags} diagonals, halo={ops.halo}, "
+        f"remainder {'none' if ops.rem_vals is None else tuple(ops.rem_vals.shape)}; "
+        f"block Jacobi nb={ops.inv_f.shape[0]} mb={ops.inv_f.shape[1]}")
+    if n_diags > 512 or ops.halo > ops.nrb:
+        fail(f"[dia] {n_diags} diagonals, halo {ops.halo}: the kernel takes "
+             "at most 512 offsets and a halo of at most n")
+    csr = stencil_csr(ops.blocks_flat[:, None, None, :], ops.offsets)
+    b1 = [check_kernel(f"[dia] path table, B1 (br1,D{n_diags},t12)", ops.blocks_flat,
+                       ops.offsets, ops.halo, 1, 12, seed=81, csr=csr),
+          check_kernel(f"[dia] path table, B1 (br1,D{n_diags},t1)", ops.blocks_flat,
+                       ops.offsets, ops.halo, 1, 1, seed=82)]
+    # the unscaled operator's own DIA table: all 99 diagonals promoted (its
+    # stored zeros included), no remainder. RAC scaling drops the stencil's
+    # stored zeros, which leaves the scaled operator (the path's, and the
+    # SpMM sweep's) 97 diagonals and 10,080 remainder entries.
+    de = csr_to_dia_ell(a, min_fill=0.05, dtype=np.float32, device=dev)
+    if len(de.offsets) != 99 or de.rem is not None:
+        fail(f"[dia] the unscaled operator has {len(de.offsets)} diagonals "
+             f"(remainder {de.rem is not None}); expected 99 and none")
+    halo99 = max(abs(o) for o in de.offsets)
+    dia_t = StencilBsrTMatrix(de.diags[:, None, None, :].contiguous(), de.offsets,
+                              de.shape)
+    b1 += [check_kernel(f"unscaled DIA table, B1 (br1,D99,t{t})", de.diags,
+                        de.offsets, halo99, 1, t, seed=84 + t) for t in (12, 1)]
+    b2b = [check_lane("unscaled DIA table, B2b pre-extended (br1,D99,t12)", dia_t,
+                      12, seed=83, ext=True,
+                      csr=stencil_csr(dia_t.blocks_t, de.offsets))]
+    del csr, dia_t, de
+
+    info, launches, warm_s = checked_solve(solver, a, b, "dia", stencil_flat_ext)
+    iters = int(info["iters"])
+    log(f"[dia] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
+        f"{info['refine_rounds']} (host f64) relres={info['relres']:.3e} "
+        f"breakdown={info['breakdown']} stencil_flat_ext launches={launches} "
+        f"(JAX package on a CPU: {DIA_ANCHOR_ITERS} iterations)")
+    if launches < iters:
+        fail(f"[dia] B1 launched {launches} times for {iters} iterations")
+    if not within(iters, DIA_ANCHOR_ITERS, PATH_BAND):
+        fail(f"[dia] {iters} iterations, outside {DIA_ANCHOR_ITERS} ± "
+             f"{100 * PATH_BAND:.0f} %")
+    timed = timed_solves(solver, b, iters, "dia")
+    solve_s = statistics.median(timed)
+    log(f"[dia] timed solves (s): {[round(v, 4) for v in timed]}; median "
+        f"{solve_s:.4f} s, {1e3 * solve_s / iters:.3f} ms/iteration")
+    busy_ms, wall_ms = profile_solve(solver, b, "dia")
+    log(f"[dia] device busy {busy_ms:.1f} ms per solve: "
+        f"{100 * busy_ms / (1e3 * solve_s):.0f} % of the timed median "
+        f"{1e3 * solve_s:.1f} ms")
+    path = {"n_pad": solver.layout.n_pad, "D": n_diags, "halo": ops.halo,
+            "iters": iters, "refine_rounds": info["refine_rounds"],
+            "relres": info["relres"], "launches": launches, "solve_s": timed,
+            "ms_per_iter": 1e3 * solve_s / iters, "build_s": build_s,
+            "build_stages_s": solver.timings, "profile_device_ms": busy_ms,
+            "profile_wall_ms": wall_ms, "anchor_iters": DIA_ANCHOR_ITERS}
+    return b1, b2b, path, launches
+
+
+def auto_phase(dev):
+    """fmt="auto" on the structure-hidden record of BENCH_r05.json
+    (bench.py:470-492): elasticity3d(20³) under a random symmetric
+    permutation; the cascade must choose Morton block-ELL."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    a0 = elasticity3d(20, 20, 20, heterogeneous=False)
+    n = a0.shape[0]
+    rng = np.random.default_rng(5)
+    pm = sp.eye(n, format="csr")[rng.permutation(n)]
+    a = (pm @ a0 @ pm.T).tocsr()
+    b = rng.standard_normal(n)
+    opts = ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="odir_fused",
+                      layout="nt")
+    t0 = time.perf_counter()
+    solver = DistributedECG.build(a, nshards=1, fmt="auto", precond="bj",
+                                  block_size=240, opts=opts, dtype=np.float32,
+                                  device=dev)
+    build_s = time.perf_counter() - t0
+    fi = solver.fmt_info
+    log(f"[auto] shuffled elasticity3d(20³) n={n}: chose {fi['chosen']} "
+        f"(layout={solver.opts.layout}) in {build_s:.2f} s, stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in solver.timings.items()})
+        + f"; scores {json.dumps(fi)}")
+    if fi["chosen"] != "block_ell_morton" or solver.pre_perm is None:
+        fail(f"[auto] chose {fi['chosen']}, not block_ell_morton")
+    info, _, warm_s = checked_solve(solver, a, b, "auto")
+    iters = int(info["iters"])
+    log(f"[auto] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
+        f"{info['refine_rounds']} relres={info['relres']:.3e} (record "
+        f"{AUTO_ANCHOR_ITERS} iterations)")
+    if not within(iters, AUTO_ANCHOR_ITERS, PATH_BAND):
+        fail(f"[auto] {iters} iterations, outside {AUTO_ANCHOR_ITERS} ± "
+             f"{100 * PATH_BAND:.0f} %")
+    timed = timed_solves(solver, b, iters, "auto")
+    return {"n": n, "chosen": fi["chosen"], "fmt_info": fi, "iters": iters,
+            "refine_rounds": info["refine_rounds"], "relres": info["relres"],
+            "solve_s": timed, "build_s": build_s,
+            "anchor_iters": AUTO_ANCHOR_ITERS}
+
+
+def spmm_phase(dev, a):
+    """The SpMM format sweep (prealps_tpu_torch.examples.bench_spmm) at
+    nel = 36 on the card: every format's y held to the ELL product of the
+    same panel within KERNEL_TOL · max(|A|·|x|). Returns (records, B3
+    launches)."""
+    import torch
+
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.examples import bench_spmm
+    from prealps_tpu_torch.ops.spmm import stencil_bsr_spmm_t_pallas
+
+    a_s = sym_rac_scaling(a)[0]
+    abs_csr = scipy_csr(abs(a_s), dev)
+    stencil_bsr_spmm_t_pallas.launches = 0
+    recs, pending = [], {}
+    for rec, x, y in bench_spmm.sweep(nel=36, ts=(1, 4, 8, 12, 16), reps=10,
+                                      device=dev, a=a_s):
+        log("[spmm] " + json.dumps(rec))
+        recs.append(rec)
+        pending.setdefault(rec["t"], {})[rec["format"]] = (x, y)
+        group = pending[rec["t"]]
+        if len(group) < len(bench_spmm.FORMATS):
+            continue
+        x, y_ell = group["ell"]
+        err_bound = KERNEL_TOL * float(torch.sparse.mm(abs_csr, x.abs().float()).max())
+        for fmt, (_, y) in group.items():
+            err = float((y - y_ell).abs().max())
+            if not bool(torch.isfinite(y).all()) or err > err_bound:
+                fail(f"[spmm] {fmt} t={rec['t']}: max|y - y_ell| = {err:.3e} "
+                     f"> {err_bound:.3e}")
+            rec_f = next(r for r in recs if r["t"] == rec["t"] and r["format"] == fmt)
+            rec_f["max_abs_err_vs_ell"] = err
+        del pending[rec["t"]]
+    launches = stencil_bsr_spmm_t_pallas.launches
+    log(f"[spmm] {len(recs)} lines, every format within KERNEL_TOL of the ELL "
+        f"product; B3 (stencil_t_pallas) launches={launches}")
+    if launches < 1:
+        fail("[spmm] B3 was not launched by the sweep")
+    return recs, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "prealps_tpu_torch")):
         fail("prealps_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -518,11 +848,16 @@ def main() -> int:
     from prealps_tpu_torch.direct.device_bj import bj_apply_pallas
     from prealps_tpu_torch.ops import _kernels
     from prealps_tpu_torch.ops.formats import (
+        StencilBsrTMatrix,
         csr_to_block_ell,
         csr_to_stencil_bsr_t,
         stencil_blocks_flat,
     )
-    from prealps_tpu_torch.ops.spmm import block_ell_spmm_pallas, stencil_flat_ext
+    from prealps_tpu_torch.ops.spmm import (
+        block_ell_spmm_pallas,
+        stencil_flat_ext,
+        stencil_spmm_planar,
+    )
     from prealps_tpu_torch.parallel.driver import DistributedECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
 
@@ -569,9 +904,15 @@ def main() -> int:
         f"halo={ops.halo} nb={ops.inv_f.shape[0]} mb={ops.inv_f.shape[1]}")
 
     # --- 4. kernels vs plain versions on the card ---
+    s_off = len(ops.offsets)
+    head_t = StencilBsrTMatrix(ops.blocks_flat.view(s_off, 3, 3, ops.nrb),
+                               ops.offsets, (3 * ops.nrb, 3 * ops.nrb))
+    head_csr = stencil_csr(head_t.blocks_t, ops.offsets)
+    log(f"[kernel] the headline operator as torch CSR: nnz={head_csr.values().numel()} "
+        "(the torch.sparse.mm yardstick)")
     checks = [
         check_kernel("headline solver apply (br3,t12)", ops.blocks_flat,
-                     ops.offsets, ops.halo, 3, 12, seed=1),
+                     ops.offsets, ops.halo, 3, 12, seed=1, csr=head_csr),
         check_kernel("refinement residual lo half (br3,t1)", ops.blocks_flat,
                      ops.offsets, ops.halo, 3, 1, seed=2),
         check_kernel("generic instantiation (br3,t4)", ops.blocks_flat,
@@ -589,6 +930,15 @@ def main() -> int:
     log(f"[plain] stencil_scan_accumulate_df (br3,t1), the refinement "
         f"residual: {df_ms:.3f} ms")
     del pois
+    # B3 (the sweep's stencil_t_pallas) and B4 (planar) on the same operator
+    b3 = [check_lane(f"headline operator, B3 (br3,t{t})", head_t, t, seed=60 + t,
+                     b3=True, csr=head_csr if t == 12 else None)
+          for t in (12, 8, 1)]
+    stencil_spmm_planar.launches = 0
+    b4 = [check_planar("headline operator, B4 planar (br3,t12)", head_t.blocks_t,
+                       ops.offsets, 12, seed=71, csr=head_csr)]
+    b4_launches = stencil_spmm_planar.launches
+    del head_csr, head_t
 
     # --- 5. the main path, through the user's entry points ---
     info, launches, warm_s = checked_solve(solver, a, b, "main", stencil_flat_ext)
@@ -650,8 +1000,9 @@ def main() -> int:
         f"mb={gops.bj.factors.shape[1]} mode={gops.bj.mode}")
 
     # --- 8. B5 vs its plain version on the card ---
+    gen_csr = scipy_csr(permute_and_pad_matrix(gsolver.a_scaled, gsolver.layout), dev)
     b5_checks = [check_block_ell("general solver apply (bk128,t12)", gops.mat,
-                                 12, seed=11),
+                                 12, seed=11, csr=gen_csr),
                  check_block_ell("single vector (bk128,t1)", gops.mat, 1,
                                  seed=12)]
     bell8 = csr_to_block_ell(permute_and_pad_matrix(gsolver.a_scaled,
@@ -659,7 +1010,7 @@ def main() -> int:
                              bm=8, bk=8, dtype=np.float32, device=dev)
     b5_checks.append(check_block_ell("bk8 generic (bk8,t12)", bell8, 12,
                                      seed=13))
-    del bell8
+    del bell8, gen_csr
 
     # --- 9. the general path, through the user's entry points ---
     ginfo, glaunches, gwarm_s = checked_solve(gsolver, a, b, "general",
@@ -743,58 +1094,47 @@ def main() -> int:
     # --- 13-15. the single-GPU LORASC path, with B2a and B2b ---
     b2a, b2b, lorasc_path, la, lb = lorasc_phase(dev)
 
+    # --- 16-19. fmt="dia", fmt="auto" and the SpMM format sweep ---
+    b1_dia, b2b_dia, dia_path, dia_launches = dia_phase(dev, a, b)
+    auto_path = auto_phase(dev)
+    spmm_recs, b3_launches = spmm_phase(dev, a)
+
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_check": b6,
-        "lane_checks": b2a + b2b, "main_path": main_path,
+        "lane_checks": b2a + b2b, "b3_checks": b3, "b4_checks": b4,
+        "dia_checks": b1_dia + b2b_dia, "main_path": main_path,
         "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
-        "lorasc_path": lorasc_path, "total_s": time.perf_counter() - t_start}))
-    head, b5 = checks[0], b5_checks[0]
-    kernels = {"kernels": [{
-        "name": "stencil_flat_ext",
-        "route": "cuda",
-        "source": "prealps_tpu_torch/csrc/stencil_flat.cu",
-        "replaces": "prealps_tpu/ops/spmm.py:772",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-    }, {
-        "name": "block_ell_spmm_pallas",
-        "route": "cuda",
-        "source": "prealps_tpu_torch/csrc/block_ell.cu",
-        "replaces": "prealps_tpu/ops/spmm.py:69",
-        "launches": glaunches,
-        "max_abs_err": max(c["max_abs_err"] for c in b5_checks),
-        "ms": b5["ms"],
-        "plain_ms": b5["plain_ms"],
-    }, {
-        "name": "bj_apply_pallas",
-        "route": "cuda",
-        "source": "prealps_tpu_torch/csrc/bj_apply.cu",
-        "replaces": "prealps_tpu/direct/device_bj.py:159",
-        "launches": b6_launches,
-        "max_abs_err": b6["max_abs_err"],
-        "ms": b6["ms"],
-        "plain_ms": b6["plain_ms"],
-    }, {
-        "name": "stencil_bsr_spmm_t_pallas_bs",
-        "route": "cuda",
-        "source": "prealps_tpu_torch/csrc/stencil_lane.cu",
-        "replaces": "prealps_tpu/ops/spmm.py:482",
-        "launches": la,
-        "max_abs_err": max(c["max_abs_err"] for c in b2a),
-        "ms": b2a[0]["ms"],
-        "plain_ms": b2a[0]["plain_ms"],
-    }, {
-        "name": "stencil_pallas_bs_ext",
-        "route": "cuda",
-        "source": "prealps_tpu_torch/csrc/stencil_lane.cu",
-        "replaces": "prealps_tpu/ops/spmm.py:695",
-        "launches": lb,
-        "max_abs_err": b2b[0]["max_abs_err"],
-        "ms": b2b[0]["ms"],
-        "plain_ms": b2b[0]["plain_ms"],
-    }]}
+        "lorasc_path": lorasc_path, "dia_path": dia_path, "auto_path": auto_path,
+        "spmm_sweep": spmm_recs, "total_s": time.perf_counter() - t_start}))
+
+    def entry(name, source, replaces, launches_, recs):
+        """One kernel's record: times and yardsticks at its first shape
+        (the path's), the largest error over every shape checked."""
+        head = recs[0]
+        return {"name": name, "route": "cuda",
+                "source": f"prealps_tpu_torch/csrc/{source}",
+                "replaces": f"prealps_tpu/{replaces}", "launches": launches_,
+                "max_abs_err": max(c["max_abs_err"] for c in recs),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"]}
+
+    kernels = {"kernels": [
+        entry("stencil_flat_ext", "stencil.cu", "ops/spmm.py:772", launches,
+              checks + b1_dia),
+        entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:69", glaunches,
+              b5_checks),
+        entry("bj_apply_pallas", "bj_apply.cu", "direct/device_bj.py:159",
+              b6_launches, [b6]),
+        entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:482", la,
+              b2a),
+        entry("stencil_pallas_bs_ext", "stencil.cu", "ops/spmm.py:695", lb,
+              b2b + b2b_dia),
+        entry("stencil_bsr_spmm_t_pallas", "stencil.cu", "ops/spmm.py:370",
+              b3_launches, b3),
+        entry("stencil_spmm_planar", "stencil.cu", "ops/spmm.py:593", b4_launches,
+              b4),
+    ]}
     log(card_line())
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

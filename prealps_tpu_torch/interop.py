@@ -17,9 +17,16 @@ import torch
 
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import RowLayout
-from prealps_tpu_torch.ops.formats import BlockEllMatrix, EllMatrix, StencilBsrTMatrix
+from prealps_tpu_torch.ops.formats import (
+    BlockEllMatrix,
+    DiaEllMatrix,
+    EllMatrix,
+    StencilBsrTMatrix,
+)
 from prealps_tpu_torch.parallel.driver import (
     BlockEllOperands,
+    DiaLaneOperands,
+    DiaOperands,
     DistributedECG,
     EllOperands,
     StencilOperands,
@@ -45,14 +52,22 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
       * "ell": ``ell_vals``, ``ell_cols`` (n_pad, L);
       * "block_ell" / "block_ell_xla": ``bell_blocks`` (nrb, S, 8, bk),
         ``bell_blkcols`` (nrb, S);
-      * general formats also ``bj_factors`` (nb, mb, mb), ``bj_gather_idx``
-        (nb·mb,), ``bj_inv_perm`` (n_pad,) of the host block Jacobi.
+      * "dia": ``dia_diags`` (D, n_pad) promoted diagonals (or the JAX
+        lane-major build's (D, 1, 1, n_pad)), ``dia_rem_vals``,
+        ``dia_rem_cols`` (n_pad, L) ELL remainder (the JAX driver keeps an
+        all-zero slot where there is none); on ``meta["layout"] == "tbn"``
+        ``inv_f`` (nb, mb, mb) device block inverses, or none;
+      * row-major formats also ``bj_factors`` (nb, mb, mb), ``bj_gather_idx``
+        (nb·mb,), ``bj_inv_perm`` (n_pad,) of the host block Jacobi (none
+        for precond="none").
     meta:
       ``n``, ``n_pad``, ``rows_per_shard``, ``opts`` (dict of ECGOptions
       fields, as the reference solver holds them after build),
       ``target_tol``; ``fmt``; for the stencil ``stencil_offsets`` (S node
-      offsets) and ``br``; for block-ELL ``ncols_pad``; for the general
-      formats ``bj_mode`` ("inverse" or "cholesky").
+      offsets) and ``br``; for DIA ``dia_offsets`` and ``layout`` ("nt" or
+      "tbn"); for block-ELL ``ncols_pad``; for the row-major formats
+      ``bj_mode`` ("inverse" or "cholesky").
+    ``pre_perm`` in arrays (fmt="auto"'s row permutation) is kept.
 
     The operands' dtype (float32 or float64) is the solve's dtype.
     """
@@ -77,24 +92,47 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
             offsets=offsets, br=br, inv_f=dev("inv_f", dtype),
             yq3=dev("yq3", dtype) if bj2l else None,
             ac_inv=dev("ac_inv", dtype) if bj2l else None)
+    elif fmt == "dia" and meta.get("layout") == "tbn":
+        offsets = tuple(int(o) for o in meta["dia_offsets"])
+        diags = np.asarray(arrays["dia_diags"])
+        dtype = diags.dtype
+        operands = DiaLaneOperands(
+            blocks_flat=torch.from_numpy(np.array(
+                diags.reshape(len(offsets), n_pad), order="C")).to(device),
+            offsets=offsets, br=1,
+            inv_f=dev("inv_f", dtype) if arrays.get("inv_f") is not None else None,
+            rem_vals=dev("dia_rem_vals", dtype),
+            rem_cols=dev("dia_rem_cols", np.int64))
     else:
-        bj = BlockJacobi(factors=dev("bj_factors"),
-                         gather_idx=dev("bj_gather_idx", np.int64),
-                         inv_perm=dev("bj_inv_perm", np.int64),
-                         mode=meta["bj_mode"])
+        bj = None
+        if arrays.get("bj_factors") is not None:
+            bj = BlockJacobi(factors=dev("bj_factors"),
+                             gather_idx=dev("bj_gather_idx", np.int64),
+                             inv_perm=dev("bj_inv_perm", np.int64),
+                             mode=meta["bj_mode"])
         if fmt == "ell":
             operands = EllOperands(
                 mat=EllMatrix(dev("ell_vals"), dev("ell_cols", np.int32),
                               (n_pad, n_pad)),
                 bj=bj)
+            dtype = np.asarray(arrays["ell_vals"]).dtype
         elif fmt in ("block_ell", "block_ell_xla"):
             operands = BlockEllOperands(
                 mat=BlockEllMatrix(dev("bell_blocks"), dev("bell_blkcols", np.int32),
                                    (n_pad, int(meta["ncols_pad"]))),
                 bj=bj, kernel=fmt == "block_ell")
+            dtype = np.asarray(arrays["bell_blocks"]).dtype
+        elif fmt == "dia":
+            rem = EllMatrix(dev("dia_rem_vals"), dev("dia_rem_cols", np.int32),
+                            (n_pad, n_pad))
+            operands = DiaOperands(
+                mat=DiaEllMatrix(offsets=tuple(int(o) for o in meta["dia_offsets"]),
+                                 diags=dev("dia_diags"), rem=rem,
+                                 shape=(n_pad, n_pad)),
+                bj=bj)
+            dtype = np.asarray(arrays["dia_diags"]).dtype
         else:
             raise ValueError(f"unknown fmt {fmt!r}")
-        dtype = np.asarray(arrays["bj_factors"]).dtype
     layout = RowLayout(
         n=int(meta["n"]), n_pad=n_pad, nshards=1,
         rows_per_shard=int(meta["rows_per_shard"]),
@@ -108,6 +146,7 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         operands=operands, device=device, dtype=np.dtype(dtype),
         target_tol=float(meta["target_tol"]),
         a_scaled=None if a_scaled is None else sp.csr_matrix(a_scaled),
+        pre_perm=arrays.get("pre_perm"),
     )
 
 

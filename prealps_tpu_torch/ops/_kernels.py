@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil_flat.cu", "stencil_lane.cu", "block_ell.cu", "bj_apply.cu")
+SOURCES = ("stencil.cu", "block_ell.cu", "bj_apply.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,12 +39,9 @@ build_info: dict = {}   # source -> path, seconds, compiler log of its library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {         # C entry point -> (argtypes, restype)
-    "prealps_stencil_flat_f32": ([_P, _P, _P, ctypes.POINTER(_I), _I, _I, _I,
-                                  _I, _I, _I, _P], _I),
-    "prealps_max_offsets": ([], _I),
-    "prealps_stencil_lane_f32": ([_P, _P, _P, ctypes.POINTER(_I), _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _P], _I),
-    "prealps_lane_max_offsets": ([], _I),
+    "prealps_stencil_f32": ([_P, _P, _P, ctypes.POINTER(_I)] + [_I] * 10
+                            + [_P], _I),
+    "prealps_stencil_max_offsets": ([], _I),
     "prealps_block_ell_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "prealps_bj_apply_f32": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "prealps_bj_apply_max_rows": ([_I], _I),
@@ -127,40 +124,27 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def stencil_flat_f32(blocks: torch.Tensor, offsets: tuple,
-                     x_ext: torch.Tensor, y: torch.Tensor, halo: int,
-                     br: int, t: int) -> None:
-    """Launch the flat stencil kernel writing into ``y`` (checked by the
-    caller: CUDA, f32, contiguous, shapes consistent)."""
-    lib = load()["stencil_flat.cu"]
+def stencil_f32(blocks: torch.Tensor, offsets: tuple, x: torch.Tensor,
+                y: torch.Tensor, *, br: int, t: int, nrb: int, ncol: int,
+                lead: int, kmajor: bool, wrap: bool, planar: bool,
+                what: str) -> None:
+    """Launch the stencil kernel writing into ``y`` (checked by the caller:
+    CUDA, f32, contiguous, shapes consistent). The index maps are those of
+    ``csrc/stencil.cu``: ``kmajor`` (panel row k·t + j, else j·br + k),
+    ``wrap`` (columns mod nrb, else r + lead + off of an extended panel of
+    ``ncol`` columns) and ``planar`` (blocks (br, S·br, nrb), else
+    (S, br, br, nrb)). ``what`` names the wrapper in errors."""
+    lib = load()["stencil.cu"]
     n_off = len(offsets)
-    if n_off > lib.prealps_max_offsets():
-        raise ValueError(f"{n_off} stencil offsets; the kernel takes at most "
-                         f"{lib.prealps_max_offsets()}")
+    if n_off > lib.prealps_stencil_max_offsets():
+        raise ValueError(f"{what}: {n_off} stencil offsets; the kernel takes "
+                         f"at most {lib.prealps_stencil_max_offsets()}")
     offs = (ctypes.c_int * n_off)(*offsets)
-    rc = lib.prealps_stencil_flat_f32(
-        blocks.data_ptr(), x_ext.data_ptr(), y.data_ptr(), offs, n_off,
-        br, t, y.shape[1], halo, y.device.index or 0, _stream(y))
-    _check(lib, rc, "stencil_flat_ext launch")
-
-
-def stencil_lane_f32(blocks_t: torch.Tensor, offsets: tuple, x: torch.Tensor,
-                     y: torch.Tensor, lead: int, wrap: bool) -> None:
-    """Launch the lane-major stencil kernel writing into ``y`` (checked by
-    the caller: CUDA, f32, contiguous, shapes consistent). ``wrap``: x is
-    (t, br, nrb) and columns wrap; else x is (t, br, nrb + 2·lead)."""
-    lib = load()["stencil_lane.cu"]
-    n_off = len(offsets)
-    if n_off > lib.prealps_lane_max_offsets():
-        raise ValueError(f"{n_off} stencil offsets; the kernel takes at most "
-                         f"{lib.prealps_lane_max_offsets()}")
-    offs = (ctypes.c_int * n_off)(*offsets)
-    t, br, nrb = y.shape
-    rc = lib.prealps_stencil_lane_f32(
-        blocks_t.data_ptr(), x.data_ptr(), y.data_ptr(), offs, n_off, br, t,
-        nrb, x.shape[2], lead, int(wrap), y.device.index or 0, _stream(y))
-    _check(lib, rc, "stencil_pallas_bs_ext launch" if not wrap
-           else "stencil_bsr_spmm_t_pallas_bs launch")
+    rc = lib.prealps_stencil_f32(
+        blocks.data_ptr(), x.data_ptr(), y.data_ptr(), offs, n_off, br, t,
+        nrb, ncol, lead, int(kmajor), int(wrap), int(planar),
+        y.device.index or 0, _stream(y))
+    _check(lib, rc, f"{what} launch")
 
 
 def block_ell_f32(blocks: torch.Tensor, blkcols: torch.Tensor,

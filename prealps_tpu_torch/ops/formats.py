@@ -1,9 +1,11 @@
 """Sparse formats (ELL, block-ELL, stencil block-sparse) and panel layouts.
 
 The host conversions are numpy copies of ``prealps_tpu/ops/formats.py``
-(``csr_to_ell``, ``csr_to_block_ell``, ``csr_to_stencil_bsr``/``_t``) and
-give the same arrays bit for bit; the arrays then move to the requested
-device as tensors.
+(``csr_to_ell``, ``csr_to_block_ell``, ``csr_to_stencil_bsr``/``_t``,
+``csr_to_dia_ell`` and the format detection of ``fmt="auto"``:
+``dia_coverage``, ``block_fill``, ``detect_format``,
+``csr_to_dia_ell_auto``) and give the same arrays and choices bit for bit;
+the arrays then move to the requested device as tensors.
 
 General formats (row-major (n, t) panels):
 
@@ -13,6 +15,10 @@ General formats (row-major (n, t) panels):
              block, its S bk-wide column blocks with nonzeros, padded to the
              longest such list; padding slots point at column block 0 and
              hold zeros, so they add nothing.
+* DIA+ELL    diags (D, n): the D promoted diagonals, entry [d, i] = a[i, i +
+             off_d] (zero where that column leaves the matrix), plus an ELL
+             remainder of the entries on no promoted diagonal. A DIA table
+             is also a br = 1 stencil block table (S = D).
 
 A stencil operator stores, for each node r and each of S constant node
 offsets o_s, one dense br×br block:  y_r = Σ_s B[r, s] · x_{r + o_s}.
@@ -34,6 +40,8 @@ from dataclasses import dataclass
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from prealps_tpu_torch.core.partition import morton_perm, pseudo_coords, rcm_order
 
 
 @dataclass
@@ -184,6 +192,175 @@ def csr_to_stencil_bsr_t(a: sp.spmatrix, br: int, max_offsets: int = 64,
     n = a.shape[0]
     return StencilBsrTMatrix(torch.from_numpy(blocks_t).to(device), offsets,
                              (n, n))
+
+
+@dataclass
+class DiaEllMatrix:
+    """Hybrid DIA + ELL: y[i] = Σ_d diags[d, i] · x[i + offsets[d]] plus the
+    ELL remainder of the entries off the promoted diagonals."""
+
+    offsets: tuple            # diagonal offsets (col − row), ascending
+    diags: torch.Tensor       # (D, n); entry [d, i] multiplies x[i + off_d]
+    rem: EllMatrix | None     # stragglers (None if band-complete)
+    shape: tuple
+
+
+def dia_ell_host(a: sp.spmatrix, min_fill: float = 0.2, max_diags: int = 512,
+                 dtype=None):
+    """Host DIA + ELL split: (offsets, diags (D, n) numpy, remainder CSR or
+    None). Diagonals holding at least ``min_fill · n`` nonzeros are promoted
+    (at most ``max_diags``, densest first); the rest is the remainder."""
+    a = sp.csr_matrix(a)
+    n, m = a.shape
+    if n != m:
+        raise ValueError("DIA+ELL requires a square matrix")
+    dtype = np.dtype(dtype) if dtype is not None else a.dtype
+    coo = a.tocoo()
+    off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    uniq, counts = np.unique(off, return_counts=True)
+    dense = uniq[counts >= max(int(min_fill * n), 1)]
+    if dense.size > max_diags:
+        order = np.argsort(counts[np.isin(uniq, dense)])[::-1]
+        dense = np.sort(dense[order[:max_diags]])
+    on_dia = np.isin(off, dense)
+    diags = np.zeros((max(dense.size, 1), n), dtype=dtype)
+    pos = {int(o): d for d, o in enumerate(dense)}
+    if dense.size:
+        didx = np.fromiter((pos[int(o)] for o in off[on_dia]), dtype=np.int64,
+                           count=int(on_dia.sum()))
+        np.add.at(diags, (didx, coo.row[on_dia]), coo.data[on_dia])
+    rem_mask = ~on_dia
+    rem = None
+    if rem_mask.any():
+        rem = sp.csr_matrix(sp.coo_matrix(
+            (coo.data[rem_mask], (coo.row[rem_mask], coo.col[rem_mask])),
+            shape=a.shape))
+    offsets = tuple(int(o) for o in dense) if dense.size else (0,)
+    return offsets, diags, rem
+
+
+def csr_to_dia_ell(a: sp.spmatrix, min_fill: float = 0.2, max_diags: int = 512,
+                   dtype=None, device="cpu") -> DiaEllMatrix:
+    """Square CSR -> hybrid DIA + ELL on ``device`` (``dia_ell_host``)."""
+    offsets, diags, rem = dia_ell_host(a, min_fill, max_diags, dtype)
+    dtype = diags.dtype
+    return DiaEllMatrix(
+        offsets=offsets, diags=torch.from_numpy(diags).to(device),
+        rem=None if rem is None else csr_to_ell(rem, dtype=dtype, device=device),
+        shape=a.shape)
+
+
+def dia_coverage(a: sp.spmatrix, min_fill: float = 0.2) -> float:
+    """Fraction of nnz on diagonals that would be promoted at `min_fill`."""
+    a = sp.csr_matrix(a)
+    coo = a.tocoo()
+    off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    _, counts = np.unique(off, return_counts=True)
+    dense = counts >= max(int(min_fill * a.shape[0]), 1)
+    return float(counts[dense].sum() / max(a.nnz, 1))
+
+
+def block_fill(a: sp.spmatrix, bm: int = 8, bk: int = 8) -> float:
+    """nnz density of the occupied bm×bk blocks (1.0 = perfectly dense)."""
+    coo = sp.csr_matrix(a).tocoo()
+    if coo.nnz == 0:
+        return 0.0
+    ncb = -(-a.shape[1] // bk)
+    keys = (coo.row // bm).astype(np.int64) * ncb + coo.col // bk
+    nblk = np.unique(keys).size
+    return float(coo.nnz / (nblk * bm * bk))
+
+
+def detect_format(a: sp.spmatrix, br: int = 3, nshards: int = 1,
+                  dia_min_cov: float = 0.85, bell_min_fill: float = 0.06,
+                  allow_stencil: bool = True,
+                  allow_reorder: bool = True) -> tuple[str, dict]:
+    """Pick the storage format for `a` (the cascade of
+    ``prealps_tpu/ops/formats.py::detect_format``, the same choices and
+    permutations):
+
+      1. stencil-BSR: few constant node offsets with dense-enough blocks;
+      2. DIA+ELL: ≥ dia_min_cov of nnz on promoted diagonals, in the
+         caller's order or ("dia_rcm") under RCM;
+      3. block-ELL 8×8 under a Morton order of BFS pseudo-coordinates
+         ("block_ell_morton") or in the natural order;
+      4. ELL otherwise.
+
+    allow_reorder=False disables the choices that permute rows. Returns
+    (fmt, info): fmt in {"stencil", "dia", "dia_rcm", "block_ell_morton",
+    "block_ell_natural", "ell"}; info carries the scores and, for the
+    reordering choices, the permutation under info["perm"] and the permuted
+    matrix under info["permuted"]."""
+    a = sp.csr_matrix(a)
+    n, m = a.shape
+    info: dict = {}
+
+    st_fill = 0.0
+    stencil_ok = False
+    if allow_stencil and n == m and n % br == 0:
+        coo = a.tocoo()
+        delta = coo.col.astype(np.int64) // br - coo.row.astype(np.int64) // br
+        offs = np.unique(delta)
+        info["stencil_offsets"] = int(offs.size)
+        if offs.size <= 64:
+            st_fill = a.nnz / ((n // br) * offs.size * br * br)
+            info["stencil_fill"] = round(float(st_fill), 3)
+            stencil_ok = st_fill >= 0.1
+
+    cov = dia_coverage(a, min_fill=0.05)
+    info["dia_coverage"] = round(float(cov), 3)
+
+    # a scalar-banded matrix also passes the br-block stencil test, at
+    # ~1/br block fill: DIA wins only where it qualifies outright
+    prefer_dia = cov >= max(0.9, dia_min_cov) and st_fill < 0.5
+    if stencil_ok and not prefer_dia:
+        return "stencil", info
+    if cov >= dia_min_cov:
+        return "dia", info
+    if stencil_ok:
+        return "stencil", info
+    if n == m and allow_reorder:
+        perm_r = rcm_order(a)
+        ap_r = a[perm_r][:, perm_r].tocsr()
+        cov_r = dia_coverage(ap_r, min_fill=0.05)
+        info["dia_coverage_rcm"] = round(float(cov_r), 3)
+        if cov_r >= dia_min_cov:
+            info["perm"] = perm_r
+            info["permuted"] = ap_r
+            return "dia_rcm", info
+
+    # multi-shard block-ELL moves 128-wide column blocks: no Morton probe
+    bk = 8 if nshards <= 1 else 128
+    fill_nat = block_fill(a, 8, bk)
+    info["bell_fill_natural"] = round(fill_nat, 3)
+    if n == m and nshards <= 1 and allow_reorder:
+        perm = morton_perm(pseudo_coords(a))
+        ap = a[perm][:, perm].tocsr()
+        fill_m = block_fill(ap, 8, bk)
+        info["bell_fill_morton"] = round(fill_m, 3)
+        if fill_m >= bell_min_fill and fill_m > 1.3 * fill_nat:
+            info["perm"] = perm
+            info["permuted"] = ap
+            return "block_ell_morton", info
+    if fill_nat >= max(bell_min_fill, 0.1):
+        return "block_ell_natural", info
+    return "ell", info
+
+
+def csr_to_dia_ell_auto(a: sp.spmatrix, min_fill: float = 0.2, dtype=None,
+                        device="cpu"):
+    """DIA+ELL in the caller's order when it is diagonal-dominated
+    (coverage ≥ 0.9), else under RCM where that covers more. Returns
+    (DiaEllMatrix, perm), perm None when the caller's order is kept."""
+    cov_nat = dia_coverage(a, min_fill)
+    if cov_nat >= 0.9:
+        return csr_to_dia_ell(a, min_fill=min_fill, dtype=dtype, device=device), None
+    perm = rcm_order(sp.csr_matrix(a))
+    ap = sp.csr_matrix(sp.csr_matrix(a)[perm][:, perm])
+    cov_rcm = dia_coverage(ap, min_fill)
+    if cov_rcm > cov_nat:
+        return csr_to_dia_ell(ap, min_fill=min_fill, dtype=dtype, device=device), perm
+    return csr_to_dia_ell(a, min_fill=min_fill, dtype=dtype, device=device), None
 
 
 def stencil_blocks_flat(blocks_t: torch.Tensor) -> torch.Tensor:

@@ -13,26 +13,31 @@ General formats, row-major (n, t) panels:
   ``prealps_tpu/ops/spmm.py::block_ell_spmm_pallas``). CUDA tensors launch
   the hand-written kernel (``csrc/block_ell.cu``), CPU tensors run
   ``block_ell_spmm``; anything else raises.
+* ``dia_ell_spmm`` — hybrid DIA+ELL: one shifted FMA per promoted
+  diagonal plus the ELL remainder (XLA in the JAX package, plain PyTorch
+  here); the operator of ``fmt="dia"`` on row-major panels.
 
-Stencil formats, lane-major panels:
+Stencil formats. Every stencil kernel below launches the one hand-written
+kernel of ``csrc/stencil.cu`` with its own index maps (panel rows, columns,
+block rows); CPU tensors run the plain version, and a CUDA tensor the
+kernel does not take raises. Each wrapper counts its own launches.
 
-* ``stencil_flat_ext`` — the flat stencil SpMM on a pre-extended k-major
-  panel (the TPU kernel ``prealps_tpu/ops/spmm.py::stencil_flat_ext``). For
-  CUDA tensors it launches the hand-written kernel
-  (``csrc/stencil_flat.cu``); for CPU tensors it runs
-  ``stencil_flat_ext_ref``. There is no other route: a CUDA tensor that the
-  kernel does not take raises.
-* ``stencil_flat_ext_ref`` — the same product in plain PyTorch, with the
-  TPU kernel's summation order (offset, then m, then k).
+* ``stencil_flat_ext`` (B1) — the flat stencil SpMM on a pre-extended
+  k-major panel (the TPU kernel ``prealps_tpu/ops/spmm.py::stencil_flat_ext``);
+  also the br = 1 operator of ``fmt="dia"`` on lane-major panels. Plain
+  version: ``stencil_flat_ext_ref``, with the TPU kernel's summation order
+  (offset, then m, then k).
 * ``stencil_bsr_spmm_t`` — the lane-major stencil SpMM with wrap halos,
   (t, br, nrb) -> (t, br, nrb), at any width: the operator of the LORASC
   path. It makes its panel contiguous and calls B2a.
-* ``stencil_bsr_spmm_t_pallas_bs`` (B2a) and ``stencil_pallas_bs_ext``
-  (B2b) — the lane-major stencil SpMM with wrap halos taken inside, and on
-  a pre-extended (t, br, nrb + 2·halo) panel (the TPU kernels of the same
-  names in ``prealps_tpu/ops/spmm.py``, one body). CUDA tensors launch the
-  hand-written kernel (``csrc/stencil_lane.cu``), CPU tensors run
-  ``stencil_scan_accumulate`` (after ``extend_wrap`` for B2a).
+* ``stencil_bsr_spmm_t_pallas_bs`` (B2a), ``stencil_bsr_spmm_t_pallas``
+  (B3) and ``stencil_pallas_bs_ext`` (B2b) — the lane-major stencil SpMM
+  with wrap halos taken inside (B2a, B3: the same function), and on a
+  pre-extended (t, br, nrb + 2·halo) panel (B2b). Plain version:
+  ``stencil_scan_accumulate`` (after ``extend_wrap`` for B2a and B3).
+* ``stencil_spmm_planar`` (B4) — the planar panel (t, br·nrb) with the
+  plane-major block table of ``stencil_blocks_planar``. Plain version:
+  ``stencil_spmm_planar_ref``.
 * ``stencil_scan_accumulate`` — the lane-major 4-D oracle every stencil
   kernel is checked against.
 * ``stencil_scan_accumulate_df`` — the double-float (hi, lo) product of the
@@ -51,6 +56,7 @@ from prealps_tpu_torch.ops import _kernels
 from prealps_tpu_torch.ops.doublefloat import two_prod, two_sum
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
+    DiaEllMatrix,
     EllMatrix,
     StencilBsrTMatrix,
 )
@@ -59,6 +65,23 @@ from prealps_tpu_torch.ops.formats import (
 def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in ELL. x: (ncols, t) -> y: (n, t)."""
     return torch.einsum("nl,nlt->nt", a.vals, x[a.cols])
+
+
+def dia_ell_spmm(a: DiaEllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for hybrid DIA+ELL. x: (n, t) -> y: (n, t).
+
+    One broadcast FMA per promoted diagonal over a shifted row window of
+    the zero-padded panel; only the remainder gathers."""
+    n = a.shape[0]
+    lo = max(-min(a.offsets), 0)
+    hi = max(max(a.offsets), 0)
+    x_pad = torch.nn.functional.pad(x, (0, 0, lo, hi))
+    y = torch.zeros_like(x[:n])
+    for d, off in enumerate(a.offsets):
+        y = y + a.diags[d][:, None] * x_pad[lo + off:lo + off + n]
+    if a.rem is not None:
+        y = y + ell_spmm(a.rem, x)
+    return y
 
 
 def ell_gather_spmm_df(vals: torch.Tensor, gathered: torch.Tensor):
@@ -198,7 +221,9 @@ def stencil_flat_ext(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,
                     device=blocks_flat.device)
     if nrb == 0 or t == 0:
         return y
-    _kernels.stencil_flat_f32(blocks_flat, offsets, x_ext, y, halo, br, t)
+    _kernels.stencil_f32(blocks_flat, offsets, x_ext, y, br=br, t=t, nrb=nrb,
+                         ncol=x_ext.shape[1], lead=halo, kmajor=True,
+                         wrap=False, planar=False, what="stencil_flat_ext")
     stencil_flat_ext.launches += 1
     return y
 
@@ -295,25 +320,38 @@ def _check_lane_args(name, blocks_t, offsets, x, halo, wrap):
     return False
 
 
-def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
-    """B2a: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same.
+def _lane_launch(blocks, offsets, x, y, lead, *, wrap, what, planar=False):
+    """Launch the stencil kernel on a lane-major panel x (t, br, ncol) into
+    y (t, br, nrb)."""
+    t, br, nrb = y.shape
+    _kernels.stencil_f32(blocks, offsets, x, y, br=br, t=t, nrb=nrb,
+                         ncol=x.shape[2], lead=lead, kmajor=False, wrap=wrap,
+                         planar=planar, what=what)
 
-    CPU tensors run ``stencil_scan_accumulate`` on ``extend_wrap(xt)``.
-    CUDA tensors launch the CUDA kernel, which takes f32 contiguous operands
-    on one card and wraps the columns itself, and count one launch in
-    ``stencil_bsr_spmm_t_pallas_bs.launches``.
-    """
+
+def _wrap_product(name: str, a: StencilBsrTMatrix, xt: torch.Tensor):
+    """The lane-major product with wrap halos of B2a and B3: (y, whether
+    the kernel was launched). CPU tensors run ``stencil_scan_accumulate``
+    on ``extend_wrap(xt)``; CUDA tensors launch the kernel (f32,
+    contiguous, one card), which wraps the columns itself."""
     offsets = tuple(int(o) for o in a.offsets)
     halo = max(abs(o) for o in offsets)
-    if _check_lane_args("stencil_bsr_spmm_t_pallas_bs", a.blocks_t, offsets,
-                        xt, 0, wrap=True):
+    if _check_lane_args(name, a.blocks_t, offsets, xt, 0, wrap=True):
         return stencil_scan_accumulate(a.blocks_t, offsets,
-                                       extend_wrap(xt, halo), halo)
+                                       extend_wrap(xt, halo), halo), False
     y = torch.empty(xt.shape, dtype=torch.float32, device=xt.device)
     if y.numel() == 0:
-        return y
-    _kernels.stencil_lane_f32(a.blocks_t, offsets, xt, y, 0, wrap=True)
-    stencil_bsr_spmm_t_pallas_bs.launches += 1
+        return y, False
+    _lane_launch(a.blocks_t, offsets, xt, y, 0, wrap=True, what=name)
+    return y, True
+
+
+def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
+    """B2a: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same
+    (``_wrap_product``); counts its launches in
+    ``stencil_bsr_spmm_t_pallas_bs.launches``."""
+    y, launched = _wrap_product("stencil_bsr_spmm_t_pallas_bs", a, xt)
+    stencil_bsr_spmm_t_pallas_bs.launches += launched
     return y
 
 
@@ -338,12 +376,97 @@ def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
                     device=x_ext.device)
     if y.numel() == 0:
         return y
-    _kernels.stencil_lane_f32(blocks_t, offsets, x_ext, y, halo, wrap=False)
+    _lane_launch(blocks_t, offsets, x_ext, y, halo, wrap=False,
+                 what="stencil_pallas_bs_ext")
     stencil_pallas_bs_ext.launches += 1
     return y
 
 
 stencil_pallas_bs_ext.launches = 0
+
+
+def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
+    """B3: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same
+    (the TPU kernel of the same name, the SpMM sweep's ``stencil_t_pallas``).
+
+    The TPU kernel reads its wrap-extended, zero-padded panel at
+    i·chunk + halo + off, which is B2a's wrap map, so it is the same
+    product (``_wrap_product``), counted in
+    ``stencil_bsr_spmm_t_pallas.launches``.
+    """
+    y, launched = _wrap_product("stencil_bsr_spmm_t_pallas", a, xt)
+    stencil_bsr_spmm_t_pallas.launches += launched
+    return y
+
+
+stencil_bsr_spmm_t_pallas.launches = 0
+
+
+def stencil_blocks_planar(blocks_t: torch.Tensor) -> torch.Tensor:
+    """(S, br, br, nrb) -> (br, S·br, nrb) output-plane-major block table:
+    row s·br + k of plane m is block entry (m, k) of offset s."""
+    s, br, _, nrb = blocks_t.shape
+    return blocks_t.permute(1, 0, 2, 3).reshape(br, s * br, nrb)
+
+
+def stencil_spmm_planar_ref(blocks3: torch.Tensor, x2: torch.Tensor, *,
+                            offsets, br: int, nrb: int) -> torch.Tensor:
+    """Plain planar stencil SpMM: x2 (t, br·nrb) -> (t, br·nrb), through
+    the lane-major oracle (the planar panel is a (t, br, nrb) panel)."""
+    t_dim = x2.shape[0]
+    s = len(offsets)
+    blocks_t = blocks3.reshape(br, s, br, nrb).permute(1, 0, 2, 3)
+    halo = max(abs(o) for o in offsets)
+    x_ext = extend_wrap(x2.reshape(t_dim, br, nrb), halo)
+    y = stencil_scan_accumulate(blocks_t, offsets, x_ext, halo)
+    return y.reshape(t_dim, br * nrb)
+
+
+def stencil_spmm_planar(blocks3: torch.Tensor, x2: torch.Tensor, *, offsets,
+                        br: int, nrb: int) -> torch.Tensor:
+    """B4: planar stencil SpMM, x2 (t, br·nrb) -> (t, br·nrb), blocks3
+    (br, S·br, nrb) from ``stencil_blocks_planar``, wrap halos (the TPU
+    kernel of the same name).
+
+    CPU tensors run ``stencil_spmm_planar_ref``. CUDA tensors launch the
+    stencil kernel with the plane-major block map (f32, contiguous, one
+    card) and count one launch in ``stencil_spmm_planar.launches``.
+    """
+    offsets = tuple(int(o) for o in offsets)
+    s_max = len(offsets)
+    if blocks3.dim() != 3 or x2.dim() != 2:
+        raise ValueError(f"stencil_spmm_planar: blocks3 must be (br, S·br, nrb) "
+                         f"and x2 (t, br·nrb), got {tuple(blocks3.shape)} and "
+                         f"{tuple(x2.shape)}")
+    if tuple(blocks3.shape) != (br, s_max * br, nrb) or x2.shape[1] != br * nrb:
+        raise ValueError(f"stencil_spmm_planar: blocks3 {tuple(blocks3.shape)} "
+                         f"and x2 {tuple(x2.shape)} do not match br={br}, "
+                         f"nrb={nrb} and {s_max} offsets")
+    if offsets and max(abs(o) for o in offsets) > nrb:
+        raise ValueError(f"stencil_spmm_planar: an offset exceeds the node "
+                         f"count {nrb}")
+    if blocks3.device.type == "cpu" and x2.device.type == "cpu":
+        return stencil_spmm_planar_ref(blocks3, x2, offsets=offsets, br=br, nrb=nrb)
+    if blocks3.device.type != "cuda" or x2.device != blocks3.device:
+        raise ValueError(f"stencil_spmm_planar: operands on {blocks3.device} "
+                         f"and {x2.device}; both must be on one CUDA card (or "
+                         "both on the CPU)")
+    if blocks3.dtype != torch.float32 or x2.dtype != torch.float32:
+        raise TypeError(f"stencil_spmm_planar kernel takes float32, got "
+                        f"{blocks3.dtype} and {x2.dtype}")
+    if not (blocks3.is_contiguous() and x2.is_contiguous()):
+        raise ValueError("stencil_spmm_planar kernel takes contiguous operands")
+    t = x2.shape[0]
+    y = torch.empty((t, br * nrb), dtype=torch.float32, device=x2.device)
+    if y.numel() == 0:
+        return y
+    _lane_launch(blocks3, offsets, x2.view(t, br, nrb), y.view(t, br, nrb), 0,
+                 wrap=True, planar=True, what="stencil_spmm_planar")
+    stencil_spmm_planar.launches += 1
+    return y
+
+
+stencil_spmm_planar.launches = 0
 
 
 def stencil_bsr_spmm_t(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:

@@ -4,15 +4,35 @@ The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
 (``nshards=1``), float32 or float64, for these paths:
 
 * ``fmt="stencil"``, ``layout="tbn"`` (lane-major panels), with
-  ``precond="bj2l"`` (two-level block Jacobi, the headline solve) or
-  ``precond="bj"`` (device block Jacobi, the JAX driver's "bj_flat");
+  ``precond="bj2l"`` (two-level block Jacobi, the headline solve),
+  ``"bj"`` (device block Jacobi, the JAX driver's "bj_flat") or ``"none"``;
+* ``fmt="dia"`` (hybrid DIA+ELL: promoted diagonals + ELL remainder):
+  on ``layout="tbn"`` the diagonals are the flat (D, n_pad) table of a
+  br = 1 stencil through B1 (``stencil_flat_ext``), the remainder one
+  transposed ELL gather, and ``precond="bj"`` the device block Jacobi
+  assembled from the diagonals at br = 1; on ``layout="nt"`` the plain
+  ``dia_ell_spmm`` with host block Jacobi;
 * ``fmt="ell"``, ``"block_ell"`` or ``"block_ell_xla"``, ``layout="nt"``
   (row-major panels), with ``precond="bj"`` (block Jacobi built on the
-  host: RCM-ordered blocks, f64 factors) — the general-sparse path.
+  host: RCM-ordered blocks, f64 factors) or ``"none"`` — the
+  general-sparse path;
+* ``fmt="auto"``: ``detect_format`` picks stencil, DIA (in the caller's
+  order, or under RCM: "dia_rcm"), 8×8 block-ELL (under a Morton order of
+  BFS pseudo-coordinates, or natural; built as ``block_ell_xla`` at bk = 8,
+  the plain gather product, as in the JAX driver) or ELL. A permuting
+  choice builds on A[perm][:, perm]; ``solve`` permutes b in and x back
+  out (``pre_perm``), and ``fmt_info`` keeps the scores. Layout policy:
+  with ``auto_layout`` the port takes ``tbn`` for stencil/dia and ``nt``
+  otherwise. The JAX driver takes ``tbn`` for them only on a TPU or for
+  bj2l; the port's stencil path exists only on ``tbn`` and ``tbn`` is the
+  card's fast path, so on the CPU it is the card's test double. With
+  ``auto_layout=False`` a valid ``opts.layout`` is kept (``tbn`` falls to
+  ``nt`` for the gather formats).
 
 Build (host, then device):
   RAC scaling -> row layout with padded identity rows (stencil: contiguous;
-  general: ``build_row_layout``) -> format conversion -> preconditioner.
+  general and DIA: ``build_row_layout``, natural order on one shard) ->
+  format conversion -> preconditioner.
 
 Each format has an operands object with the same surface (``a_apply``,
 ``a_apply_df``, ``m_apply``, ``split_assign`` and the panel helpers), so the
@@ -26,16 +46,20 @@ Solve:
     recomputes the residual in double-float, so the rounds reach
     tolerances below the f32 floor; the result is then checked against a
     host f64 residual, and host-f64 rounds polish it if the device rounds
-    fell short. Block-ELL has no double-float product: its rounds take host
-    f64 residuals with device inner solves, as in the JAX driver.
+    fell short. Block-ELL and DIA have no double-float product: their
+    rounds take host f64 residuals with device inner solves, as in the JAX
+    driver.
 
 The operator applies go through the hand-written CUDA kernels on the card
 (``ops/spmm.py::stencil_flat_ext``, ``block_ell_spmm_pallas``) and their
-plain PyTorch versions on the CPU.
+plain PyTorch versions on the CPU; ``block_ell_xla``, DIA on ``nt`` and
+the DIA remainder are plain PyTorch on the card too, as they are XLA in
+the JAX driver.
 
-Not ported (NotImplementedError): ``nshards > 1``, ``fmt="dia"``/``"auto"``,
-the nt stencil path, ``precond`` chebyshev/none, the bf16 (``bj_lane``) and
-deduplicated (``bj_dedup``) block Jacobi, bj2l without ``grid=``.
+Not ported (NotImplementedError): ``nshards > 1``, the nt stencil path,
+``precond="chebyshev"``, the bf16 (``bj_lane``) and deduplicated
+(``bj_dedup``) block Jacobi, bj2l without ``grid=``, pinned partitions
+(``parts=``).
 """
 
 from __future__ import annotations
@@ -67,9 +91,13 @@ from prealps_tpu_torch.direct.device_bj import (
 from prealps_tpu_torch.ops.doublefloat import df_add
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
+    DiaEllMatrix,
     EllMatrix,
     csr_to_block_ell,
+    csr_to_dia_ell,
     csr_to_ell,
+    detect_format,
+    dia_ell_host,
     panel_from_flat_kmajor,
     panel_to_flat_kmajor,
     stencil_blocks_host,
@@ -77,6 +105,7 @@ from prealps_tpu_torch.ops.formats import (
 from prealps_tpu_torch.ops.spmm import (
     block_ell_spmm,
     block_ell_spmm_pallas,
+    dia_ell_spmm,
     ell_gather_spmm_df,
     ell_spmm,
     extend_wrap,
@@ -125,7 +154,18 @@ def coarse_inverse_host(ac: np.ndarray) -> np.ndarray:
     return 0.5 * (ac_inv + ac_inv.T)
 
 
-class _LaneMajor:
+class _Operands:
+    """Without a double-float product (``df_ok`` False) the refinement
+    residuals are host f64 and ``a_apply_df`` is never called."""
+
+    df_ok = False
+
+    def a_apply_df(self, x: torch.Tensor):
+        raise NotImplementedError(
+            "double-float A-apply exists only for stencil(tbn)/ell")
+
+
+class _LaneMajor(_Operands):
     """Lane-major ("tbn") panels: a padded vector is the (br, nrb) space."""
 
     layout = "tbn"
@@ -145,7 +185,7 @@ class _LaneMajor:
         return p[0]
 
 
-class _RowMajor:
+class _RowMajor(_Operands):
     """Row-major ("nt") panels: a padded vector is the (n_pad,) space."""
 
     layout = "nt"
@@ -168,7 +208,15 @@ class _RowMajor:
 
     def split_assign(self, t: int, n_pad: int) -> torch.Tensor:
         """rhs split (n_pad,): row g goes to column (g·t) // n_pad."""
-        return (torch.arange(n_pad, device=self.bj.factors.device) * t) // n_pad
+        return (torch.arange(n_pad, device=self.device) * t) // n_pad
+
+    def m_apply(self, z: torch.Tensor) -> torch.Tensor:
+        """Host-built block Jacobi, or the identity (precond="none")."""
+        return z if self.bj is None else self.bj.apply(z)
+
+    @property
+    def precond_kind(self):
+        return None if self.bj is None else "bj"
 
 
 @dataclass
@@ -176,19 +224,22 @@ class StencilOperands(_LaneMajor):
     """Device operands of the stencil path: the flat block table and the
     block-Jacobi inverses, plus the coarse space of two-level block Jacobi
     (precond="bj2l"); without them the preconditioner is plain block Jacobi
-    (precond="bj", the JAX driver's "bj_flat")."""
+    (precond="bj", the JAX driver's "bj_flat"), and without ``inv_f`` the
+    identity (precond="none")."""
 
     blocks_flat: torch.Tensor   # (S·br², nrb) block table
     offsets: tuple              # S node offsets
     br: int
-    inv_f: torch.Tensor         # (nb, mb, mb) block inverses
+    inv_f: Optional[torch.Tensor] = None   # (nb, mb, mb) block inverses
     yq3: Optional[torch.Tensor] = None     # (nb, q, mb) coarse modes
     ac_inv: Optional[torch.Tensor] = None  # (nb·q, nb·q) coarse inverse
 
     df_ok = True
 
     @property
-    def precond_kind(self) -> str:
+    def precond_kind(self):
+        if self.inv_f is None:
+            return None
         return "bj_flat" if self.yq3 is None else "bj2l"
 
     @property
@@ -214,6 +265,8 @@ class StencilOperands(_LaneMajor):
                                           extend_wrap(x, self.halo), self.halo)
 
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
+        if self.inv_f is None:
+            return z
         if self.yq3 is None:
             return bj_apply_flat(self.inv_f, z)
         return bj2l_apply(self.inv_f, self.yq3, self.ac_inv, z)
@@ -228,23 +281,47 @@ class StencilOperands(_LaneMajor):
 
 
 @dataclass
+class DiaLaneOperands(StencilOperands):
+    """Device operands of fmt="dia" on lane-major panels: the D promoted
+    diagonals are the flat (D, n_pad) table of a br = 1 stencil (B1), and
+    the remainder entries go through one transposed ELL gather. There is no
+    double-float DIA product: refinement residuals are host f64."""
+
+    rem_vals: Optional[torch.Tensor] = None   # (n_pad, L) remainder ELL
+    rem_cols: Optional[torch.Tensor] = None
+
+    df_ok = False
+
+    def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().a_apply(x)
+        if self.rem_vals is None:
+            return y
+        x_nt = x[:, 0, :].T                                 # (n_pad, t)
+        y_rem = torch.einsum("ml,mlt->mt", self.rem_vals, x_nt[self.rem_cols])
+        return y + y_rem.T[:, None, :]
+
+    a_apply_df = _Operands.a_apply_df   # not the stencil's: no remainder
+
+
+@dataclass
 class EllOperands(_RowMajor):
     """Device operands of fmt="ell": ELL matrix + host-built block Jacobi.
     The refinement residual runs on the device in double-float."""
 
     mat: EllMatrix
-    bj: BlockJacobi
+    bj: Optional[BlockJacobi]
 
     df_ok = True
+
+    @property
+    def device(self) -> torch.device:
+        return self.mat.vals.device
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         return ell_spmm(self.mat, x)
 
     def a_apply_df(self, x: torch.Tensor):
         return ell_gather_spmm_df(self.mat.vals, x[self.mat.cols])
-
-    def m_apply(self, z: torch.Tensor) -> torch.Tensor:
-        return self.bj.apply(z)
 
 
 @dataclass
@@ -255,10 +332,12 @@ class BlockEllOperands(_RowMajor):
     double-float block-ELL product: refinement residuals are host f64."""
 
     mat: BlockEllMatrix
-    bj: BlockJacobi
+    bj: Optional[BlockJacobi]
     kernel: bool = True
 
-    df_ok = False
+    @property
+    def device(self) -> torch.device:
+        return self.mat.blocks.device
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         pad = self.mat.shape[1] - x.shape[0]
@@ -269,12 +348,23 @@ class BlockEllOperands(_RowMajor):
             return block_ell_spmm_pallas(self.mat, x.contiguous())
         return block_ell_spmm(self.mat, x)
 
-    def a_apply_df(self, x: torch.Tensor):
-        raise NotImplementedError(
-            "double-float A-apply exists only for stencil(tbn)/ell")
 
-    def m_apply(self, z: torch.Tensor) -> torch.Tensor:
-        return self.bj.apply(z)
+@dataclass
+class DiaOperands(_RowMajor):
+    """Device operands of fmt="dia" on row-major panels: hybrid DIA+ELL
+    (``dia_ell_spmm``, plain PyTorch as in the JAX driver) with host-built
+    block Jacobi. No double-float product: refinement residuals are host
+    f64."""
+
+    mat: DiaEllMatrix
+    bj: Optional[BlockJacobi]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mat.diags.device
+
+    def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        return dia_ell_spmm(self.mat, x)
 
 
 def _sync(device: torch.device) -> None:
@@ -282,8 +372,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-Operands = Union[StencilOperands, EllOperands, BlockEllOperands]
+Operands = Union[StencilOperands, DiaLaneOperands, EllOperands,
+                 BlockEllOperands, DiaOperands]
 _LATER = "is not ported yet (ROADMAP.md queue A, item 1)"
+LANE_FORMATS = ("stencil", "dia")
 
 
 def build_sharded_block_jacobi(a_pad: sp.csr_matrix, layout: RowLayout,
@@ -301,25 +393,24 @@ def build_sharded_block_jacobi(a_pad: sp.csr_matrix, layout: RowLayout,
                               device=device)
 
 
-def _check_options(fmt, precond, opts, grid, bj_dtype, bj_dedupe) -> str:
+def _check_options(fmt, precond, layout, grid, bj_dtype, bj_dedupe):
     """Refuse what is not ported (NotImplementedError) or not valid
-    (ValueError, as the JAX driver); returns the preconditioner's kind."""
-    if fmt in ("dia", "auto"):
-        raise NotImplementedError(f"fmt={fmt!r} {_LATER}")
-    if fmt not in ("stencil", "ell", "block_ell", "block_ell_xla"):
+    (ValueError, as the JAX driver); returns the preconditioner's kind
+    ("bj2l", "bj_flat", "bj" or None for the identity)."""
+    if fmt not in ("stencil", "dia", "ell", "block_ell", "block_ell_xla"):
         raise ValueError(f"unknown fmt {fmt!r}")
-    lane_major = opts.layout == "tbn"
-    if lane_major and fmt != "stencil":
+    lane_major = layout == "tbn"
+    if lane_major and fmt not in LANE_FORMATS:
         raise ValueError("layout='tbn' requires fmt='stencil' or 'dia'")
     if fmt == "stencil" and not lane_major:
         raise NotImplementedError(
-            f"fmt='stencil' with layout={opts.layout!r} {_LATER}; the port "
+            f"fmt='stencil' with layout={layout!r} {_LATER}; the port "
             "runs the stencil format on layout='tbn'")
     if precond in ("bj2l", "block_jacobi_2l"):
-        if not lane_major:
+        if not lane_major or fmt != "stencil":
             raise ValueError(
                 "bj2l requires the lane-major fast path: fmt='stencil' with "
-                f"layout='tbn'; got fmt={fmt!r}, layout={opts.layout!r}")
+                f"layout='tbn'; got fmt={fmt!r}, layout={layout!r}")
         if grid is None:
             raise NotImplementedError(
                 f"bj2l without grid= (translation-only coarse modes) {_LATER}; "
@@ -333,10 +424,38 @@ def _check_options(fmt, precond, opts, grid, bj_dtype, bj_dedupe) -> str:
                 f"bj_dedupe=True with grid= (grid-aligned bj_dedup) {_LATER}; "
                 "pass bj_dedupe=False or grid=None")
         return "bj_flat" if lane_major else "bj"
-    if precond in ("chebyshev", "cheby", "none", "identity", "noprec"):
+    if precond in ("none", "identity", "noprec"):
+        return None
+    if precond in ("chebyshev", "cheby"):
         raise NotImplementedError(f"precond={precond!r} {_LATER}")
     raise ValueError(
         f"DistributedECG supports block_jacobi/bj2l/chebyshev/none, got {precond!r}")
+
+
+def _detect(a, br, opts, auto_layout):
+    """fmt="auto": pick the format with ``detect_format`` and the layout
+    (tbn for stencil/dia, nt otherwise, unless auto_layout=False keeps a
+    valid caller's layout). Returns (fmt, opts, a, pre_perm, fmt_info,
+    bell_bk): a is the permuted matrix where the choice permutes rows."""
+    fmt, info = detect_format(a, br=br, nshards=1, allow_stencil=True,
+                              allow_reorder=True)
+    tag, pre_perm, bell_bk = fmt, None, 128
+    if fmt in ("block_ell_morton", "dia_rcm"):
+        pre_perm = info.pop("perm")
+        a = info.pop("permuted")
+    if fmt in ("block_ell_morton", "block_ell_natural"):
+        # the plain gather product at 8×8 blocks, as in the JAX driver
+        fmt, bell_bk = "block_ell_xla", 8
+    elif fmt == "dia_rcm":
+        fmt = "dia"
+    if auto_layout:
+        want = "tbn" if fmt in LANE_FORMATS else "nt"
+    elif opts.layout == "tbn" and fmt not in LANE_FORMATS:
+        want = "nt"
+    else:
+        want = opts.layout
+    info["chosen"] = tag
+    return fmt, replace(opts, layout=want), a, pre_perm, info, bell_bk
 
 
 def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
@@ -345,7 +464,9 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
     Jacobi (+ the bj2l coarse space)."""
     # device block Jacobi: node-block size, a multiple of 8 nodes
     mbn = max(8, (int(block_size or 1024) // br // 8) * 8)
-    mult = math.lcm(math.lcm(8, br), mbn * br)
+    mult = math.lcm(8, br)
+    if kind is not None:
+        mult = math.lcm(mult, mbn * br)
     layout = contiguous_row_layout(a.shape[0], 1, row_multiple=mult)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
@@ -367,12 +488,12 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
     _sync(device)
     stage("fmt_convert")
 
-    inv_f = build_device_block_jacobi_flat(
-        blocks_flat.reshape(s_off, br, br, nrb), offsets, mbn=mbn)
-    ops = StencilOperands(blocks_flat=blocks_flat, offsets=offsets, br=br,
-                          inv_f=inv_f)
+    ops = StencilOperands(blocks_flat=blocks_flat, offsets=offsets, br=br)
+    if kind is not None:
+        ops.inv_f = build_device_block_jacobi_flat(
+            blocks_flat.reshape(s_off, br, br, nrb), offsets, mbn=mbn)
     if kind == "bj2l":
-        nb = inv_f.shape[0]
+        nb = ops.inv_f.shape[0]
         mb = br * mbn
         d_pad = pad_to_padded(layout, scale_d) if scale_d is not None else None
         y5 = geometric_rbm_modes(grid, br, nrb, mbn, scale_d=d_pad, q=Q_MODES)
@@ -391,9 +512,39 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
     return layout, ops
 
 
-def _general_operands(a, fmt, block_size, nblocks_per_shard, dtype, device,
-                      stage):
-    """General path: partition layout, ELL / block-ELL, host block Jacobi."""
+def _dia_lane_operands(a, kind, block_size, dtype, device, stage):
+    """fmt="dia" on lane-major panels: one-shard partition layout (natural
+    order), the promoted diagonals as a br = 1 flat block table, the ELL
+    remainder, and device block Jacobi assembled from the diagonals."""
+    mbn = max(8, (int(block_size or 1024) // 8) * 8)
+    mult = math.lcm(8, mbn) if kind is not None else 8
+    layout = build_row_layout(a, 1, row_multiple=mult)
+    a_pad = permute_and_pad_matrix(a, layout)
+    stage("layout")
+
+    offsets, diags, rem = dia_ell_host(a_pad, min_fill=0.05, dtype=dtype)
+    ops = DiaLaneOperands(blocks_flat=torch.from_numpy(diags).to(device),
+                          offsets=offsets, br=1)
+    if rem is not None:
+        ell = csr_to_ell(rem, dtype=dtype, device=device)
+        ops.rem_vals, ops.rem_cols = ell.vals, ell.cols
+    _sync(device)
+    stage("fmt_convert")
+
+    if kind is not None:
+        # from the promoted diagonals only: remainder entries inside a block
+        # are left out of the preconditioner, as in the JAX driver
+        ops.inv_f = build_device_block_jacobi_flat(
+            ops.blocks_flat.reshape(len(offsets), 1, 1, -1), offsets, mbn=mbn)
+    _sync(device)
+    stage("precond")
+    return layout, ops
+
+
+def _general_operands(a, fmt, kind, block_size, nblocks_per_shard, bell_bk,
+                      dtype, device, stage):
+    """General path on row-major panels: partition layout, ELL / block-ELL
+    / DIA+ELL, host block Jacobi."""
     bell = fmt in ("block_ell", "block_ell_xla")
     # block-ELL moves whole bk = 128 column blocks: rows pad to 128
     layout = build_row_layout(a, 1, row_multiple=128 if bell else 8)
@@ -401,18 +552,27 @@ def _general_operands(a, fmt, block_size, nblocks_per_shard, dtype, device,
     stage("layout")
 
     if bell:
-        mat = csr_to_block_ell(a_pad, bm=8, bk=128, dtype=dtype, device=device)
+        mat = csr_to_block_ell(a_pad, bm=8, bk=bell_bk, dtype=dtype,
+                               device=device)
+    elif fmt == "dia":
+        mat = csr_to_dia_ell(a_pad, min_fill=0.05, dtype=dtype, device=device)
     else:
         mat = csr_to_ell(a_pad, dtype=dtype, device=device)
     _sync(device)
     stage("fmt_convert")
 
-    if block_size is not None:
-        nblocks_per_shard = max(1, -(-layout.rows_per_shard // block_size))
-    bj = build_sharded_block_jacobi(a_pad, layout, nblocks_per_shard,
-                                    dtype=dtype, device=device)
-    ops = (BlockEllOperands(mat=mat, bj=bj, kernel=fmt == "block_ell") if bell
-           else EllOperands(mat=mat, bj=bj))
+    bj = None
+    if kind is not None:
+        if block_size is not None:
+            nblocks_per_shard = max(1, -(-layout.rows_per_shard // block_size))
+        bj = build_sharded_block_jacobi(a_pad, layout, nblocks_per_shard,
+                                        dtype=dtype, device=device)
+    if bell:
+        ops = BlockEllOperands(mat=mat, bj=bj, kernel=fmt == "block_ell")
+    elif fmt == "dia":
+        ops = DiaOperands(mat=mat, bj=bj)
+    else:
+        ops = EllOperands(mat=mat, bj=bj)
     _sync(device)
     stage("precond")
     return layout, ops
@@ -431,6 +591,8 @@ class DistributedECG:
     target_tol: float = 0.0
     a_scaled: Optional[sp.csr_matrix] = None   # set when refining
     timings: dict = field(default_factory=dict)  # build stage wall times (s)
+    pre_perm: Optional[np.ndarray] = None  # fmt="auto" row permutation
+    fmt_info: Optional[dict] = None        # fmt="auto" detection scores
 
     @classmethod
     def build(
@@ -450,20 +612,22 @@ class DistributedECG:
         grid: Optional[tuple] = None,
         bj_dtype: str = "f32",
         bj_dedupe: bool = True,
+        auto_layout: bool = True,
         device="cuda",
     ) -> "DistributedECG":
         """Build the solver on ``device`` (default "cuda", which raises
         when there is no card; pass device="cpu" to run on the host). The
         other defaults are the JAX driver's: fmt="ell", precond=
         "block_jacobi", and one block-Jacobi block per shard unless
-        block_size is given."""
+        block_size is given. With fmt="auto", ``auto_layout`` picks the
+        layout for the detected format; False keeps ``opts.layout`` wherever
+        it is valid."""
         device = resolve_device(device)
         strict_fp32()
         if nshards not in (None, 1):
             raise NotImplementedError(
                 f"nshards={nshards}: the multi-GPU driver is not ported yet "
                 "(ROADMAP.md queue A, item 3)")
-        kind = _check_options(fmt, precond, opts, grid, bj_dtype, bj_dedupe)
         a = sp.csr_matrix(a)
         tb: dict = {}
         mark = [time.perf_counter()]
@@ -472,6 +636,18 @@ class DistributedECG:
             now = time.perf_counter()
             tb[name] = tb.get(name, 0.0) + (now - mark[0])
             mark[0] = now
+
+        pre_perm = fmt_info = None
+        bell_bk = 128
+        if fmt == "auto":
+            # refuse an unported preconditioner before the detection's work
+            if precond in ("chebyshev", "cheby"):
+                raise NotImplementedError(f"precond={precond!r} {_LATER}")
+            fmt, opts, a, pre_perm, fmt_info, bell_bk = _detect(
+                a, br, opts, auto_layout)
+            stage("detect")
+        kind = _check_options(fmt, precond, opts.layout, grid, bj_dtype,
+                              bj_dedupe)
 
         dtype = np.dtype(dtype) if dtype is not None else a.dtype
         if dtype not in (np.float32, np.float64):
@@ -490,13 +666,18 @@ class DistributedECG:
         if fmt == "stencil":
             layout, operands = _stencil_operands(
                 a, kind, br, block_size, grid, scale_d, dtype, device, stage)
+        elif fmt == "dia" and opts.layout == "tbn":
+            layout, operands = _dia_lane_operands(
+                a, kind, block_size, dtype, device, stage)
         else:
             layout, operands = _general_operands(
-                a, fmt, block_size, nblocks_per_shard, dtype, device, stage)
+                a, fmt, kind, block_size, nblocks_per_shard, bell_bk, dtype,
+                device, stage)
         return cls(
             layout=layout, opts=opts, scale_d=scale_d, operands=operands,
             device=device, dtype=dtype, target_tol=target_tol,
-            a_scaled=a if refine else None, timings=tb,
+            a_scaled=a if refine else None, timings=tb, pre_perm=pre_perm,
+            fmt_info=fmt_info,
         )
 
     def _ecg(self, rhs: torch.Tensor) -> ECGResult:
@@ -598,8 +779,18 @@ class DistributedECG:
         return x, info
 
     def solve(self, b: np.ndarray, max_refine_rounds: int = MAX_REFINE_ROUNDS):
-        """Solve A x = b (original ordering and scaling). Returns (x, info)."""
+        """Solve A x = b (original ordering and scaling). Returns (x, info).
+        With fmt="auto"'s row permutation the build ran on A[perm][:, perm]:
+        b goes in as b[perm] and x comes back in the original ordering."""
         b = np.asarray(b)
+        if self.pre_perm is None:
+            return self._solve_permuted(b, max_refine_rounds)
+        x_p, info = self._solve_permuted(b[self.pre_perm], max_refine_rounds)
+        x = np.empty_like(x_p)
+        x[self.pre_perm] = x_p
+        return x, info
+
+    def _solve_permuted(self, b: np.ndarray, max_refine_rounds: int):
         b_eff = self.scale_d * b if self.scale_d is not None else b.astype(np.float64)
 
         if self.a_scaled is None:

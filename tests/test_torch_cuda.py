@@ -8,8 +8,9 @@ the conftest:
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise. The stencil kernels
-(flat B1, lane-major B2a / B2b) sum the same products in the same order,
-with FMAs; the block-ELL and
+(flat B1, lane-major B2a / B2b / B3, planar B4: one source,
+csrc/stencil.cu) sum the same products in the same order, with FMAs; the
+block-ELL and
 block-Jacobi kernels sum lane-partial sums through a warp tree, so the two
 agree to f32 rounding of the dot-product length.
 """
@@ -254,3 +255,110 @@ def test_general_solve_on_the_card_matches_cpu(cuda_device):
     for x in (x_g, x_c):
         assert np.linalg.norm(b - a @ x) < 1e-7 * np.linalg.norm(b)
     assert abs(info_g["iters"] - info_c["iters"]) <= 0.25 * info_c["iters"]
+
+
+@pytest.mark.parametrize("t", [12, 8, 1, 5])
+def test_b3_kernel_matches_plain(cuda_device, t):
+    """B3 (the sweep's stencil_t_pallas): B2a's wrap map, its own count."""
+    st, x, x_ext, halo = _lane_operands(3, t, seed=70 + t, device=cuda_device)
+    before = tspmm.stencil_bsr_spmm_t_pallas.launches
+    y = tspmm.stencil_bsr_spmm_t_pallas(st, x)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_bsr_spmm_t_pallas.launches == before + 1
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, st.offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
+                                          x_ext.abs(), halo)
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+@pytest.mark.parametrize("t", [12, 1, 5])
+def test_b4_planar_kernel_matches_plain(cuda_device, t):
+    """B4 on a non-symmetric block table (random blocks), so a swapped
+    plane/component index shows."""
+    offsets, nrb, br = (-9, -1, 0, 1, 9), 300, 3
+    rng = np.random.default_rng(80 + t)
+    blocks_t = torch.from_numpy(rng.standard_normal(
+        (len(offsets), br, br, nrb)).astype(np.float32)).to(cuda_device)
+    b3 = tspmm.stencil_blocks_planar(blocks_t).contiguous()
+    x2 = torch.from_numpy(rng.standard_normal((t, br * nrb)).astype(
+        np.float32)).to(cuda_device)
+    before = tspmm.stencil_spmm_planar.launches
+    y = tspmm.stencil_spmm_planar(b3, x2, offsets=offsets, br=br, nrb=nrb)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_spmm_planar.launches == before + 1
+    ref = tspmm.stencil_spmm_planar_ref(b3, x2, offsets=offsets, br=br, nrb=nrb)
+    scale = tspmm.stencil_spmm_planar_ref(b3.abs(), x2.abs(), offsets=offsets,
+                                          br=br, nrb=nrb)
+    assert y.shape == ref.shape == x2.shape
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def _dia_table(device):
+    """The DIA form of elasticity3d(8³): br = 1, D = 99 diagonals, more
+    than the 64 offsets the earlier kernels took."""
+    offsets, diags, rem = tfmt.dia_ell_host(elasticity3d(8, 8, 8), min_fill=0.05,
+                                            dtype=np.float32)
+    assert len(offsets) == 99 and rem is None
+    return torch.from_numpy(diags).to(device), offsets, max(abs(o) for o in offsets)
+
+
+@pytest.mark.parametrize("t", [12, 1])
+def test_b1_dia_99_offsets_matches_plain(cuda_device, t):
+    diags, offsets, halo = _dia_table(cuda_device)
+    x = np.random.default_rng(90 + t).standard_normal((t, diags.shape[1]))
+    x_ext = tspmm.extend_wrap(torch.from_numpy(x.astype(np.float32)).to(
+        cuda_device), halo).contiguous()
+    before = tspmm.stencil_flat_ext.launches
+    y = tspmm.stencil_flat_ext(diags, offsets, x_ext, halo, 1)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_flat_ext.launches == before + 1
+    ref = tspmm.stencil_flat_ext_ref(diags, offsets, x_ext, halo, 1)
+    scale = tspmm.stencil_flat_ext_ref(diags.abs(), offsets, x_ext.abs(), halo, 1)
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def test_b2b_dia_99_offsets_matches_plain(cuda_device):
+    diags, offsets, halo = _dia_table(cuda_device)
+    d_t = diags[:, None, None, :].contiguous()
+    x = np.random.default_rng(95).standard_normal((12, 1, diags.shape[1]))
+    x_ext = tspmm.extend_wrap(torch.from_numpy(x.astype(np.float32)).to(
+        cuda_device), halo).contiguous()
+    before = tspmm.stencil_pallas_bs_ext.launches
+    y = tspmm.stencil_pallas_bs_ext(d_t, offsets, x_ext, halo)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_pallas_bs_ext.launches == before + 1
+    ref = tspmm.stencil_scan_accumulate(d_t, offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(d_t.abs(), offsets, x_ext.abs(), halo)
+    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def test_dia_tbn_solve_on_the_card_matches_cpu(cuda_device):
+    """fmt="dia" on lane-major panels, f32 + host-f64 refinement: B1 at
+    br = 1 on the card, its plain version on the CPU; both reach tol,
+    iteration totals within 25 %."""
+    a = elasticity3d(6, 6, 6, heterogeneous=True)
+    b = np.random.default_rng(3).standard_normal(a.shape[0])
+    kw = dict(fmt="dia", precond="bj", block_size=128, dtype=np.float32,
+              opts=ECGOptions(t=4, tol=1e-7, maxiter=2000, layout="tbn"))
+    before = tspmm.stencil_flat_ext.launches
+    s_g = DistributedECG.build(a, device=cuda_device, **kw)
+    assert len(s_g.operands.offsets) == 99
+    x_g, info_g = s_g.solve(b)
+    assert tspmm.stencil_flat_ext.launches - before >= info_g["iters"]
+    x_c, info_c = DistributedECG.build(a, device="cpu", **kw).solve(b)
+    for x in (x_g, x_c):
+        assert np.linalg.norm(b - a @ x) < 1e-7 * np.linalg.norm(b)
+    assert abs(info_g["iters"] - info_c["iters"]) <= 0.25 * info_c["iters"]
+
+
+def test_stencil_kernel_refuses_too_many_offsets(cuda_device):
+    """Up to 512 offsets (csr_to_dia_ell's max_diags); 513 raise."""
+    nrb = 2048
+    offsets = tuple(range(-256, 257))
+    blocks = torch.zeros((len(offsets), nrb), device=cuda_device)
+    x_ext = torch.zeros((1, nrb + 512), device=cuda_device)
+    with pytest.raises(ValueError, match="512"):
+        tspmm.stencil_flat_ext(blocks, offsets, x_ext, 256, 1)
+    y = tspmm.stencil_flat_ext(blocks[:512], offsets[:512], x_ext, 256, 1)
+    torch.cuda.synchronize()
+    assert bool((y == 0).all())

@@ -126,19 +126,23 @@ def test_solver_from_reference_reproduces_jax_history(problem, jax_f64):
     assert np.linalg.norm(x - x_j) <= 1e-8 * np.linalg.norm(x_j)
 
 
-@pytest.mark.parametrize("kw", [dict(fmt="dia"), dict(precond="block_jacobi"),
+@pytest.mark.parametrize("kw", [dict(layout="nt", precond="bj", bj_dedupe=False),
+                                dict(precond="block_jacobi"),
                                 dict(nshards=2), dict(grid=None),
-                                dict(fmt="auto"), dict(precond="chebyshev"),
-                                dict(precond="none"),
+                                dict(nshards=4), dict(precond="chebyshev"),
+                                dict(fmt="auto", precond="cheby"),
                                 dict(precond="bj", bj_dedupe=False, bj_dtype="bf16")])
 def test_unported_options_raise(problem, kw):
     """precond="block_jacobi" with grid= on the stencil path is the JAX
-    driver's deduplicated block Jacobi (bj_dedup): not ported."""
+    driver's deduplicated block Jacobi (bj_dedup); the stencil format on
+    row-major panels, several shards and Chebyshev are not ported either."""
     a, _ = problem
     args = dict(BUILD, nshards=1)
     args.update(kw)
+    opts = dataclasses.replace(_opts(ECGOptions, 1e-6),
+                               layout=args.pop("layout", "tbn"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedECG.build(a, opts=_opts(ECGOptions, 1e-6), device="cpu", **args)
+        DistributedECG.build(a, opts=opts, device="cpu", **args)
 
 
 def test_cuda_default_device_is_explicit(problem):

@@ -38,7 +38,8 @@ Phases (any failure exits nonzero before a result is printed):
     TPU record of 199 iterations;
 12. ``[kernel]`` B6 (``bj_apply_pallas``) on the [bj] build's packed
     inverses at t = 12 against its plain version, with ``torch.bmm`` on the
-    unpadded inverses (the driver's apply) timed beside them;
+    unpadded inverses (the driver's apply) timed beside them (and again on
+    the [dia] build's 1024-row inverses in phase 16);
 13. ``[lorasc]`` the single-GPU LORASC path at full size:
     ``StencilLorascECG.build`` of heterogeneous elasticity3d 36³ (nparts 8,
     ECG t = 12 omin, max_deflation 256, balancing ("deflate") correction,
@@ -60,7 +61,9 @@ Phases (any failure exits nonzero before a result is printed):
     a br = 1 stencil, device block Jacobi (1024-row blocks) from the
     diagonals, ECG t = 12, f32 with host-f64 refinement to 1e-5;
     ``[kernel]`` B1 on that table (t 12, t 1) and B1 (t 12, t 1) and B2b
-    (t 12) at br 1 × D 99 on the unscaled operator's table; the solve with
+    (t 12) at br 1 × D 99 on the unscaled operator's table; B6 on the
+    build's packed block inverses (nb 145, mb 1024, t 12) beside
+    ``torch.bmm``; the solve with
     B1's count zeroed
     (launches >= iterations, iterations within 10 % of DIA_ANCHOR_ITERS,
     the JAX package's CPU run of the same build); one solve under
@@ -88,10 +91,10 @@ for B6 ``torch.bmm`` of the unpadded inverses.
 The last lines of standard output are a ``[summary]`` JSON line (every
 check, every path's numbers), the card's ``nvidia-smi`` name and power
 limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
-``bound_ms``/``library_ms`` at each kernel's first shape, ``max_abs_err``
-over its shapes, ``launches`` from its path's run — for B4 and B6, which no
-path runs, chip_smoke's own calls), and last ``{"ok": true, "device":
-{...}}``.
+``bound_ms``/``library_ms`` at each kernel's first shape and, under
+``shapes``, at every shape checked; ``max_abs_err`` over its shapes,
+``launches`` from its path's run — for B4 and B6, which no path runs,
+chip_smoke's own calls), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -666,8 +669,8 @@ def dia_phase(dev, a, b):
     scaled matrix has 97 promoted diagonals and a remainder (scaling drops
     the stencil's stored zeros); the unscaled operator's table has all 99
     and is the one of the br 1 × D 99 checks. Returns (B1 checks on both
-    tables, the B2b check at br 1 × D 99, path record, B1 launches of the
-    solve)."""
+    tables, the B2b check at br 1 × D 99, the B6 check on the path's block
+    inverses, path record, B1 launches of the solve)."""
     import numpy as np
     import torch
 
@@ -714,6 +717,7 @@ def dia_phase(dev, a, b):
                       12, seed=83, ext=True,
                       csr=stencil_csr(dia_t.blocks_t, de.offsets))]
     del csr, dia_t, de
+    b6 = check_bj_apply(ops.inv_f, 1, 12, seed=86)
 
     info, launches, warm_s = checked_solve(solver, a, b, "dia", stencil_flat_ext)
     iters = int(info["iters"])
@@ -740,7 +744,7 @@ def dia_phase(dev, a, b):
             "ms_per_iter": 1e3 * solve_s / iters, "build_s": build_s,
             "build_stages_s": solver.timings, "profile_device_ms": busy_ms,
             "profile_wall_ms": wall_ms, "anchor_iters": DIA_ANCHOR_ITERS}
-    return b1, b2b, path, launches
+    return b1, b2b, b6, path, launches
 
 
 def auto_phase(dev):
@@ -1087,20 +1091,21 @@ def main() -> int:
 
     # --- 12. B6 vs its plain version and torch.bmm, on the bj inverses ---
     bj_apply_pallas.launches = 0
-    b6 = check_bj_apply(bsolver.operands.inv_f, 3, 12, seed=21)
-    b6_launches = bj_apply_pallas.launches
+    b6 = [check_bj_apply(bsolver.operands.inv_f, 3, 12, seed=21)]
     del bsolver
 
     # --- 13-15. the single-GPU LORASC path, with B2a and B2b ---
     b2a, b2b, lorasc_path, la, lb = lorasc_phase(dev)
 
     # --- 16-19. fmt="dia", fmt="auto" and the SpMM format sweep ---
-    b1_dia, b2b_dia, dia_path, dia_launches = dia_phase(dev, a, b)
+    b1_dia, b2b_dia, b6_dia, dia_path, dia_launches = dia_phase(dev, a, b)
+    b6.append(b6_dia)
+    b6_launches = bj_apply_pallas.launches
     auto_path = auto_phase(dev)
     spmm_recs, b3_launches = spmm_phase(dev, a)
 
     log("[summary] " + json.dumps({
-        "checks": checks, "block_ell_checks": b5_checks, "bj_apply_check": b6,
+        "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
         "lane_checks": b2a + b2b, "b3_checks": b3, "b4_checks": b4,
         "dia_checks": b1_dia + b2b_dia, "main_path": main_path,
         "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
@@ -1109,15 +1114,17 @@ def main() -> int:
 
     def entry(name, source, replaces, launches_, recs):
         """One kernel's record: times and yardsticks at its first shape
-        (the path's), the largest error over every shape checked."""
+        (the path's) and at every shape checked, the largest error over
+        them."""
         head = recs[0]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
                 "source": f"prealps_tpu_torch/csrc/{source}",
                 "replaces": f"prealps_tpu/{replaces}", "launches": launches_,
                 "max_abs_err": max(c["max_abs_err"] for c in recs),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"]}
+                **{k: head[k] for k in keys},
+                "shapes": [{"shape": c["shape"], **{k: c[k] for k in keys}}
+                           for c in recs]}
 
     kernels = {"kernels": [
         entry("stencil_flat_ext", "stencil.cu", "ops/spmm.py:772", launches,
@@ -1125,7 +1132,7 @@ def main() -> int:
         entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:69", glaunches,
               b5_checks),
         entry("bj_apply_pallas", "bj_apply.cu", "direct/device_bj.py:159",
-              b6_launches, [b6]),
+              b6_launches, b6),
         entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:482", la,
               b2a),
         entry("stencil_pallas_bs_ext", "stencil.cu", "ops/spmm.py:695", lb,

@@ -1,7 +1,7 @@
 // Stencil-BSR SpMM for Hopper (sm_90a), every layout of the repository's
 // stencil kernels in one body, bound to Python through ctypes.
 //
-// Replaces the four TPU kernels of prealps_tpu/ops/spmm.py that compute
+// Replaces the TPU kernels of prealps_tpu/ops/spmm.py that compute
 //
 //   y = sum_s B_s o shift(x, off_s)      (S constant node offsets)
 //
@@ -32,26 +32,56 @@
 //
 // What bounds it: bytes. At the headline operator (S = 27, br = 3, t = 12,
 // nrb = 49,360) one call must read the block table once (48.0 MB) and the
-// panel (7.1-7.5 MB) and write y (7.1 MB): ~62 MB for 2*S*br*br*t*nrb =
-// 11.5 MFLOP, ~0.18 FLOP/byte, far below the card's balance point. The DIA
-// form of the same operator (br = 1, D = 99 diagonals, n = 148,480) reads a
-// 58.8 MB table.
+// panel (7.1 MB) and write y (7.1 MB): 62.2 MB -> 18.6 us at 3.35 TB/s, for
+// 2*S*br*br*t*nrb = 11.5 MFLOP, far below the card's balance point. The
+// DIA form (br = 1, D = 97, t = 12, nrb = 148,480): 71.9 MB -> 21.5 us.
 //
-// Design: one thread per node r. It walks the offsets, loads its block
-// entries (consecutive threads read consecutive r: coalesced, each block
-// byte read once) and keeps its sums in registers; its x reads are
-// coalesced across the warp too, and the panel, re-read once per offset,
-// stays in the 50 MB L2. The main path's shapes (br 3 x t 1 / 8 / 12, br 1 x
-// t 1 / 12) are templates that hold all br*t sums in registers; every other
-// shape takes the tiled kernel: one thread per (node, output row m, tile of
-// TT panel columns), the tiles on the grid's y dimension, so the registers
-// per thread stay bounded at any t. The TPU kernels' chunk grids, shifted
-// BlockSpec views and double-buffered DMAs have no counterpart: a thread
-// computes its own column. Up to MAX_OFFSETS offsets (csr_to_dia_ell's
+// The first cut ran one thread per node with all br*t sums in registers
+// and read its block entries and panel values straight from memory, one
+// offset after the other; it reached 28-32 % of the bound at t = 12, and its
+// t-tiled form (one thread per (node, row m, 8 columns), the column tiles
+// on grid.y) 4-16 %. Nsight Compute does not run on the machine that has
+// the card, so no counter was read; variants timed side by side on the card
+// against the first cut (CUDA events, bitwise-equal outputs; PERF.md §6
+// quotes every reading) located the loss instead. At the headline, t = 12,
+// where the first cut took 0.057 ms:
+//  - more warps did not help: a thread per (node, 4 columns), 3x the warps
+//    (with the ring below), 0.063-0.067 ms;
+//  - streaming the block table through a cp.async shared-memory ring (2-6
+//    stages, 32-128 nodes a CTA) did not either: 0.058 ms at best;
+//  - nor did the panel re-read per offset: staging each run of consecutive
+//    offsets' panel window once a tile in shared memory (cp.async), which
+//    by count reads a panel value from L2 once a run (3 offsets at the
+//    headline) instead of once an offset, took 0.091 ms at best;
+//  - the offset loop did: each warp waited a memory latency per offset,
+//    since offset s + 1's loads were issued only after offset s's FMAs.
+//    Loading offset s + 1's block entries and panel values into registers
+//    while offset s is summed took 0.033 ms, past half the bound, with no
+//    change of occupancy (one wave of 386 CTAs: registers are free);
+//  - the t-tiled form re-read the block table from device memory once per
+//    column tile; chunks of a tile in consecutive CTAs read it from L2.
+//
+// Design: one body. A thread owns one node and a chunk of JG panel columns
+// and keeps the chunk's br*JG sums in registers; it loads the block entries
+// and panel values of the next D offsets into registers (D = 1 to 3 by
+// width) while summing the current ones. The widths the paths use (1, 4,
+// 8, 12, 16) are whole-width instances with the width a compile-time constant
+// (their address arithmetic folds; with a runtime width the same loop ran
+// markedly slower at t = 12); other widths run in chunks of 8 columns, the
+// chunks of one tile in consecutive CTAs. At t = 1 the plain loop (D = 0)
+// is kept: the table is most of the bytes there, it already runs at 65-80 %
+// of the bound, and a prefetch made it slower. Deeper prefetch did not help
+// the br = 1 form at t = 12 (97 offsets of 12 loads and 12 FMAs each): it
+// stays near 40 % of its bound. Up to MAX_OFFSETS offsets (csr_to_dia_ell's
 // max_diags) travel by value in the kernel's parameter space (2 KB of the
-// constant bank), read uniformly by every thread. Accumulation is f32 with
-// FMA, in the order s, then k, like the TPU kernels; no tensor cores (f32
-// parity rules out TF32).
+// constant bank), read uniformly by every thread.
+//
+// Accumulation is f32 with fmaf, each output's sum in one thread in the
+// order s, then k, like the first cut and the TPU kernels, so the results
+// are bitwise the first cut's and every path's iteration count is
+// unchanged; no tensor cores (f32 parity rules out TF32). A br other than 1
+// or 3 (no path of the repository has one) takes the generic kernel below:
+// one thread per (node, output row m, 8 columns).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -86,50 +116,99 @@ __device__ __forceinline__ size_t blk_of(int s, int m, int k, int br,
                 : ((size_t)s * br + m) * br + k;
 }
 
-template <int BR, int T, bool KMAJOR, bool WRAP, bool PLANAR>
+// The one body. A thread owns one node and a chunk of JG panel columns
+// (blockIdx.x = tile * nchunks + chunk, 128 nodes a tile; WHOLE: JG = t, one
+// chunk, the width a compile-time constant) and keeps the chunk's br*JG
+// sums in registers. With D > 0 the block entries and panel values of the
+// next D offsets are loaded into registers while the current D are summed
+// (the loop is unrolled by two, so the two register sets alternate without
+// copies); with D = 0 each offset's values are loaded as it is summed.
+template <int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP, bool PLANAR>
 __global__ void __launch_bounds__(128)
-stencil_fixed(const float* __restrict__ blocks, const float* __restrict__ x,
-              float* __restrict__ y, const StencilOffsets offs, int n_off,
-              int nrb, int ncol, int lead) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+stencil_pipe(const float* __restrict__ blocks, const float* __restrict__ x,
+             float* __restrict__ y, const StencilOffsets offs, int n_off,
+             int t_run, int nrb, int ncol, int lead, int nchunks) {
+  constexpr int BB = BR * BR;
+  constexpr int NX = BR * JG;
+  const int t = WHOLE ? JG : t_run;
+  const int tile = WHOLE ? blockIdx.x : blockIdx.x / nchunks;
+  const int chunk = WHOLE ? 0 : blockIdx.x - tile * nchunks;
+  const int r = tile * blockDim.x + threadIdx.x;
   if (r >= nrb) return;
-  float acc[BR * T];  // acc[m*T + j]
+  const int j0 = chunk * JG;
+  const int nj = WHOLE ? JG : min(JG, t - j0);
+  float acc[NX];  // acc[m*JG + jj]
 #pragma unroll
-  for (int i = 0; i < BR * T; ++i) acc[i] = 0.0f;
-  for (int s = 0; s < n_off; ++s) {
+  for (int i = 0; i < NX; ++i) acc[i] = 0.0f;
+
+  auto load = [&](int s, float (&b)[BB], float (&xv)[NX]) {
     const size_t col = (size_t)col_of<WRAP>(r, offs.v[s], nrb, lead);
-    float b[BR * BR];
 #pragma unroll
     for (int m = 0; m < BR; ++m)
 #pragma unroll
       for (int k = 0; k < BR; ++k)
-        b[m * BR + k] = __ldg(
-            blocks + blk_of<PLANAR>(s, m, k, BR, n_off) * nrb + r);
+        b[m * BR + k] = __ldg(blocks + blk_of<PLANAR>(s, m, k, BR, n_off) * nrb + r);
 #pragma unroll
-    for (int k = 0; k < BR; ++k) {
+    for (int k = 0; k < BR; ++k)
 #pragma unroll
-      for (int j = 0; j < T; ++j) {
-        const float xv = __ldg(x + row_of<KMAJOR>(j, k, BR, T) * ncol + col);
+      for (int jj = 0; jj < JG; ++jj)
+        xv[k * JG + jj] =
+            jj < nj ? __ldg(x + row_of<KMAJOR>(j0 + jj, k, BR, t) * ncol + col)
+                    : 0.0f;
+  };
+  auto sum = [&](const float (&b)[BB], const float (&xv)[NX]) {
+#pragma unroll
+    for (int k = 0; k < BR; ++k)
+#pragma unroll
+      for (int jj = 0; jj < JG; ++jj)
 #pragma unroll
         for (int m = 0; m < BR; ++m)
-          acc[m * T + j] = fmaf(b[m * BR + k], xv, acc[m * T + j]);
+          acc[m * JG + jj] = fmaf(b[m * BR + k], xv[k * JG + jj], acc[m * JG + jj]);
+  };
+
+  if constexpr (D == 0) {
+    for (int s = 0; s < n_off; ++s) {
+      float b[BB], xv[NX];
+      load(s, b, xv);
+      sum(b, xv);
+    }
+  } else {
+    float bc[D][BB], xc[D][NX];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if (d < n_off) load(d, bc[d], xc[d]);
+#pragma unroll 2
+    for (int s0 = 0; s0 < n_off; s0 += D) {
+      float bn[D][BB], xn[D][NX];
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (s0 + D + d < n_off) load(s0 + D + d, bn[d], xn[d]);
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (s0 + d < n_off) sum(bc[d], xc[d]);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+#pragma unroll
+        for (int i = 0; i < BB; ++i) bc[d][i] = bn[d][i];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) xc[d][i] = xn[d][i];
       }
     }
   }
 #pragma unroll
   for (int m = 0; m < BR; ++m)
 #pragma unroll
-    for (int j = 0; j < T; ++j)
-      y[row_of<KMAJOR>(j, m, BR, T) * nrb + r] = acc[m * T + j];
+    for (int jj = 0; jj < JG; ++jj)
+      if (jj < nj) y[row_of<KMAJOR>(j0 + jj, m, BR, t) * nrb + r] = acc[m * JG + jj];
 }
 
-// Any (br, t): blockIdx.y = tile * br + m; the thread sums output row m of
+// Any br: blockIdx.y = tile * br + m; the thread sums output row m of
 // panel columns [tile*TT, tile*TT + TT) ∩ [0, t).
 template <bool KMAJOR, bool WRAP, bool PLANAR>
 __global__ void __launch_bounds__(128)
-stencil_tiled(const float* __restrict__ blocks, const float* __restrict__ x,
-              float* __restrict__ y, const StencilOffsets offs, int n_off,
-              int br, int t, int nrb, int ncol, int lead) {
+stencil_any_br(const float* __restrict__ blocks, const float* __restrict__ x,
+               float* __restrict__ y, const StencilOffsets offs, int n_off,
+               int br, int t, int nrb, int ncol, int lead) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nrb) return;
   const int m = blockIdx.y % br;
@@ -156,31 +235,50 @@ stencil_tiled(const float* __restrict__ blocks, const float* __restrict__ x,
     if (jj < nj) y[row_of<KMAJOR>(j0 + jj, m, br, t) * nrb + r] = acc[jj];
 }
 
+template <int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP, bool PLANAR>
+static cudaError_t launch_pipe(const float* blocks, const float* x, float* y,
+                               const StencilOffsets& offs, int n_off, int t,
+                               int nrb, int ncol, int lead, cudaStream_t st) {
+  const int nchunks = (t + JG - 1) / JG;
+  const long long ntiles = (nrb + 127) / 128;
+  if (ntiles * nchunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  stencil_pipe<BR, JG, D, WHOLE, KMAJOR, WRAP, PLANAR>
+      <<<dim3((unsigned)(ntiles * nchunks)), 128, 0, st>>>(
+          blocks, x, y, offs, n_off, t, nrb, ncol, lead, nchunks);
+  return cudaSuccess;
+}
+
+// The widths the repository's paths use (1, 4, 8, 12, 16) are whole-width
+// instances: no prefetch at t = 1 (the table is most of the bytes and the
+// plain loop runs at 65-80 % of the bound), three offsets ahead at t = 4,
+// two at t = 8, one at t = 12 and 16 (the depths that timed fastest).
+// Other widths (the LORASC build's nev and lift width) take chunks of 8
+// columns, one offset ahead; any other br stencil_any_br.
 template <bool KMAJOR, bool WRAP, bool PLANAR>
-static void launch(const float* blocks, const float* x, float* y,
-                   const StencilOffsets& offs, int n_off, int br, int t,
-                   int nrb, int ncol, int lead, cudaStream_t st) {
-  const dim3 block(128);
-  dim3 grid((nrb + 127) / 128);
-#define PREALPS_FIXED(BR_, T_)                                             \
-  stencil_fixed<BR_, T_, KMAJOR, WRAP, PLANAR><<<grid, block, 0, st>>>( \
-      blocks, x, y, offs, n_off, nrb, ncol, lead)
-  if (br == 3 && t == 12) {
-    PREALPS_FIXED(3, 12);
-  } else if (br == 3 && t == 8) {
-    PREALPS_FIXED(3, 8);
-  } else if (br == 3 && t == 1) {
-    PREALPS_FIXED(3, 1);
-  } else if (br == 1 && t == 12) {
-    PREALPS_FIXED(1, 12);
-  } else if (br == 1 && t == 1) {
-    PREALPS_FIXED(1, 1);
-  } else {
-    grid.y = br * ((t + TT - 1) / TT);
-    stencil_tiled<KMAJOR, WRAP, PLANAR><<<grid, block, 0, st>>>(
-        blocks, x, y, offs, n_off, br, t, nrb, ncol, lead);
+static cudaError_t launch(const float* blocks, const float* x, float* y,
+                          const StencilOffsets& offs, int n_off, int br, int t,
+                          int nrb, int ncol, int lead, cudaStream_t st) {
+#define PREALPS_PIPE(BR_, JG_, D_, WHOLE_)                                 \
+  return launch_pipe<BR_, JG_, D_, WHOLE_, KMAJOR, WRAP, PLANAR>(          \
+      blocks, x, y, offs, n_off, t, nrb, ncol, lead, st)
+#define PREALPS_WIDTHS(BR_)                        \
+  switch (t) {                                     \
+    case 1: PREALPS_PIPE(BR_, 1, 0, true);         \
+    case 4: PREALPS_PIPE(BR_, 4, 3, true);         \
+    case 8: PREALPS_PIPE(BR_, 8, 2, true);         \
+    case 12: PREALPS_PIPE(BR_, 12, 1, true);       \
+    case 16: PREALPS_PIPE(BR_, 16, 1, true);       \
+    default: PREALPS_PIPE(BR_, 8, 1, false);       \
   }
-#undef PREALPS_FIXED
+  if (br == 3) PREALPS_WIDTHS(3);
+  if (br == 1) PREALPS_WIDTHS(1);
+#undef PREALPS_WIDTHS
+#undef PREALPS_PIPE
+  if ((long long)br * ((t + TT - 1) / TT) > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((nrb + 127) / 128, br * ((t + TT - 1) / TT));
+  stencil_any_br<KMAJOR, WRAP, PLANAR><<<grid, 128, 0, st>>>(
+      blocks, x, y, offs, n_off, br, t, nrb, ncol, lead);
+  return cudaSuccess;
 }
 
 extern "C" {
@@ -204,7 +302,7 @@ int prealps_stencil_f32(const float* blocks, const float* x, float* y,
   if (n_off < 1 || n_off > PREALPS_STENCIL_MAX_OFFSETS || br < 1 || t < 1 ||
       nrb < 1 || lead < 0 || ncol < nrb + 2 * lead ||
       (wrap && (lead != 0 || ncol != nrb)) || (kmajor && (wrap || planar)) ||
-      (planar && !wrap) || (long long)br * ((t + TT - 1) / TT) > 65535)
+      (planar && !wrap))
     return (int)cudaErrorInvalidValue;
   StencilOffsets offs;
   for (int i = 0; i < PREALPS_STENCIL_MAX_OFFSETS; ++i)
@@ -216,21 +314,20 @@ int prealps_stencil_f32(const float* blocks, const float* x, float* y,
   cudaStream_t st = (cudaStream_t)stream;
   // the maps the repository's layouts use: B1 (k-major, extended), B4
   // (lane-major, wrap, plane-major), B2a / B3 and B2b (lane-major, s-major)
-  if (kmajor) {
-    launch<true, false, false>(blocks, x, y, offs, n_off, br, t, nrb, ncol,
-                               lead, st);
-  } else if (planar) {
-    launch<false, true, true>(blocks, x, y, offs, n_off, br, t, nrb, ncol,
-                              lead, st);
-  } else {
-    if (wrap)
-      launch<false, true, false>(blocks, x, y, offs, n_off, br, t, nrb, ncol,
-                                 lead, st);
-    else
-      launch<false, false, false>(blocks, x, y, offs, n_off, br, t, nrb,
+  cudaError_t e;
+  if (kmajor)
+    e = launch<true, false, false>(blocks, x, y, offs, n_off, br, t, nrb,
+                                   ncol, lead, st);
+  else if (planar)
+    e = launch<false, true, true>(blocks, x, y, offs, n_off, br, t, nrb,
                                   ncol, lead, st);
-  }
-  return (int)cudaGetLastError();
+  else if (wrap)
+    e = launch<false, true, false>(blocks, x, y, offs, n_off, br, t, nrb,
+                                   ncol, lead, st);
+  else
+    e = launch<false, false, false>(blocks, x, y, offs, n_off, br, t, nrb,
+                                    ncol, lead, st);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // The largest offset count the entry point takes.

@@ -5,8 +5,9 @@ PyTorch here): the dense diagonal blocks are assembled on the device from
 the stencil block table, inverted by batched Cholesky, and applied as one
 batched GEMM per preconditioner call (``bj_apply_flat``). Beside it,
 ``bj_apply_pallas`` is the same apply through a hand-written CUDA kernel
-(``csrc/bj_apply.cu``) on blocks packed to a multiple of 128 rows; it is
-checked and timed against the GEMM, and no driver path calls it.
+(``csrc/bj_apply.cu``) on blocks packed to a multiple of 128 rows, reading
+and writing the lane-major panels directly; it is checked and timed
+against the GEMM, and no driver path calls it.
 
 Index convention inside a block (component-major): block b holds nodes
 [b·mbn, (b+1)·mbn); its row m·mbn + rl is component m of local node rl. A
@@ -129,12 +130,21 @@ def bj_apply_pallas(b2: torch.Tensor, z: torch.Tensor, br: int) -> torch.Tensor:
     """Block-Jacobi apply from pre-packed dense inverses (the TPU kernel
     ``prealps_tpu/direct/device_bj.py::bj_apply_pallas``).
 
-    b2: (nb, mbp, mbp) from ``pack_bj_dense``; z: (t, br, nrb) lane-major.
-    CPU tensors run ``bj_apply_pallas_ref``. CUDA tensors launch the CUDA
-    kernel (``csrc/bj_apply.cu``), which takes f32 contiguous operands on one
-    card, and count one launch in ``bj_apply_pallas.launches``. The driver
-    does not call it: its apply is ``bj_apply_flat``'s batched GEMM, as the
-    JAX driver's is an einsum.
+    b2: (nb, mbp, mbp) from ``pack_bj_dense``; z: (t, br, nrb) lane-major;
+    returns w of z's shape. CPU tensors run ``bj_apply_pallas_ref``. CUDA
+    tensors launch the CUDA kernel (``csrc/bj_apply.cu``; f32, b2
+    contiguous, one card) and count one launch in
+    ``bj_apply_pallas.launches``. The driver does not call it: its apply is
+    ``bj_apply_flat``'s batched GEMM, as the JAX driver's is an einsum.
+
+    On the card the product is bound by the bytes of the inverses. The
+    kernel reads only their valid mb × mb part (mb = br·nrb/nb), streamed
+    through a shared-memory ring with cp.async so that bytes stay in
+    flight whatever the thread count, and reads z and writes w in the
+    lane-major layout itself: the wrapper makes no block panel (the first
+    cut's two copies) and allocates only w. One thread owns one row of a
+    block and up to 12 panel columns, so each sum runs over k in order in
+    one thread.
     """
     if b2.dim() != 3 or b2.shape[1] != b2.shape[2] or z.dim() != 3:
         raise ValueError(f"bj_apply_pallas: b2 {tuple(b2.shape)} must be "
@@ -153,18 +163,21 @@ def bj_apply_pallas(b2: torch.Tensor, z: torch.Tensor, br: int) -> torch.Tensor:
     if b2.dtype != torch.float32 or z.dtype != torch.float32:
         raise TypeError(f"bj_apply_pallas kernel takes float32, got "
                         f"{b2.dtype} and {z.dtype}")
-    if not b2.is_contiguous():
-        raise ValueError("bj_apply_pallas kernel takes a contiguous b2")
-    if mbp % 32 or mbp > _kernels.bj_apply_max_rows(t):
-        raise ValueError(f"bj_apply_pallas kernel takes mbp a multiple of 32 "
-                         f"up to {_kernels.bj_apply_max_rows(t)} at t={t}, "
-                         f"got {mbp}")
-    zb = _to_blocks(z, nb, mbp)
-    out = torch.empty_like(zb)
+    if not b2.is_contiguous() or b2.data_ptr() % 16:
+        raise ValueError("bj_apply_pallas kernel takes a contiguous, 16-byte "
+                         "aligned b2")
+    mb = br * (nrb // nb)
+    max_rows = _kernels.bj_apply_max_rows(t, b2.device) if t else mb
+    if mbp % 4 or mb > max_rows:
+        raise ValueError(f"bj_apply_pallas kernel takes mbp a multiple of 4 "
+                         f"and blocks of up to {max_rows} rows at t={t}, got "
+                         f"mbp={mbp}, mb={mb}")
+    z = z.contiguous()
+    w = torch.empty_like(z)
     if t:
-        _kernels.bj_apply_f32(b2, zb, out)
+        _kernels.bj_apply_f32(b2, z, w, mb)
         bj_apply_pallas.launches += 1
-    return _from_blocks(out, br, nrb // nb)
+    return w
 
 
 bj_apply_pallas.launches = 0

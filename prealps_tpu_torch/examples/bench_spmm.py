@@ -19,9 +19,12 @@ Formats and what runs them:
   the lane-major panel, plus the remainder through one transposed gather.
 
 On the card (``--device cuda``, the default) it runs f32 and times each
-call with CUDA events around ``--reps`` back-to-back calls; on the CPU
-(``--device cpu``) f64 with the host clock, where the kernels' wrappers run
-their plain versions.
+call by its device time: ``--reps`` back-to-back calls between CUDA
+events, enqueued behind a spin kernel that outlasts their enqueueing
+(events around calls issued as they go would time the host's launch path,
+~40-50 µs a wrapper call, where the kernels are shorter); on the CPU
+(``--device cpu``) f64 with the host clock, where the kernels' wrappers
+run their plain versions.
 
     python -m prealps_tpu_torch.examples.bench_spmm --nel 16 --t 1,4,8,12,16
 """
@@ -53,6 +56,7 @@ from prealps_tpu_torch.ops.spmm import (
     stencil_bsr_spmm_t_pallas,
     stencil_pallas_bs_ext,
 )
+from prealps_tpu_torch.timing import device_ms
 
 FORMATS = ("stencil_t", "stencil_t_pallas", "ell", "dia", "dia_tbn")
 
@@ -104,18 +108,12 @@ def operators(a, formats, dtype, device):
 
 def call_ms(fn, arg, reps: int, device) -> float:
     """Time of one call in ms: ``reps`` back-to-back calls after a warm one,
-    between CUDA events on the card, on the host clock on the CPU."""
-    fn(arg)
+    on the card between CUDA events behind a spin kernel that outlasts
+    their enqueueing (so the host's launch path is not timed), on the CPU
+    by the host clock."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn(arg)
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1) / reps
+        return device_ms(lambda: fn(arg), reps=reps, batches=1, warm=1)[0]
+    fn(arg)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(arg)

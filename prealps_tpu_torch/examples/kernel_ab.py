@@ -1,0 +1,191 @@
+"""Time the hand-written stencil (B1-B4) and block-Jacobi (B6) kernels at
+the shapes of PERF.md's kernel table, through their public wrappers.
+
+The script imports ``prealps_tpu_torch`` from the caller's path, so one copy
+of it times any checkout of the port whose wrappers take these arguments;
+run it once per checkout, in turns (A, B, B, A), to compare two of them on
+one card:
+
+    PYTHONPATH=<checkout> python prealps_tpu_torch/examples/kernel_ab.py
+
+Shapes (all f32, inputs from ``default_rng``; the times do not depend on
+the values):
+
+* B1 on the headline operator (elasticity3d 36³ scaled, padded as the
+  stencil path pads it: nrb 49,360, S 27, br 3) at t 12 and 1; on the DIA
+  path's table (the scaled operator's 97 promoted diagonals, n_pad
+  148,480) and the unscaled operator's 99, at t 12 and 1;
+* B2a on the LORASC path's operator shape (heterogeneous elasticity3d 36³,
+  nrb 49,284) at t 12, 8, 1, 97 (the build's nev) and 256 (its lift
+  width), and at the sweep's t 4 and 16; B2b there at t 1 and on the
+  unscaled DIA table at t 12;
+* B3 at t 12, 8, 1 and B4 at t 12 on the headline operator;
+* B6 at the ``bj`` path's shape (nb 617, mb 240) and the ``dia`` path's (nb
+  145, mb 1024), t 12, beside ``torch.bmm`` of the unpadded inverses.
+
+Each time is a device time (``prealps_tpu_torch/timing.py::device_ms`` of
+the script's own checkout, whichever package it times): the median of 3
+batches of back-to-back calls between CUDA events, enqueued behind a spin
+kernel that outlasts their enqueueing, so the host's launch path is not
+timed (for
+``torch.bmm`` the driver's whole apply, ``bj_apply_flat``: the GEMM and
+its two layout copies). Bound: the bytes the call needs (each input read
+once, each output written once; the stencil panel without halo columns,
+B6's inverses unpadded) over 3.35 TB/s. It prints one line per shape and, last, one JSON
+line with the package it loaded, the card and its power limit, and every
+record.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import runpy
+import subprocess
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+
+
+def main() -> int:
+    import prealps_tpu_torch
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.core.layout import (
+        build_row_layout,
+        contiguous_row_layout,
+        permute_and_pad_matrix,
+    )
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.direct.device_bj import (
+        bj_apply_flat,
+        bj_apply_pallas,
+        pack_bj_dense,
+    )
+    from prealps_tpu_torch.ops.formats import (
+        StencilBsrTMatrix,
+        csr_to_stencil_bsr_t,
+        dia_ell_host,
+        stencil_blocks_flat,
+    )
+    from prealps_tpu_torch.ops.spmm import (
+        extend_wrap,
+        stencil_bsr_spmm_t_pallas,
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_blocks_planar,
+        stencil_flat_ext,
+        stencil_pallas_bs_ext,
+        stencil_spmm_planar,
+    )
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab.py needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    # this checkout's yardstick, loaded by its path and not through
+    # prealps_tpu_torch, so every checkout on PYTHONPATH (older ones have
+    # no timing module) is timed the same way
+    device_ms = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
+                                   / "timing.py"))["device_ms"]
+    rng = np.random.default_rng(0)
+    recs = []
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def record(kernel, shape, fn, nbytes, reps=20):
+        ms, _ = device_ms(fn, reps=reps)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        rec = {"kernel": kernel, "shape": shape, "ms": ms, "bound_ms": bound,
+               "share_of_bound": bound / ms}
+        print(f"[ab] {kernel} {shape}: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / ms:.0f} %)", flush=True)
+        recs.append(rec)
+
+    nel = 36
+    a = elasticity3d(nel, nel, nel, heterogeneous=False)
+    a_s = sym_rac_scaling(a)[0]
+
+    # headline operator, padded as the stencil path pads it (240-row blocks)
+    lay = contiguous_row_layout(a.shape[0], 1, row_multiple=math.lcm(24, 240))
+    head = csr_to_stencil_bsr_t(permute_and_pad_matrix(a_s, lay), br=3,
+                                dtype=np.float32, device=dev)
+    s_off, br, _, nrb = head.blocks_t.shape
+    halo = max(abs(o) for o in head.offsets)
+    bf = stencil_blocks_flat(head.blocks_t).contiguous()
+    for t in (12, 1):
+        x_ext = extend_wrap(rand(br * t, nrb), halo).contiguous()
+        record("B1", f"headline br3 t{t}",
+               lambda: stencil_flat_ext(bf, head.offsets, x_ext, halo, br),
+               4 * (bf.numel() + 2 * br * t * nrb))
+    for t in (12, 8, 1):
+        x = rand(t, br, nrb)
+        record("B3", f"headline br3 t{t}",
+               lambda: stencil_bsr_spmm_t_pallas(head, x),
+               4 * (head.blocks_t.numel() + 2 * x.numel()))
+    b3 = stencil_blocks_planar(head.blocks_t).contiguous()
+    x2 = rand(12, br * nrb)
+    record("B4", "headline br3 t12",
+           lambda: stencil_spmm_planar(b3, x2, offsets=head.offsets, br=br, nrb=nrb),
+           4 * (b3.numel() + 2 * x2.numel()))
+    del bf, b3, x2
+
+    # the DIA path's table (scaled: 97 diagonals) and the unscaled one (99)
+    lay_d = build_row_layout(a_s, 1, row_multiple=1024)
+    for tag, mat in (("DIA D97", permute_and_pad_matrix(a_s, lay_d)), ("DIA D99", a)):
+        offsets, diags, _ = dia_ell_host(mat, min_fill=0.05, dtype=np.float32)
+        diags = torch.from_numpy(diags).to(dev)
+        d_halo = max(abs(o) for o in offsets)
+        n = diags.shape[1]
+        for t in (12, 1):
+            x_ext = extend_wrap(rand(t, n), d_halo).contiguous()
+            record("B1", f"{tag} br1 t{t}",
+                   lambda: stencil_flat_ext(diags, offsets, x_ext, d_halo, 1),
+                   4 * (diags.numel() + 2 * t * n))
+        if tag == "DIA D99":
+            d_t = diags[:, None, None, :].contiguous()
+            x_ext = extend_wrap(rand(12, 1, n), d_halo).contiguous()
+            record("B2b", f"{tag} br1 t12",
+                   lambda: stencil_pallas_bs_ext(d_t, offsets, x_ext, d_halo),
+                   4 * (d_t.numel() + 2 * 12 * n))
+            del d_t
+        del diags
+
+    # the LORASC path's operator shape
+    het = csr_to_stencil_bsr_t(elasticity3d(nel, nel, nel, heterogeneous=True),
+                               br=3, dtype=np.float32, device=dev)
+    lor = StencilBsrTMatrix(het.blocks_t, het.offsets, het.shape)
+    nrb_l = het.blocks_t.shape[-1]
+    halo_l = max(abs(o) for o in het.offsets)
+    for t in (12, 8, 1, 97, 256, 4, 16):
+        x = rand(t, 3, nrb_l)
+        record("B2a", f"lorasc br3 t{t}",
+               lambda: stencil_bsr_spmm_t_pallas_bs(lor, x),
+               4 * (het.blocks_t.numel() + 2 * x.numel()), reps=5 if t > 16 else 20)
+    x_ext = extend_wrap(rand(1, 3, nrb_l), halo_l).contiguous()
+    record("B2b", "lorasc br3 t1",
+           lambda: stencil_pallas_bs_ext(het.blocks_t, het.offsets, x_ext, halo_l),
+           4 * (het.blocks_t.numel() + 2 * 3 * nrb_l))
+    del het, lor
+
+    # B6 at the bj and the dia path's block sizes, beside torch.bmm
+    for nb, mb, bbr in ((617, 240, 3), (145, 1024, 1)):
+        inv = rand(nb, mb, mb)
+        b2 = pack_bj_dense(inv)
+        z = rand(12, bbr, nb * mb // bbr)
+        nbytes = 4 * (inv.numel() + 2 * z.numel())
+        record("B6", f"nb{nb} mb{mb} t12", lambda: bj_apply_pallas(b2, z, bbr), nbytes)
+        record("torch.bmm", f"nb{nb} mb{mb} t12", lambda: bj_apply_flat(inv, z), nbytes)
+        del inv, b2, z
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(json.dumps({"package": prealps_tpu_torch.__file__, "card": card,
+                      "records": recs}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -43,8 +43,8 @@ _SIGNATURES = {         # C entry point -> (argtypes, restype)
                             + [_P], _I),
     "prealps_stencil_max_offsets": ([], _I),
     "prealps_block_ell_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "prealps_bj_apply_f32": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "prealps_bj_apply_max_rows": ([_I], _I),
+    "prealps_bj_apply_f32": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
+    "prealps_bj_apply_max_rows": ([_I, _I], _I),
     "prealps_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -159,18 +159,23 @@ def block_ell_f32(blocks: torch.Tensor, blkcols: torch.Tensor,
     _check(lib, rc, "block_ell_spmm_pallas launch")
 
 
-def bj_apply_max_rows(t: int) -> int:
-    """Largest padded block size the block-Jacobi kernel takes at width t
-    (its staged z block must fit 48 KB of shared memory)."""
-    return load()["bj_apply.cu"].prealps_bj_apply_max_rows(t)
+def bj_apply_max_rows(t: int, device: torch.device) -> int:
+    """Largest block (mb rows) the block-Jacobi kernel takes at width t on
+    ``device`` (its staged z block and B ring must fit one CTA's opt-in
+    shared memory)."""
+    return load()["bj_apply.cu"].prealps_bj_apply_max_rows(t, device.index or 0)
 
 
-def bj_apply_f32(b2: torch.Tensor, zb: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the batched block-Jacobi kernel: out = b2 @ zb per block
-    (checked by the caller: CUDA, f32, contiguous, shapes consistent)."""
+def bj_apply_f32(b2: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                 mb: int) -> None:
+    """Launch the batched block-Jacobi kernel: lane-major z (t, br, nrb) ->
+    w through the packed (nb, mbp, mbp) inverses b2, of which the first
+    mb = br·nrb/nb rows and columns are read (checked by the caller: CUDA,
+    f32, contiguous, shapes consistent)."""
     lib = load()["bj_apply.cu"]
-    nb, mbp, t = zb.shape
-    rc = lib.prealps_bj_apply_f32(b2.data_ptr(), zb.data_ptr(), out.data_ptr(),
-                                  nb, mbp, t, out.device.index or 0,
-                                  _stream(out))
+    nb, mbp, _ = b2.shape
+    t, br, nrb = z.shape
+    rc = lib.prealps_bj_apply_f32(b2.data_ptr(), z.data_ptr(), w.data_ptr(),
+                                  nb, mb, mbp, nrb // nb, br, nrb, t,
+                                  w.device.index or 0, _stream(w))
     _check(lib, rc, "bj_apply_pallas launch")

@@ -6,6 +6,10 @@ The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
 * ``fmt="stencil"``, ``layout="tbn"`` (lane-major panels), with
   ``precond="bj2l"`` (two-level block Jacobi, the headline solve),
   ``"bj"`` (device block Jacobi, the JAX driver's "bj_flat") or ``"none"``;
+  on ``layout="nt"`` (row-major panels) the JAX driver's plain product (a
+  roll of the (nrb, br, t) panel and one block einsum per offset, XLA
+  there, plain PyTorch here, no kernel) with host block Jacobi and
+  host-f64 refinement rounds;
 * ``fmt="dia"`` (hybrid DIA+ELL: promoted diagonals + ELL remainder):
   on ``layout="tbn"`` the diagonals are the flat (D, n_pad) table of a
   br = 1 stencil through B1 (``stencil_flat_ext``), the remainder one
@@ -21,11 +25,10 @@ The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
   BFS pseudo-coordinates, or natural; built as ``block_ell_xla`` at bk = 8,
   the plain gather product, as in the JAX driver) or ELL. A permuting
   choice builds on A[perm][:, perm]; ``solve`` permutes b in and x back
-  out (``pre_perm``), and ``fmt_info`` keeps the scores. Layout policy:
-  with ``auto_layout`` the port takes ``tbn`` for stencil/dia and ``nt``
-  otherwise. The JAX driver takes ``tbn`` for them only on a TPU or for
-  bj2l; the port's stencil path exists only on ``tbn`` and ``tbn`` is the
-  card's fast path, so on the CPU it is the card's test double. With
+  out (``pre_perm``), and ``fmt_info`` keeps the scores. Layout policy
+  (the JAX driver's, with the card in the TPU's place): with
+  ``auto_layout`` stencil and DIA take ``tbn`` on a CUDA device or for
+  bj2l, and ``nt`` otherwise; the gather formats take ``nt``. With
   ``auto_layout=False`` a valid ``opts.layout`` is kept (``tbn`` falls to
   ``nt`` for the gather formats).
 
@@ -41,14 +44,14 @@ solve does not branch on the format.
 Solve:
   * float64 (or tol above ``inner_tol``): one ECG solve on the device.
   * float32 with tol below ``inner_tol``: iterative refinement. Where a
-    double-float SpMM exists (stencil, ell), the rounds run on the device:
-    each runs an f32 ECG solve to ``inner_tol`` (with a stall window) and
-    recomputes the residual in double-float, so the rounds reach
-    tolerances below the f32 floor; the result is then checked against a
-    host f64 residual, and host-f64 rounds polish it if the device rounds
-    fell short. Block-ELL and DIA have no double-float product: their
-    rounds take host f64 residuals with device inner solves, as in the JAX
-    driver.
+    double-float SpMM exists (stencil on tbn, ell), the rounds run on the
+    device: each runs an f32 ECG solve to ``inner_tol`` (with a stall
+    window) and recomputes the residual in double-float, so the rounds
+    reach tolerances below the f32 floor; the result is then checked
+    against a host f64 residual, and host-f64 rounds polish it if the
+    device rounds fell short. Block-ELL, DIA and the stencil on nt have no
+    double-float product: their rounds take host f64 residuals with device
+    inner solves, as in the JAX driver.
 
 The operator applies go through the hand-written CUDA kernels on the card
 (``ops/spmm.py::stencil_flat_ext``, ``block_ell_spmm_pallas``) and their
@@ -56,7 +59,7 @@ plain PyTorch versions on the CPU; ``block_ell_xla``, DIA on ``nt`` and
 the DIA remainder are plain PyTorch on the card too, as they are XLA in
 the JAX driver.
 
-Not ported (NotImplementedError): ``nshards > 1``, the nt stencil path,
+Not ported (NotImplementedError): ``nshards > 1``,
 ``precond="chebyshev"``, the bf16 (``bj_lane``) and deduplicated
 (``bj_dedup``) block Jacobi, bj2l without ``grid=``, pinned partitions
 (``parts=``).
@@ -93,9 +96,11 @@ from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
     DiaEllMatrix,
     EllMatrix,
+    StencilBsrMatrix,
     csr_to_block_ell,
     csr_to_dia_ell,
     csr_to_ell,
+    csr_to_stencil_bsr,
     detect_format,
     dia_ell_host,
     panel_from_flat_kmajor,
@@ -367,13 +372,38 @@ class DiaOperands(_RowMajor):
         return dia_ell_spmm(self.mat, x)
 
 
+@dataclass
+class StencilNtOperands(_RowMajor):
+    """Device operands of fmt="stencil" on row-major panels: the node-major
+    (nrb, S, br, br) blocks, applied as the JAX driver's nt product does
+    (a roll of the (nrb, br, t) panel and one block einsum per offset;
+    plain PyTorch, as it is XLA there), with host-built block Jacobi. No
+    double-float product: refinement residuals are host f64."""
+
+    mat: StencilBsrMatrix
+    bj: Optional[BlockJacobi]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mat.blocks.device
+
+    def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        nrb, _, br, _ = self.mat.blocks.shape
+        x3 = x.reshape(nrb, br, x.shape[1])
+        y = torch.zeros_like(x3)
+        for s, off in enumerate(self.mat.offsets):
+            xs = torch.roll(x3, -off, dims=0) if off else x3
+            y = y + torch.einsum("rmk,rkt->rmt", self.mat.blocks[:, s], xs)
+        return y.reshape(x.shape)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 Operands = Union[StencilOperands, DiaLaneOperands, EllOperands,
-                 BlockEllOperands, DiaOperands]
+                 BlockEllOperands, DiaOperands, StencilNtOperands]
 _LATER = "is not ported yet (ROADMAP.md queue A, item 1)"
 LANE_FORMATS = ("stencil", "dia")
 
@@ -402,10 +432,6 @@ def _check_options(fmt, precond, layout, grid, bj_dtype, bj_dedupe):
     lane_major = layout == "tbn"
     if lane_major and fmt not in LANE_FORMATS:
         raise ValueError("layout='tbn' requires fmt='stencil' or 'dia'")
-    if fmt == "stencil" and not lane_major:
-        raise NotImplementedError(
-            f"fmt='stencil' with layout={layout!r} {_LATER}; the port "
-            "runs the stencil format on layout='tbn'")
     if precond in ("bj2l", "block_jacobi_2l"):
         if not lane_major or fmt != "stencil":
             raise ValueError(
@@ -432,11 +458,13 @@ def _check_options(fmt, precond, layout, grid, bj_dtype, bj_dedupe):
         f"DistributedECG supports block_jacobi/bj2l/chebyshev/none, got {precond!r}")
 
 
-def _detect(a, br, opts, auto_layout):
+def _detect(a, br, opts, auto_layout, precond, device):
     """fmt="auto": pick the format with ``detect_format`` and the layout
-    (tbn for stencil/dia, nt otherwise, unless auto_layout=False keeps a
-    valid caller's layout). Returns (fmt, opts, a, pre_perm, fmt_info,
-    bell_bk): a is the permuted matrix where the choice permutes rows."""
+    (the JAX driver's rule with the card in the TPU's place: tbn for
+    stencil/dia on a CUDA device or for bj2l, nt otherwise, unless
+    auto_layout=False keeps a valid caller's layout). Returns (fmt, opts,
+    a, pre_perm, fmt_info, bell_bk): a is the permuted matrix where the
+    choice permutes rows."""
     fmt, info = detect_format(a, br=br, nshards=1, allow_stencil=True,
                               allow_reorder=True)
     tag, pre_perm, bell_bk = fmt, None, 128
@@ -449,7 +477,10 @@ def _detect(a, br, opts, auto_layout):
     elif fmt == "dia_rcm":
         fmt = "dia"
     if auto_layout:
-        want = "tbn" if fmt in LANE_FORMATS else "nt"
+        want = ("tbn" if fmt in LANE_FORMATS
+                and (device.type == "cuda"
+                     or precond in ("bj2l", "block_jacobi_2l"))
+                else "nt")
     elif opts.layout == "tbn" and fmt not in LANE_FORMATS:
         want = "nt"
     else:
@@ -541,17 +572,26 @@ def _dia_lane_operands(a, kind, block_size, dtype, device, stage):
     return layout, ops
 
 
-def _general_operands(a, fmt, kind, block_size, nblocks_per_shard, bell_bk,
-                      dtype, device, stage):
-    """General path on row-major panels: partition layout, ELL / block-ELL
-    / DIA+ELL, host block Jacobi."""
+def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
+                      bell_bk, dtype, device, stage):
+    """Row-major panels: partition layout (stencil: contiguous), ELL /
+    block-ELL / DIA+ELL / stencil, host block Jacobi."""
     bell = fmt in ("block_ell", "block_ell_xla")
-    # block-ELL moves whole bk = 128 column blocks: rows pad to 128
-    layout = build_row_layout(a, 1, row_multiple=128 if bell else 8)
+    if fmt == "stencil":
+        layout = contiguous_row_layout(a.shape[0], 1,
+                                       row_multiple=math.lcm(8, br))
+    else:
+        # block-ELL moves whole bk = 128 column blocks: rows pad to 128
+        layout = build_row_layout(a, 1, row_multiple=128 if bell else 8)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
-    if bell:
+    if fmt == "stencil":
+        mat = csr_to_stencil_bsr(a_pad, br=br, dtype=dtype, device=device)
+        if mat is None:
+            raise ValueError("matrix is not stencil-structured; use "
+                             "fmt='ell' or 'block_ell'")
+    elif bell:
         mat = csr_to_block_ell(a_pad, bm=8, bk=bell_bk, dtype=dtype,
                                device=device)
     elif fmt == "dia":
@@ -567,7 +607,9 @@ def _general_operands(a, fmt, kind, block_size, nblocks_per_shard, bell_bk,
             nblocks_per_shard = max(1, -(-layout.rows_per_shard // block_size))
         bj = build_sharded_block_jacobi(a_pad, layout, nblocks_per_shard,
                                         dtype=dtype, device=device)
-    if bell:
+    if fmt == "stencil":
+        ops = StencilNtOperands(mat=mat, bj=bj)
+    elif bell:
         ops = BlockEllOperands(mat=mat, bj=bj, kernel=fmt == "block_ell")
     elif fmt == "dia":
         ops = DiaOperands(mat=mat, bj=bj)
@@ -644,7 +686,7 @@ class DistributedECG:
             if precond in ("chebyshev", "cheby"):
                 raise NotImplementedError(f"precond={precond!r} {_LATER}")
             fmt, opts, a, pre_perm, fmt_info, bell_bk = _detect(
-                a, br, opts, auto_layout)
+                a, br, opts, auto_layout, precond, device)
             stage("detect")
         kind = _check_options(fmt, precond, opts.layout, grid, bj_dtype,
                               bj_dedupe)
@@ -663,7 +705,7 @@ class DistributedECG:
             # remaining work to the next refinement round
             opts = replace(opts, tol=inner_tol,
                            stall_window=opts.stall_window or 250)
-        if fmt == "stencil":
+        if fmt == "stencil" and opts.layout == "tbn":
             layout, operands = _stencil_operands(
                 a, kind, br, block_size, grid, scale_d, dtype, device, stage)
         elif fmt == "dia" and opts.layout == "tbn":
@@ -671,8 +713,8 @@ class DistributedECG:
                 a, kind, block_size, dtype, device, stage)
         else:
             layout, operands = _general_operands(
-                a, fmt, kind, block_size, nblocks_per_shard, bell_bk, dtype,
-                device, stage)
+                a, fmt, kind, br, block_size, nblocks_per_shard, bell_bk,
+                dtype, device, stage)
         return cls(
             layout=layout, opts=opts, scale_d=scale_d, operands=operands,
             device=device, dtype=dtype, target_tol=target_tol,

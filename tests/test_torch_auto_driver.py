@@ -6,14 +6,16 @@ JAX tests' shuffled geometric graph ("block_ell_morton", 8×8 block-ELL
 through the plain gather product), a random 8×8-block matrix
 ("block_ell_natural") and a random sparse matrix ("ell").
 
-* f64, the layout pinned (``auto_layout=False``: the two drivers' layout
-  policies differ, see the port's driver docstring): the same choice and
-  permutation; iterations within ±1 of the JAX driver's; x within 1e-8
-  relative, in the ORIGINAL ordering (``pre_perm`` is transparent).
-  The shuffled band solves with ``precond="none"`` and no scaling, as the
-  JAX package's own test does.
-* ``auto_layout=True``: the port takes tbn for stencil/dia and nt for the
-  gather formats, and still solves.
+* f64 under the layout policy (``auto_layout=True``, the same rule in
+  both drivers: on the CPU every outcome takes nt): the same choice,
+  layout and permutation; iterations within ±1 of the JAX driver's; x
+  within 1e-8 relative, in the ORIGINAL ordering (``pre_perm`` is
+  transparent). The shuffled band solves with ``precond="none"`` and no
+  scaling, as the JAX package's own test does.
+* f64 with the lane-major layout pinned (``auto_layout=False``, tbn) for
+  the stencil and DIA outcomes, against the JAX driver pinned the same.
+* The layout policy: for every outcome (and bj2l on the stencil, which
+  forces tbn) the port picks the JAX driver's layout, and still solves.
 * f32 on the geometric graph: host-f64 refinement rounds (block-ELL has no
   double-float product), round counts within ±1 of the JAX driver's.
 """
@@ -72,7 +74,7 @@ def _random():
     return sp.csr_matrix(s + sp.diags(np.asarray(abs(s).sum(axis=1)).ravel() + 1))
 
 
-# name: (matrix, pinned layout, build options, ECG options)
+# name: (matrix, pinned layout (auto_layout=False), build options, ECG options)
 CASES = {
     "stencil": (lambda: elasticity3d(3, 3, 3, heterogeneous=True), "tbn",
                 dict(precond="block_jacobi", block_size=96), dict(t=4, tol=1e-8)),
@@ -96,16 +98,18 @@ def _relres(a, x, b):
     return float(np.linalg.norm(b - a @ x) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_f64_auto_matches_jax(name):
+def _f64_parity(name, auto_layout):
     make, layout, kw, o = CASES[name]
+    if auto_layout:
+        layout = "nt"      # the policy's choice on the CPU, for every outcome
     a = make()
     b = np.random.default_rng(0).standard_normal(a.shape[0])
-    sj = JaxECG.build(a, nshards=1, fmt="auto", dtype=np.float64, auto_layout=False,
+    sj = JaxECG.build(a, nshards=1, fmt="auto", dtype=np.float64,
+                      auto_layout=auto_layout,
                       opts=JaxOptions(maxiter=2000, layout=layout, **o), **kw)
     x_j, info_j = sj.solve(b)
     s = DistributedECG.build(a, nshards=1, fmt="auto", dtype=np.float64,
-                             auto_layout=False, device="cpu",
+                             auto_layout=auto_layout, device="cpu",
                              opts=ECGOptions(maxiter=2000, layout=layout, **o), **kw)
     assert s.fmt_info["chosen"] == sj.fmt_info["chosen"] == name
     assert s.fmt_info == sj.fmt_info
@@ -124,24 +128,44 @@ def test_f64_auto_matches_jax(name):
     assert _relres(a, x, b) < 1e-6
 
 
-@pytest.mark.parametrize("name,layout", [("stencil", "tbn"), ("dia_rcm", "tbn"),
-                                         ("block_ell_morton", "nt")])
-def test_auto_layout_policy(name, layout):
-    """tbn for stencil/dia, nt for the gather formats; an explicit tbn on a
-    gather format falls to nt, as in the JAX driver."""
-    make, _, kw, o = CASES[name]
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_f64_auto_matches_jax(name):
+    _f64_parity(name, auto_layout=True)
+
+
+@pytest.mark.parametrize("name", ["stencil", "dia"])
+def test_f64_auto_pinned_tbn_matches_jax(name):
+    _f64_parity(name, auto_layout=False)
+
+
+POLICY_CASES = sorted(CASES) + ["stencil_bj2l"]
+
+
+@pytest.mark.parametrize("name", POLICY_CASES)
+def test_auto_layout_policy(name):
+    """For every detect_format outcome on the CPU the port picks the JAX
+    driver's layout (nt; tbn only for bj2l, which exists only lane-major),
+    and solves. An explicit tbn under auto_layout=False stays tbn on
+    stencil/dia and falls to nt on a gather format, in both drivers."""
+    make, _, kw, o = CASES[name.replace("_bj2l", "")]
+    if name == "stencil_bj2l":
+        kw = dict(precond="bj2l", block_size=96, grid=(4, 4, 3))
     a = make()
     b = np.random.default_rng(1).standard_normal(a.shape[0])
-    s = DistributedECG.build(a, nshards=1, fmt="auto", dtype=np.float64,
-                             device="cpu", opts=ECGOptions(maxiter=2000, **o), **kw)
-    assert s.opts.layout == layout and s.operands.layout == layout
-    x, info = s.solve(b)
-    assert _relres(a, x, b) < 1e-6 and not info["breakdown"]
-    pinned = DistributedECG.build(a, nshards=1, fmt="auto", dtype=np.float64,
-                                  device="cpu", auto_layout=False,
-                                  opts=ECGOptions(maxiter=2000, layout="tbn", **o),
-                                  **kw)
-    assert pinned.opts.layout == layout
+    for auto_layout, asked in ((True, "nt"), (False, "tbn")):
+        sj = JaxECG.build(a, nshards=1, fmt="auto", dtype=np.float64,
+                          auto_layout=auto_layout,
+                          opts=JaxOptions(maxiter=2000, layout=asked, **o), **kw)
+        s = DistributedECG.build(a, nshards=1, fmt="auto", dtype=np.float64,
+                                 device="cpu", auto_layout=auto_layout,
+                                 opts=ECGOptions(maxiter=2000, layout=asked, **o),
+                                 **kw)
+        assert s.opts.layout == sj.opts.layout
+        assert s.operands.layout == s.opts.layout
+        if auto_layout:
+            assert s.opts.layout == ("tbn" if name == "stencil_bj2l" else "nt")
+            x, info = s.solve(b)
+            assert _relres(a, x, b) < 1e-6 and not info["breakdown"]
 
 
 def test_f32_auto_refines_on_the_host():

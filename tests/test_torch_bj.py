@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from prealps_tpu.core.generators import elasticity3d
+from prealps_tpu.core.generators import elasticity3d, poisson3d
 from prealps_tpu.core.layout import contiguous_row_layout, permute_and_pad_matrix
 from prealps_tpu.core.scaling import sym_rac_scaling
 from prealps_tpu.direct import device_bj as jdbj
@@ -72,10 +72,22 @@ def test_block_jacobi_sentinel_rows_stay_zero():
     assert w.shape == (m, 2) and bool(torch.isfinite(w).all())
 
 
-@pytest.mark.parametrize("t", [4, 12])
-def test_bj_apply_pallas_plain_matches_jax_interpret(t):
-    a = elasticity3d(6, 5, 5)
-    mbn, br = 24, 3
+# (matrix, node block size mbn, br): mb = br·mbn rows a block — 72 (the JAX
+# test's shape), 200 (not a multiple of 128) and 1024 (the DIA path's,
+# mbp = mb: no padding)
+BJ_SHAPES = {
+    "mb72": (lambda: elasticity3d(6, 5, 5), 24, 3),
+    "mb200": (lambda: poisson3d(10, 10, 4), 200, 1),
+    "mb1024": (lambda: poisson3d(16, 16, 8), 1024, 1),
+}
+
+
+@pytest.mark.parametrize("t,shape", [pytest.param(4, "mb72", id="4"),
+                                     pytest.param(12, "mb72", id="12"),
+                                     (5, "mb200"), (12, "mb1024")])
+def test_bj_apply_pallas_plain_matches_jax_interpret(t, shape):
+    make, mbn, br = BJ_SHAPES[shape]
+    a = make()
     lay = contiguous_row_layout(a.shape[0], 1, row_multiple=mbn * br)
     sb = csr_to_stencil_bsr_t(permute_and_pad_matrix(a, lay), br=br, dtype=np.float32)
     inv5 = jdbj.build_device_block_jacobi(sb.blocks_t, sb.offsets, mbn=mbn)

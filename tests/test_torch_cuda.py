@@ -7,12 +7,20 @@ the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same inputs:
-max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise. The stencil kernels
-(flat B1, lane-major B2a / B2b / B3, planar B4: one source,
-csrc/stencil.cu) sum the same products in the same order, with FMAs; the
-block-ELL and
-block-Jacobi kernels sum lane-partial sums through a warp tree, so the two
-agree to f32 rounding of the dot-product length.
+max |y_kernel − y_plain| ≤ 1e-5·(|B|·|x|) elementwise (KERNEL_TOL). The
+stencil kernels (flat B1, lane-major B2a / B2b / B3, planar B4: one source,
+csrc/stencil.cu) sum the same products in the same order, with FMAs, so B1
+is also held bitwise to an fmaf reference in that order (each step
+computed in float64 and rounded to float32: the product of two floats is
+exact in float64). The block-ELL kernel sums lane-partial sums through a
+warp tree and the block-Jacobi kernel sums over k in one thread, so those
+agree with their plain versions to f32 rounding of the dot-product length.
+The edge shapes are those of the stencil kernel's tiling (node tiles of
+128, whole-width instances at t 1, 4, 8, 12 and 16, chunks of 8 columns
+for other widths, the wrap map's modular columns, and br 2, which takes
+the generic kernel) and of the block-Jacobi
+kernel's (row tiles of 128, 32-column stages, up to 12 panel columns a
+CTA, 16-byte or 4-byte z copies).
 """
 
 import numpy as np
@@ -28,6 +36,7 @@ from prealps_tpu_torch.parallel.driver import DistributedECG
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 
 pytestmark = pytest.mark.cuda
+KERNEL_TOL = 1e-5
 
 
 @pytest.fixture
@@ -58,7 +67,7 @@ def test_kernel_matches_plain(cuda_device, br, t):
     ref = tspmm.stencil_flat_ext_ref(bf, offs, x_ext, halo, br)
     scale = tspmm.stencil_flat_ext_ref(bf.abs(), offs, x_ext.abs(), halo, br)
     assert y.shape == ref.shape and y.device == ref.device
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -108,7 +117,7 @@ def test_block_ell_kernel_matches_plain(cuda_device, bk, t):
     scale = tspmm.block_ell_spmm(tfmt.BlockEllMatrix(m.blocks.abs(), m.blkcols,
                                                      m.shape), x.abs())
     assert y.shape == ref.shape
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def test_block_ell_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -145,9 +154,9 @@ def test_bj_apply_kernel_matches_plain(cuda_device, t):
     assert tbj.bj_apply_pallas.launches == before + 1
     ref = tbj.bj_apply_pallas_ref(b2, z, br)
     scale = tbj.bj_apply_pallas_ref(b2.abs(), z.abs(), br)
-    assert bool(((w - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((w - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
     # and the driver's GEMM on the unpadded inverses
-    assert bool(((w - tbj.bj_apply_flat(inv_f, z)).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((w - tbj.bj_apply_flat(inv_f, z)).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def test_bj_apply_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -184,7 +193,7 @@ def test_lane_kernel_matches_plain(cuda_device, br, t):
     scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
                                           x_ext.abs(), halo)
     assert y.shape == ref.shape == x.shape
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 @pytest.mark.parametrize("t", [1, 12, 20])
@@ -198,7 +207,7 @@ def test_lane_ext_kernel_matches_plain(cuda_device, t):
     ref = tspmm.stencil_scan_accumulate(st.blocks_t, st.offsets, x_ext, halo)
     scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
                                           x_ext.abs(), halo)
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def test_lane_kernels_refuse_what_they_do_not_take(cuda_device):
@@ -268,7 +277,7 @@ def test_b3_kernel_matches_plain(cuda_device, t):
     ref = tspmm.stencil_scan_accumulate(st.blocks_t, st.offsets, x_ext, halo)
     scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
                                           x_ext.abs(), halo)
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 @pytest.mark.parametrize("t", [12, 1, 5])
@@ -290,7 +299,7 @@ def test_b4_planar_kernel_matches_plain(cuda_device, t):
     scale = tspmm.stencil_spmm_planar_ref(b3.abs(), x2.abs(), offsets=offsets,
                                           br=br, nrb=nrb)
     assert y.shape == ref.shape == x2.shape
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def _dia_table(device):
@@ -314,7 +323,7 @@ def test_b1_dia_99_offsets_matches_plain(cuda_device, t):
     assert tspmm.stencil_flat_ext.launches == before + 1
     ref = tspmm.stencil_flat_ext_ref(diags, offsets, x_ext, halo, 1)
     scale = tspmm.stencil_flat_ext_ref(diags.abs(), offsets, x_ext.abs(), halo, 1)
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def test_b2b_dia_99_offsets_matches_plain(cuda_device):
@@ -329,7 +338,7 @@ def test_b2b_dia_99_offsets_matches_plain(cuda_device):
     assert tspmm.stencil_pallas_bs_ext.launches == before + 1
     ref = tspmm.stencil_scan_accumulate(d_t, offsets, x_ext, halo)
     scale = tspmm.stencil_scan_accumulate(d_t.abs(), offsets, x_ext.abs(), halo)
-    assert bool(((y - ref).abs() <= 1e-5 * scale + 1e-30).all())
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
 
 
 def test_dia_tbn_solve_on_the_card_matches_cpu(cuda_device):
@@ -362,3 +371,171 @@ def test_stencil_kernel_refuses_too_many_offsets(cuda_device):
     y = tspmm.stencil_flat_ext(blocks[:512], offsets[:512], x_ext, 256, 1)
     torch.cuda.synchronize()
     assert bool((y == 0).all())
+
+
+def _close(y, ref, scale):
+    assert y.shape == ref.shape
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
+
+
+def _fma_flat_ref(blocks_flat, offsets, x_ext, halo, br):
+    """B1's sums in its order (offset s, then k), each step fmaf(b, x, acc)
+    computed in float64 and rounded to float32."""
+    nrb = blocks_flat.shape[1]
+    t = x_ext.shape[0] // br
+    bd = blocks_flat.double()
+    xd = x_ext.double()
+    acc = torch.zeros((br, t, nrb), dtype=torch.float32, device=x_ext.device)
+    for s, off in enumerate(offsets):
+        xs = xd[:, halo + off:halo + off + nrb].reshape(br, t, nrb)
+        for k in range(br):
+            for m in range(br):
+                b = bd[(s * br + m) * br + k][None, :]
+                acc[m] = (b * xs[k] + acc[m].double()).float()
+    return acc.reshape(br * t, nrb)
+
+
+@pytest.mark.parametrize("br,t,nel", [(3, 12, (7, 6, 5)), (3, 1, (7, 6, 5)),
+                                      (3, 4, (6, 6, 7)), (1, 12, (12, 11, 10)),
+                                      (1, 1, (12, 11, 10))])
+def test_b1_bitwise_equals_fma_order(cuda_device, br, t, nel):
+    a = elasticity3d(*nel) if br == 3 else poisson3d(*nel)
+    bf, offs, x_ext, halo = _operands(a, br, t, seed=100 + t, device=cuda_device)
+    y = tspmm.stencil_flat_ext(bf, offs, x_ext, halo, br)
+    torch.cuda.synchronize()
+    assert torch.equal(y, _fma_flat_ref(bf, offs, x_ext, halo, br))
+
+
+def _random_lane(nrb, offsets, br, t, seed, device):
+    rng = np.random.default_rng(seed)
+    blocks_t = torch.from_numpy(rng.standard_normal(
+        (len(offsets), br, br, nrb)).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.standard_normal((t, br, nrb)).astype(np.float32)).to(device)
+    return tfmt.StencilBsrTMatrix(blocks_t, tuple(offsets), (br * nrb, br * nrb)), x
+
+
+@pytest.mark.parametrize("nrb", [301, 300, 200, 4099])
+@pytest.mark.parametrize("br,t", [(3, 12), (1, 12), (3, 1), (1, 1), (3, 16)])
+def test_lane_wrap_edges_match_plain(cuda_device, nrb, br, t):
+    """B2a on random blocks: nrb not a multiple of the node tile of 128
+    (and odd), offsets at 0, ±1 and ±nrb, ±(nrb-1) in the wrap map (the wrap
+    falls inside a tile)."""
+    offsets = (-nrb, -(nrb - 1), -1, 0, 1, nrb - 1, nrb)
+    st, x = _random_lane(nrb, offsets, br, t, seed=nrb + t, device=cuda_device)
+    y = tspmm.stencil_bsr_spmm_t_pallas_bs(st, x)
+    torch.cuda.synchronize()
+    x_ext = tspmm.extend_wrap(x, nrb)
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, offsets, x_ext, nrb)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), offsets, x_ext.abs(), nrb)
+    _close(y, ref, scale)
+
+
+@pytest.mark.parametrize("n_off", [1, 512])
+@pytest.mark.parametrize("t", [12, 1])
+def test_ext_offset_counts_match_plain(cuda_device, n_off, t):
+    """B2b (pre-extended, offsets at ±lead) and B1 with 1 and 512 offsets."""
+    nrb, br = 1030, 1
+    offsets = (0,) if n_off == 1 else tuple(range(-256, 256))
+    lead = max(1, max(abs(o) for o in offsets))
+    st, x = _random_lane(nrb, offsets, br, t, seed=n_off + t, device=cuda_device)
+    x_ext = tspmm.extend_wrap(x, lead).contiguous()
+    y = tspmm.stencil_pallas_bs_ext(st.blocks_t, offsets, x_ext, lead)
+    torch.cuda.synchronize()
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, offsets, x_ext, lead)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), offsets, x_ext.abs(), lead)
+    _close(y, ref, scale)
+    bf = st.blocks_t.reshape(n_off, nrb).contiguous()
+    xf = x_ext.reshape(t, -1).contiguous()
+    y1 = tspmm.stencil_flat_ext(bf, offsets, xf, lead, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, _fma_flat_ref(bf, offsets, xf, lead, 1))
+
+
+@pytest.mark.parametrize("t", [4, 16, 256])
+def test_wide_panels_match_plain(cuda_device, t):
+    """B2a and B3 at t 4 and 16 (whole-width instances with three and one
+    offsets prefetched) and 256 (32 chunks of 8 columns in consecutive
+    CTAs)."""
+    st, x, x_ext, halo = _lane_operands(3, t, seed=200 + t, device=cuda_device)
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, st.offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), st.offsets,
+                                          x_ext.abs(), halo)
+    for fn in (tspmm.stencil_bsr_spmm_t_pallas_bs, tspmm.stencil_bsr_spmm_t_pallas):
+        y = fn(st, x)
+        torch.cuda.synchronize()
+        _close(y, ref, scale)
+
+
+def _any_br_product(layout, st, x, offsets, halo):
+    """The stencil product of ``st`` on the lane-major panel x (t, br, nrb)
+    through one wrapper, returned lane-major; B1 is also held bitwise to
+    the fmaf order."""
+    t, br, nrb = x.shape
+    if layout == "flat":
+        bf = tfmt.stencil_blocks_flat(st.blocks_t).contiguous()
+        xf = tspmm.extend_wrap(x.transpose(0, 1).reshape(br * t, nrb), halo).contiguous()
+        y = tspmm.stencil_flat_ext(bf, offsets, xf, halo, br)
+        if y.is_cuda:
+            torch.cuda.synchronize()
+            assert torch.equal(y, _fma_flat_ref(bf, offsets, xf, halo, br))
+        return y.reshape(br, t, nrb).transpose(0, 1)
+    if layout == "lane_wrap":
+        return tspmm.stencil_bsr_spmm_t_pallas_bs(st, x)
+    if layout == "lane_ext":
+        return tspmm.stencil_pallas_bs_ext(st.blocks_t, offsets,
+                                           tspmm.extend_wrap(x, halo).contiguous(), halo)
+    b3 = tspmm.stencil_blocks_planar(st.blocks_t).contiguous()
+    y = tspmm.stencil_spmm_planar(b3, x.reshape(t, br * nrb), offsets=offsets,
+                                  br=br, nrb=nrb)
+    return y.reshape(t, br, nrb)
+
+
+@pytest.mark.parametrize("t", [12, 5])
+@pytest.mark.parametrize("layout", ["flat", "lane_wrap", "lane_ext", "planar"])
+def test_any_br_kernel_matches_plain(cuda_device, layout, t):
+    """br = 2, which no path builds, takes the generic kernel
+    (stencil_any_br) in each of its four maps: B1 (k-major, extended), B2a
+    (lane-major, wrap), B2b (lane-major, extended) and B4 (planar); random
+    blocks, nrb 301 (not a multiple of the node tile), t 12 (two column
+    tiles on grid.y) and 5."""
+    offsets, nrb, br, halo = (-9, -1, 0, 1, 9), 301, 2, 9
+    st, x = _random_lane(nrb, offsets, br, t, seed=300 + t, device=cuda_device)
+    y = _any_br_product(layout, st, x, offsets, halo)
+    torch.cuda.synchronize()
+    x_ext = tspmm.extend_wrap(x, halo)
+    ref = tspmm.stencil_scan_accumulate(st.blocks_t, offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st.blocks_t.abs(), offsets, x_ext.abs(), halo)
+    _close(y, ref, scale)
+
+
+@pytest.mark.parametrize("t", [12, 5, 1])
+@pytest.mark.parametrize("mb,br", [(240, 3), (1000, 1), (1024, 1), (21, 3)])
+def test_bj_apply_block_sizes_match_plain(cuda_device, mb, br, t):
+    """B6 on random inverses at mb 240 (the bj path's), 1000 (not a
+    multiple of 128), 1024 (the DIA path's) and 21 (not a multiple of 4),
+    with nonzero z; against the plain version and the GEMM."""
+    nb = 5
+    rng = np.random.default_rng(mb + t)
+    inv = torch.from_numpy(rng.standard_normal((nb, mb, mb)).astype(np.float32)).to(
+        cuda_device)
+    z = torch.from_numpy(rng.standard_normal((t, br, nb * mb // br)).astype(
+        np.float32)).to(cuda_device)
+    b2 = tbj.pack_bj_dense(inv)
+    before = tbj.bj_apply_pallas.launches
+    w = tbj.bj_apply_pallas(b2, z, br)
+    torch.cuda.synchronize()
+    assert tbj.bj_apply_pallas.launches == before + 1
+    assert bool((z != 0).any()) and w.shape == z.shape
+    scale = tbj.bj_apply_pallas_ref(b2.abs(), z.abs(), br)
+    _close(w, tbj.bj_apply_pallas_ref(b2, z, br), scale)
+    _close(w, tbj.bj_apply_flat(inv, z), scale)
+
+
+def test_bj_apply_wide_panel_matches_plain(cuda_device):
+    """t 13: two column chunks of the kernel (12 + 1)."""
+    inv_f, z, br = _bj_operands(13, seed=13, device=cuda_device)
+    b2 = tbj.pack_bj_dense(inv_f)
+    w = tbj.bj_apply_pallas(b2, z, br)
+    torch.cuda.synchronize()
+    scale = tbj.bj_apply_pallas_ref(b2.abs(), z.abs(), br)
+    _close(w, tbj.bj_apply_pallas_ref(b2, z, br), scale)

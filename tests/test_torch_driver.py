@@ -126,7 +126,7 @@ def test_solver_from_reference_reproduces_jax_history(problem, jax_f64):
     assert np.linalg.norm(x - x_j) <= 1e-8 * np.linalg.norm(x_j)
 
 
-@pytest.mark.parametrize("kw", [dict(layout="nt", precond="bj", bj_dedupe=False),
+@pytest.mark.parametrize("kw", [dict(fmt="dia", precond="bj", bj_dtype="bf16"),
                                 dict(precond="block_jacobi"),
                                 dict(nshards=2), dict(grid=None),
                                 dict(nshards=4), dict(precond="chebyshev"),
@@ -134,8 +134,9 @@ def test_solver_from_reference_reproduces_jax_history(problem, jax_f64):
                                 dict(precond="bj", bj_dedupe=False, bj_dtype="bf16")])
 def test_unported_options_raise(problem, kw):
     """precond="block_jacobi" with grid= on the stencil path is the JAX
-    driver's deduplicated block Jacobi (bj_dedup); the stencil format on
-    row-major panels, several shards and Chebyshev are not ported either."""
+    driver's deduplicated block Jacobi (bj_dedup); several shards,
+    Chebyshev and the bf16 block Jacobi (stencil or DIA) are not ported
+    either."""
     a, _ = problem
     args = dict(BUILD, nshards=1)
     args.update(kw)

@@ -75,7 +75,26 @@ Phases (any failure exits nonzero before a result is printed):
 18. ``[spmm]`` the SpMM format sweep (prealps_tpu_torch.examples.bench_spmm)
     at nel = 36, t = 1, 4, 8, 12, 16, all five formats, its JSON lines
     printed; each format's y held to the ELL product within the kernel
-    bound; B3 (``stencil_t_pallas``) launched.
+    bound; B3 (``stencil_t_pallas``) launched;
+20-24. the rest of the one-GPU driver, each a full-size f32 build of the
+    headline operator (t 12, odir_fused on tbn, tol 1e-5, device
+    double-float refinement) and a solve with B1's count zeroed before it
+    and read after it (launches >= iterations), then three timed solves:
+    ``[cheb]`` precond="chebyshev" (degree 8, κ 30; bench.py's
+    PREALPS_BENCH_PRECOND=chebyshev): iterations within 10 % of
+    CHEB_ANCHOR_ITERS, B1 launches >= 8 × iterations, one solve under
+    torch.profiler (chiprun_out/profile_cheb.txt);
+    ``[dedup]`` precond="bj" with grid= and the default bj_dedupe: x-line
+    blocks (37 nodes), "bj_dedup", iterations within 10 % of
+    DEDUP_ANCHOR_ITERS; ``[bj_lane]`` bj_dtype="bf16" without dedup: the
+    apply's device time beside bj_apply_flat (information), w in f32,
+    iterations <= max(1.3 × [bj]'s, [bj]'s + 12); ``[bj2l_nogrid]`` the
+    headline with grid=None: iterations within 10 % of
+    BJ2L_NOGRID_ANCHOR_ITERS; ``[omin_stacked]`` the headline build solved
+    with variant="omin", stacked and unstacked: the stacked count within
+    ±1 of the unstacked count plus one per inner solve (the stacked state's
+    stop test reads the residual entering the iteration, as in the JAX
+    package).
 
 Beside the headline B1 checks, ``[kernel]`` lines hold B3 at t = 12 / 8 / 1
 and B4 (planar) at t = 12 on the headline operator against their plain
@@ -94,7 +113,8 @@ limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
 ``bound_ms``/``library_ms`` at each kernel's first shape and, under
 ``shapes``, at every shape checked; ``max_abs_err`` over its shapes,
 ``launches`` from its path's run — for B4 and B6, which no path runs,
-chip_smoke's own calls), and last ``{"ok": true, "device": {...}}``.
+chip_smoke's own calls; B1's entry also lists its count on every path's
+solve under ``path_launches``), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -130,6 +150,13 @@ DIA_ANCHOR_ITERS = 182
 # fmt="auto" on the shuffled elasticity3d(20³) (BENCH_r05.json
 # ecg_tts_elasticity3d_shuffled_26k_bj: Morton block-ELL, 100 iterations)
 AUTO_ANCHOR_ITERS = 100
+# the rest of the one-GPU driver (elasticity3d 36³, t 12, f32, tol 1e-5): the
+# JAX package's runs of the same builds on a CPU
+# (python -m tests.test_torch_anchors --path cheb|dedup|bj2l_nogrid --nel 36,
+# each in 2 refinement rounds, relres 5.0e-7 / 5.0e-7 / 5.4e-7)
+CHEB_ANCHOR_ITERS = 44          # precond="chebyshev", degree 8, κ 30
+DEDUP_ANCHOR_ITERS = 234        # precond="bj", grid=, bj_dedupe: x-line blocks
+BJ2L_NOGRID_ANCHOR_ITERS = 182  # precond="bj2l", grid=None
 PATH_BAND = 0.10
 # yardsticks: one H100 SXM's HBM3 rate and f32 rate outside the tensor cores
 # (NVIDIA's data sheet, at the 700 W limit)
@@ -834,6 +861,159 @@ def spmm_phase(dev, a):
     return recs, launches
 
 
+def a1_build(a, nel, dev, tag, **kw):
+    """One full-size f32 build of the headline operator for the phases of
+    the rest of the one-GPU driver (t 12, odir_fused on tbn, tol 1e-5 with
+    device double-float refinement), with its build time logged."""
+    import numpy as np
+
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    opts = ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="odir_fused",
+                      layout="tbn")
+    args = dict(fmt="stencil", br=3, block_size=240, grid=(nel + 1, nel + 1, nel))
+    args.update(kw)
+    t0 = time.perf_counter()
+    solver = DistributedECG.build(a, nshards=1, opts=opts, dtype=np.float32,
+                                  device=dev, **args)
+    build_s = time.perf_counter() - t0
+    log(f"[{tag}] built in {build_s:.2f} s ({solver.operands.precond_kind}), "
+        "stages (s): " + json.dumps({k: round(v, 4) for k, v in
+                                     solver.timings.items()}))
+    return solver, build_s
+
+
+def a1_solve(solver, a, b, tag, anchor=None, min_per_iter=1):
+    """The path's solve with B1's count zeroed just before and read just
+    after (launches >= min_per_iter × iterations), three timed solves, and
+    with ``anchor`` the iterations held within PATH_BAND of it."""
+    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
+
+    info, launches, warm_s = checked_solve(solver, a, b, tag, stencil_flat_ext)
+    iters = int(info["iters"])
+    timed = timed_solves(solver, b, iters, tag)
+    solve_s = statistics.median(timed)
+    log(f"[{tag}] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
+        f"{info['refine_rounds']} relres={info['relres']:.3e} "
+        f"stencil_flat_ext launches={launches}; timed solves (s): "
+        f"{[round(v, 4) for v in timed]}, median {solve_s:.4f} s"
+        + ("" if anchor is None else f" (JAX package on a CPU: {anchor} iterations)"))
+    if launches < min_per_iter * iters:
+        fail(f"[{tag}] B1 launched {launches} times for {iters} iterations "
+             f"(< {min_per_iter}×)")
+    if anchor is not None and not within(iters, anchor, PATH_BAND):
+        fail(f"[{tag}] {iters} iterations, outside {anchor} ± "
+             f"{100 * PATH_BAND:.0f} %")
+    return {"iters": iters, "refine_rounds": info["refine_rounds"],
+            "relres": info["relres"], "launches": launches, "solve_s": timed,
+            "ms_per_iter": 1e3 * solve_s / iters, "anchor_iters": anchor}
+
+
+def a1_phases(dev, a, b, nel, bj_iters):
+    """Phases 20-24, the rest of the one-GPU driver at full size:
+    Chebyshev, the deduplicated and the bf16 block Jacobi, bj2l without
+    grid= and the stacked omin state. Returns {phase: record}."""
+    import dataclasses
+
+    import torch
+
+    from prealps_tpu_torch.direct.device_bj import bj_apply_flat, bj_apply_lane_major
+    from prealps_tpu_torch.timing import device_ms
+
+    out = {}
+    # --- [cheb]: bench.py PREALPS_BENCH_PRECOND=chebyshev (degree 8, κ 30) ---
+    solver, build_s = a1_build(a, nel, dev, "cheb", precond="chebyshev",
+                               cheb_degree=8, cheb_kappa=30.0, block_size=None,
+                               grid=None)
+    cheb = solver.operands.cheb
+    log(f"[cheb] degree {cheb.degree}, lambda_max {cheb.lam_max:.6f}, "
+        f"lambda_min {cheb.lam_min:.6f}: {cheb.degree - 1} B1 products per apply")
+    rec = a1_solve(solver, a, b, "cheb", CHEB_ANCHOR_ITERS, min_per_iter=8)
+    busy_ms, wall_ms = profile_solve(solver, b, "cheb")
+    out["cheb"] = dict(rec, build_s=build_s, degree=cheb.degree,
+                       lam_max=cheb.lam_max, lam_min=cheb.lam_min,
+                       profile_device_ms=busy_ms, profile_wall_ms=wall_ms)
+    del solver, cheb
+
+    # --- [dedup]: PREALPS_BENCH_PRECOND=bj PREALPS_BENCH_BJ_DEDUPE=1 ---
+    solver, build_s = a1_build(a, nel, dev, "dedup", precond="bj")
+    ops = solver.operands
+    if ops.precond_kind != "bj_dedup":
+        fail(f"[dedup] built {ops.precond_kind}, not bj_dedup")
+    mbn = ops.inv_u.shape[2]
+    nb = ops.nrb // mbn
+    log(f"[dedup] node blocks of {mbn} (the grid x-line; block_size // br = 80): "
+        f"{ops.groups.num_groups} unique inverses for {nb} blocks "
+        f"({ops.inv_u.numel() * 4 / 1e6:.1f} MB against "
+        f"{nb * (3 * mbn) ** 2 * 4 / 1e6:.1f} MB flat)")
+    if mbn != nel + 1:
+        fail(f"[dedup] node blocks of {mbn}, not the x-line {nel + 1}")
+    rec = a1_solve(solver, a, b, "dedup", DEDUP_ANCHOR_ITERS)
+    out["dedup"] = dict(rec, build_s=build_s, mbn=mbn, nb=nb,
+                        groups=ops.groups.num_groups)
+    del solver, ops
+
+    # --- [bj_lane]: PREALPS_BENCH_PRECOND=bj PREALPS_BENCH_BJ_DTYPE=bf16 ---
+    solver, build_s = a1_build(a, nel, dev, "bj_lane", precond="bj",
+                               bj_dedupe=False, bj_dtype="bf16")
+    ops = solver.operands
+    if ops.precond_kind != "bj_lane" or ops.inv5.dtype != torch.bfloat16:
+        fail(f"[bj_lane] built {ops.precond_kind}, not bj_lane with bf16 inverses")
+    nb, br, mbn = ops.inv5.shape[:3]
+    z = torch.randn((12, br, ops.nrb), generator=torch.Generator(device=dev)
+                    .manual_seed(5), device=dev)
+    w = ops.m_apply(z)
+    if w.dtype != torch.float32:
+        fail(f"[bj_lane] the apply returned {w.dtype}, not float32")
+    inv_f = ops.inv5.float().reshape(nb, br * mbn, br * mbn)
+    lane_ms, _ = device_ms(lambda: bj_apply_lane_major(ops.inv5, z))
+    flat_ms, _ = device_ms(lambda: bj_apply_flat(inv_f, z))
+    log(f"[bj_lane] apply at nb {nb} mb {br * mbn} t 12 (device time, "
+        f"information): bf16 split-input {lane_ms:.4f} ms, bj_apply_flat on the "
+        f"same inverses in f32 {flat_ms:.4f} ms")
+    del inv_f, z, w
+    rec = a1_solve(solver, a, b, "bj_lane")
+    limit = max(int(1.3 * bj_iters), bj_iters + 12)
+    if rec["iters"] > limit:
+        fail(f"[bj_lane] {rec['iters']} iterations > max(1.3 × {bj_iters}, "
+             f"{bj_iters} + 12) = {limit}")
+    log(f"[bj_lane] {rec['iters']} iterations within max(1.3×, +12) of [bj]'s "
+        f"{bj_iters} (limit {limit})")
+    out["bj_lane"] = dict(rec, build_s=build_s, apply_ms=lane_ms,
+                          flat_apply_ms=flat_ms, bj_iters=bj_iters, limit=limit)
+    del solver, ops
+
+    # --- [bj2l_nogrid]: the headline without grid= (translation modes) ---
+    solver, build_s = a1_build(a, nel, dev, "bj2l_nogrid", precond="bj2l",
+                               grid=None)
+    log(f"[bj2l_nogrid] coarse modes per block: {solver.operands.yq3.shape[1]}")
+    rec = a1_solve(solver, a, b, "bj2l_nogrid", BJ2L_NOGRID_ANCHOR_ITERS)
+    out["bj2l_nogrid"] = dict(rec, build_s=build_s)
+    del solver
+
+    # --- [omin_stacked]: the headline build with omin, stacked and not ---
+    solver, build_s = a1_build(a, nel, dev, "omin_stacked", precond="bj2l")
+    recs = {}
+    for stacked in (True, False):
+        s_ = dataclasses.replace(solver, opts=dataclasses.replace(
+            solver.opts, variant="omin", stacked=stacked))
+        recs[stacked] = a1_solve(s_, a, b, f"omin_stacked stacked={stacked}")
+    # the stacked state's stop test reads the residual entering an
+    # iteration (RᵀR comes with the first Gram, as in the JAX package), so
+    # each inner solve runs one iteration more than the unstacked one
+    it_s, it_u = recs[True]["iters"], recs[False]["iters"]
+    expect = it_u + recs[True]["refine_rounds"]
+    if abs(it_s - expect) > 1:
+        fail(f"[omin_stacked] stacked {it_s} iterations against unstacked {it_u} "
+             f"+ one per inner solve = {expect} (± 1)")
+    log(f"[omin_stacked] stacked {it_s}, unstacked {it_u} iterations: within ±1 "
+        f"of unstacked + one per inner solve ({expect})")
+    out["omin_stacked"] = {"stacked": recs[True], "unstacked": recs[False],
+                           "build_s": build_s}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "prealps_tpu_torch")):
         fail("prealps_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -1104,13 +1284,17 @@ def main() -> int:
     auto_path = auto_phase(dev)
     spmm_recs, b3_launches = spmm_phase(dev, a)
 
+    # --- 20-24. the rest of the one-GPU driver ---
+    a1_paths = a1_phases(dev, a, b, nel, biters)
+
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
         "lane_checks": b2a + b2b, "b3_checks": b3, "b4_checks": b4,
         "dia_checks": b1_dia + b2b_dia, "main_path": main_path,
         "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
         "lorasc_path": lorasc_path, "dia_path": dia_path, "auto_path": auto_path,
-        "spmm_sweep": spmm_recs, "total_s": time.perf_counter() - t_start}))
+        "spmm_sweep": spmm_recs, **a1_paths,
+        "total_s": time.perf_counter() - t_start}))
 
     def entry(name, source, replaces, launches_, recs):
         """One kernel's record: times and yardsticks at its first shape
@@ -1126,20 +1310,26 @@ def main() -> int:
                 "shapes": [{"shape": c["shape"], **{k: c[k] for k in keys}}
                            for c in recs]}
 
+    b1 = entry("stencil_flat_ext", "stencil.cu", "ops/spmm.py:800", launches,
+               checks + b1_dia)
+    # B1's count on each path's own solve (counts zeroed before each)
+    b1["path_launches"] = {"main": launches, "bj": blaunches, "dia": dia_launches,
+                           **{k: (v["launches"] if "launches" in v else
+                                  v["stacked"]["launches"] + v["unstacked"]["launches"])
+                              for k, v in a1_paths.items()}}
     kernels = {"kernels": [
-        entry("stencil_flat_ext", "stencil.cu", "ops/spmm.py:772", launches,
-              checks + b1_dia),
-        entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:69", glaunches,
+        b1,
+        entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:97", glaunches,
               b5_checks),
-        entry("bj_apply_pallas", "bj_apply.cu", "direct/device_bj.py:159",
+        entry("bj_apply_pallas", "bj_apply.cu", "direct/device_bj.py:165",
               b6_launches, b6),
-        entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:482", la,
+        entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:511", la,
               b2a),
         entry("stencil_pallas_bs_ext", "stencil.cu", "ops/spmm.py:695", lb,
               b2b + b2b_dia),
-        entry("stencil_bsr_spmm_t_pallas", "stencil.cu", "ops/spmm.py:370",
+        entry("stencil_bsr_spmm_t_pallas", "stencil.cu", "ops/spmm.py:417",
               b3_launches, b3),
-        entry("stencil_spmm_planar", "stencil.cu", "ops/spmm.py:593", b4_launches,
+        entry("stencil_spmm_planar", "stencil.cu", "ops/spmm.py:619", b4_launches,
               b4),
     ]}
     log(card_line())

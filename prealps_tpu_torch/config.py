@@ -19,9 +19,13 @@ import torch
 
 
 def strict_fp32() -> None:
-    """Full-f32 matmuls and convolutions: no TF32 anywhere."""
+    """Full-f32 matmuls and convolutions: no TF32 anywhere, and f32 sums in
+    the GEMMs of bf16 operands (the bf16 block-Jacobi apply): cuBLAS may
+    otherwise reduce split-K partial sums in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 

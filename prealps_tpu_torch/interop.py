@@ -17,6 +17,7 @@ import torch
 
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import RowLayout
+from prealps_tpu_torch.direct.device_bj import block_groups
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
     DiaEllMatrix,
@@ -32,6 +33,7 @@ from prealps_tpu_torch.parallel.driver import (
     StencilOperands,
 )
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi
+from prealps_tpu_torch.precond.chebyshev import Chebyshev
 from prealps_tpu_torch.precond.lorasc_scale import ArrowBandPlan, ScalableLorasc
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 
@@ -45,10 +47,10 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
       ``a_scaled`` scipy sparse scaled matrix (needed when refining), or None
       and by format (``meta["fmt"]``):
       * "stencil" (default): ``blocks`` stencil block table, (S, br, br, nrb)
-        or flat (S·br², nrb); ``inv_f`` (nb, mb, mb) block inverses; for
-        bj2l also ``yq3`` (nb, q, mb) coarse modes and ``ac_inv`` (nb·q,
-        nb·q) coarse inverse (without them the preconditioner is plain
-        block Jacobi, "bj_flat");
+        or flat (S·br², nrb); ``inv_f`` (nb, mb, mb) block inverses, or
+        none; for bj2l also ``yq3`` (nb, q, mb) coarse modes and ``ac_inv``
+        (nb·q, nb·q) coarse inverse (without them the preconditioner is
+        plain block Jacobi, "bj_flat");
       * "ell": ``ell_vals``, ``ell_cols`` (n_pad, L);
       * "block_ell" / "block_ell_xla": ``bell_blocks`` (nrb, S, 8, bk),
         ``bell_blkcols`` (nrb, S);
@@ -59,7 +61,15 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         ``inv_f`` (nb, mb, mb) device block inverses, or none;
       * row-major formats also ``bj_factors`` (nb, mb, mb), ``bj_gather_idx``
         (nb·mb,), ``bj_inv_perm`` (n_pad,) of the host block Jacobi (none
-        for precond="none").
+        for precond="none");
+      and in place of those block inverses, the other preconditioner kinds:
+      * "bj_dedup" (lane-major): ``inv_u`` (ng, br, mbn, br, mbn) unique
+        inverses, with ``meta["groups"]`` the block ids of each;
+      * "bj_lane" (lane-major): ``inv5`` (nb, br, mbn, br, mbn) inverses in
+        bf16 (the JAX build's bf16 array);
+      * "chebyshev": ``inv_panel`` D⁻¹ in the operator's space ((br, nrb)
+        lane-major, (n_pad,) row-major), with ``meta["cheb"]`` = (λ_min,
+        λ_max, degree).
     meta:
       ``n``, ``n_pad``, ``rows_per_shard``, ``opts`` (dict of ECGOptions
       fields, as the reference solver holds them after build),
@@ -89,7 +99,8 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         bj2l = arrays.get("yq3") is not None
         operands = StencilOperands(
             blocks_flat=torch.from_numpy(np.array(blocks_flat, order="C")).to(device),
-            offsets=offsets, br=br, inv_f=dev("inv_f", dtype),
+            offsets=offsets, br=br,
+            inv_f=dev("inv_f", dtype) if arrays.get("inv_f") is not None else None,
             yq3=dev("yq3", dtype) if bj2l else None,
             ac_inv=dev("ac_inv", dtype) if bj2l else None)
     elif fmt == "dia" and meta.get("layout") == "tbn":
@@ -133,6 +144,18 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
             dtype = np.asarray(arrays["dia_diags"]).dtype
         else:
             raise ValueError(f"unknown fmt {fmt!r}")
+    if arrays.get("inv_u") is not None:
+        operands.inv_u = dev("inv_u", dtype)
+        operands.groups = block_groups(meta["groups"], device)
+    if arrays.get("inv5") is not None:
+        bits = np.array(np.asarray(arrays["inv5"]).view(np.uint16), order="C")
+        operands.inv5 = torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    if arrays.get("inv_panel") is not None:
+        lam_min, lam_max, degree = meta["cheb"]
+        operands.cheb = Chebyshev(
+            inv_diag=dev("inv_panel", dtype), lam_min=float(lam_min),
+            lam_max=float(lam_max), degree=int(degree),
+            a_apply=operands.a_apply, lane_major=operands.layout == "tbn")
     layout = RowLayout(
         n=int(meta["n"]), n_pad=n_pad, nshards=1,
         rows_per_shard=int(meta["rows_per_shard"]),

@@ -4,8 +4,12 @@ The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
 (``nshards=1``), float32 or float64, for these paths:
 
 * ``fmt="stencil"``, ``layout="tbn"`` (lane-major panels), with
-  ``precond="bj2l"`` (two-level block Jacobi, the headline solve),
-  ``"bj"`` (device block Jacobi, the JAX driver's "bj_flat") or ``"none"``;
+  ``precond="bj2l"`` (two-level block Jacobi, the headline solve; with
+  ``grid=`` geometric rigid-body coarse modes, without it one translation
+  per component), ``"bj"`` (device block Jacobi: the JAX driver's
+  "bj_flat"; "bj_dedup" where ``bj_dedupe`` and ``grid=`` align the blocks
+  with repeated grid lines or slabs; "bj_lane" with ``bj_dtype="bf16"``),
+  ``"chebyshev"`` or ``"none"``;
   on ``layout="nt"`` (row-major panels) the JAX driver's plain product (a
   roll of the (nrb, br, t) panel and one block einsum per offset, XLA
   there, plain PyTorch here, no kernel) with host block Jacobi and
@@ -31,6 +35,12 @@ The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
   bj2l, and ``nt`` otherwise; the gather formats take ``nt``. With
   ``auto_layout=False`` a valid ``opts.layout`` is kept (``tbn`` falls to
   ``nt`` for the gather formats).
+
+``precond="chebyshev"`` (degree ``cheb_degree``, λ_min = λ_max /
+``cheb_kappa``) runs on every format and layout: its d − 1 products per
+apply are the operands' own ``a_apply``. A pinned partition (``parts=``,
+one part id per row) or a caller's ``RowLayout`` (``layout=``) replaces the
+driver's own row layout, as in the JAX driver.
 
 Build (host, then device):
   RAC scaling -> row layout with padded identity rows (stencil: contiguous;
@@ -59,10 +69,9 @@ plain PyTorch versions on the CPU; ``block_ell_xla``, DIA on ``nt`` and
 the DIA remainder are plain PyTorch on the card too, as they are XLA in
 the JAX driver.
 
-Not ported (NotImplementedError): ``nshards > 1``,
-``precond="chebyshev"``, the bf16 (``bj_lane``) and deduplicated
-(``bj_dedup``) block Jacobi, bj2l without ``grid=``, pinned partitions
-(``parts=``).
+Not ported (NotImplementedError): ``nshards > 1`` (ROADMAP.md queue A,
+item 3). The JAX driver's Pallas tiling ``rb_per_prog`` has no counterpart
+(ROADMAP.md "Not to port").
 """
 
 from __future__ import annotations
@@ -82,14 +91,22 @@ from prealps_tpu_torch.core.layout import (
     RowLayout,
     build_row_layout,
     contiguous_row_layout,
+    layout_from_part,
     pad_to_padded,
     permute_and_pad_matrix,
     unpad_from_padded,
 )
 from prealps_tpu_torch.core.scaling import sym_rac_scaling
 from prealps_tpu_torch.direct.device_bj import (
+    BlockGroups,
     bj_apply_flat,
+    bj_apply_grouped,
+    bj_apply_lane_major,
+    block_groups,
+    build_device_block_jacobi,
     build_device_block_jacobi_flat,
+    build_device_block_jacobi_grouped,
+    csr_slab_groups,
 )
 from prealps_tpu_torch.ops.doublefloat import df_add
 from prealps_tpu_torch.ops.formats import (
@@ -118,10 +135,12 @@ from prealps_tpu_torch.ops.spmm import (
     stencil_scan_accumulate_df,
 )
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi, build_block_jacobi
+from prealps_tpu_torch.precond.chebyshev import Chebyshev, power_lam_max_host
 from prealps_tpu_torch.precond.twolevel import (
     bj2l_apply,
     coarse_matrix_host,
     geometric_rbm_modes,
+    translation_modes,
 )
 from prealps_tpu_torch.solvers.ecg import ECGOptions, ECGResult, ecg_solve
 
@@ -161,9 +180,12 @@ def coarse_inverse_host(ac: np.ndarray) -> np.ndarray:
 
 class _Operands:
     """Without a double-float product (``df_ok`` False) the refinement
-    residuals are host f64 and ``a_apply_df`` is never called."""
+    residuals are host f64 and ``a_apply_df`` is never called. ``cheb``,
+    set at build time, makes the preconditioner a Chebyshev polynomial in
+    the operands' own ``a_apply``."""
 
     df_ok = False
+    cheb: Optional[Chebyshev] = None
 
     def a_apply_df(self, x: torch.Tensor):
         raise NotImplementedError(
@@ -216,21 +238,31 @@ class _RowMajor(_Operands):
         return (torch.arange(n_pad, device=self.device) * t) // n_pad
 
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
-        """Host-built block Jacobi, or the identity (precond="none")."""
+        """Chebyshev, host-built block Jacobi, or the identity
+        (precond="none")."""
+        if self.cheb is not None:
+            return self.cheb.apply(z)
         return z if self.bj is None else self.bj.apply(z)
 
     @property
     def precond_kind(self):
+        if self.cheb is not None:
+            return "chebyshev"
         return None if self.bj is None else "bj"
 
 
 @dataclass
 class StencilOperands(_LaneMajor):
     """Device operands of the stencil path: the flat block table and the
-    block-Jacobi inverses, plus the coarse space of two-level block Jacobi
-    (precond="bj2l"); without them the preconditioner is plain block Jacobi
-    (precond="bj", the JAX driver's "bj_flat"), and without ``inv_f`` the
-    identity (precond="none")."""
+    preconditioner's operands, one of
+    * ``inv_f`` with the coarse space ``yq3``, ``ac_inv``: two-level block
+      Jacobi (precond="bj2l");
+    * ``inv_f`` alone: block Jacobi, the JAX driver's "bj_flat";
+    * ``inv_u`` and ``groups``: one inverse per group of identical blocks
+      ("bj_dedup");
+    * ``inv5`` in bf16: the split-input bf16 apply ("bj_lane");
+    * ``cheb``: Chebyshev (precond="chebyshev");
+    and none of them: the identity (precond="none")."""
 
     blocks_flat: torch.Tensor   # (S·br², nrb) block table
     offsets: tuple              # S node offsets
@@ -238,11 +270,20 @@ class StencilOperands(_LaneMajor):
     inv_f: Optional[torch.Tensor] = None   # (nb, mb, mb) block inverses
     yq3: Optional[torch.Tensor] = None     # (nb, q, mb) coarse modes
     ac_inv: Optional[torch.Tensor] = None  # (nb·q, nb·q) coarse inverse
+    inv_u: Optional[torch.Tensor] = None   # (ng, br, mbn, br, mbn) unique inverses
+    groups: Optional[BlockGroups] = None   # the blocks of each unique inverse
+    inv5: Optional[torch.Tensor] = None    # (nb, br, mbn, br, mbn) bf16 inverses
 
     df_ok = True
 
     @property
     def precond_kind(self):
+        if self.cheb is not None:
+            return "chebyshev"
+        if self.inv_u is not None:
+            return "bj_dedup"
+        if self.inv5 is not None:
+            return "bj_lane"
         if self.inv_f is None:
             return None
         return "bj_flat" if self.yq3 is None else "bj2l"
@@ -270,6 +311,12 @@ class StencilOperands(_LaneMajor):
                                           extend_wrap(x, self.halo), self.halo)
 
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
+        if self.cheb is not None:
+            return self.cheb.apply(z)
+        if self.inv_u is not None:
+            return bj_apply_grouped(self.inv_u, self.groups, z)
+        if self.inv5 is not None:
+            return bj_apply_lane_major(self.inv5, z)
         if self.inv_f is None:
             return z
         if self.yq3 is None:
@@ -404,7 +451,6 @@ def _sync(device: torch.device) -> None:
 
 Operands = Union[StencilOperands, DiaLaneOperands, EllOperands,
                  BlockEllOperands, DiaOperands, StencilNtOperands]
-_LATER = "is not ported yet (ROADMAP.md queue A, item 1)"
 LANE_FORMATS = ("stencil", "dia")
 
 
@@ -423,10 +469,11 @@ def build_sharded_block_jacobi(a_pad: sp.csr_matrix, layout: RowLayout,
                               device=device)
 
 
-def _check_options(fmt, precond, layout, grid, bj_dtype, bj_dedupe):
-    """Refuse what is not ported (NotImplementedError) or not valid
-    (ValueError, as the JAX driver); returns the preconditioner's kind
-    ("bj2l", "bj_flat", "bj" or None for the identity)."""
+def _check_options(fmt, precond, layout):
+    """Refuse what is not valid (ValueError, as the JAX driver); returns
+    the preconditioner's kind: "bj2l", "bj_device" (block Jacobi built on
+    the device from lane-major operands), "bj" (host block Jacobi),
+    "chebyshev" or None for the identity."""
     if fmt not in ("stencil", "dia", "ell", "block_ell", "block_ell_xla"):
         raise ValueError(f"unknown fmt {fmt!r}")
     lane_major = layout == "tbn"
@@ -437,36 +484,27 @@ def _check_options(fmt, precond, layout, grid, bj_dtype, bj_dedupe):
             raise ValueError(
                 "bj2l requires the lane-major fast path: fmt='stencil' with "
                 f"layout='tbn'; got fmt={fmt!r}, layout={layout!r}")
-        if grid is None:
-            raise NotImplementedError(
-                f"bj2l without grid= (translation-only coarse modes) {_LATER}; "
-                "pass the node grid")
         return "bj2l"
     if precond in ("block_jacobi", "bj"):
-        if lane_major and bj_dtype == "bf16":
-            raise NotImplementedError(f"bj_dtype='bf16' (bj_lane) {_LATER}")
-        if lane_major and bj_dedupe and grid is not None:
-            raise NotImplementedError(
-                f"bj_dedupe=True with grid= (grid-aligned bj_dedup) {_LATER}; "
-                "pass bj_dedupe=False or grid=None")
-        return "bj_flat" if lane_major else "bj"
+        return "bj_device" if lane_major else "bj"
     if precond in ("none", "identity", "noprec"):
         return None
     if precond in ("chebyshev", "cheby"):
-        raise NotImplementedError(f"precond={precond!r} {_LATER}")
+        return "chebyshev"
     raise ValueError(
         f"DistributedECG supports block_jacobi/bj2l/chebyshev/none, got {precond!r}")
 
 
-def _detect(a, br, opts, auto_layout, precond, device):
+def _detect(a, br, opts, auto_layout, precond, device, pinned):
     """fmt="auto": pick the format with ``detect_format`` and the layout
     (the JAX driver's rule with the card in the TPU's place: tbn for
     stencil/dia on a CUDA device or for bj2l, nt otherwise, unless
-    auto_layout=False keeps a valid caller's layout). Returns (fmt, opts,
+    auto_layout=False keeps a valid caller's layout). A pinned partition
+    fixes the row order: no stencil and no reordering. Returns (fmt, opts,
     a, pre_perm, fmt_info, bell_bk): a is the permuted matrix where the
     choice permutes rows."""
-    fmt, info = detect_format(a, br=br, nshards=1, allow_stencil=True,
-                              allow_reorder=True)
+    fmt, info = detect_format(a, br=br, nshards=1, allow_stencil=not pinned,
+                              allow_reorder=not pinned)
     tag, pre_perm, bell_bk = fmt, None, 128
     if fmt in ("block_ell_morton", "dia_rcm"):
         pre_perm = info.pop("perm")
@@ -489,16 +527,77 @@ def _detect(a, br, opts, auto_layout, precond, device):
     return fmt, replace(opts, layout=want), a, pre_perm, info, bell_bk
 
 
-def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
-                      stage):
-    """Stencil path: contiguous layout, flat block table, device block
-    Jacobi (+ the bj2l coarse space)."""
-    # device block Jacobi: node-block size, a multiple of 8 nodes
+def _bj_node_block(nodes, br, block_size, grid, dedupe):
+    """Node-block size of the device block Jacobi, and whether its blocks
+    are grid-aligned for deduplication (prealps_tpu/parallel/driver.py:
+    246-264): ``block_size // br`` rounded down to a multiple of 8 nodes,
+    or with ``dedupe`` and a grid, the grid x-line (nx nodes) or z-slab
+    (nx·ny) nearest ``block_size // br`` among those that divide the node
+    count."""
     mbn = max(8, (int(block_size or 1024) // br // 8) * 8)
-    mult = math.lcm(8, br)
-    if kind is not None:
-        mult = math.lcm(mult, mbn * br)
-    layout = contiguous_row_layout(a.shape[0], 1, row_multiple=mult)
+    if dedupe and grid is not None:
+        target = max(1, int(block_size or 1024) // br)
+        cands = [c for c in (int(grid[0]), int(grid[0]) * int(grid[1]))
+                 if c > 1 and nodes % c == 0]
+        if cands:
+            return min(cands, key=lambda c: abs(c - target)), True
+    return mbn, False
+
+
+def _device_block_jacobi(ops, blocks_t, a_pad, mbn, dedupe, bj_dtype):
+    """Device block Jacobi of lane-major operands (JAX driver :621-654):
+    with grid-aligned blocks of which at most half are unique, one inverse
+    per group ("bj_dedup"); else with bj_dtype="bf16" the bf16 5-D inverses
+    ("bj_lane"); else flat f32 inverses ("bj_flat")."""
+    br = ops.br
+    grouping = csr_slab_groups(a_pad, mbn * br) if dedupe else None
+    nb = ops.nrb // mbn
+    if grouping is not None and len(grouping[0]) <= nb // 2:
+        rep_idx, groups = grouping
+        ops.inv_u = build_device_block_jacobi_grouped(blocks_t, ops.offsets,
+                                                      mbn, rep_idx)
+        ops.groups = block_groups(groups, blocks_t.device)
+    elif bj_dtype == "bf16":
+        ops.inv5 = build_device_block_jacobi(blocks_t, ops.offsets,
+                                             mbn).to(torch.bfloat16)
+    else:
+        ops.inv_f = build_device_block_jacobi_flat(blocks_t, ops.offsets, mbn=mbn)
+
+
+def _chebyshev(ops, a_pad, degree, kappa, dtype, device):
+    """Chebyshev over the operands' a_apply, λ_max from a host power
+    iteration on the padded matrix, times 1.05 (JAX driver :663-678)."""
+    lam_max = power_lam_max_host(a_pad) * 1.05
+    inv_diag = (1.0 / np.asarray(a_pad.diagonal(), dtype=np.float64)).astype(dtype)
+    lane_major = ops.layout == "tbn"
+    if lane_major:
+        inv_diag = np.ascontiguousarray(inv_diag.reshape(-1, ops.br).T)  # (br, nrb)
+    ops.cheb = Chebyshev(inv_diag=torch.from_numpy(inv_diag).to(device),
+                         lam_min=lam_max / kappa, lam_max=lam_max,
+                         degree=int(degree), a_apply=ops.a_apply,
+                         lane_major=lane_major)
+
+
+def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
+                      stage, layout=None, dedupe=False, bj_dtype="f32",
+                      cheb=None):
+    """Stencil path on lane-major panels: contiguous layout (or the
+    caller's), flat block table, and the preconditioner: device block
+    Jacobi (+ the bj2l coarse space) or Chebyshev."""
+    device_bj = kind in ("bj2l", "bj_device")
+    mbn, dedupe = None, dedupe and kind == "bj_device"
+    if device_bj:
+        mbn, dedupe = _bj_node_block(a.shape[0] // br, br, block_size, grid,
+                                     dedupe)
+    if layout is None:
+        mult = math.lcm(8, br)
+        if dedupe:
+            # the exact slab split (n divides): rounding to a multiple of 8
+            # as well would pad rows and break the slab alignment
+            mult = mbn * br
+        elif device_bj:
+            mult = math.lcm(mult, mbn * br)
+        layout = contiguous_row_layout(a.shape[0], 1, row_multiple=mult)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
@@ -520,14 +619,18 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
     stage("fmt_convert")
 
     ops = StencilOperands(blocks_flat=blocks_flat, offsets=offsets, br=br)
-    if kind is not None:
-        ops.inv_f = build_device_block_jacobi_flat(
-            blocks_flat.reshape(s_off, br, br, nrb), offsets, mbn=mbn)
-    if kind == "bj2l":
+    blocks_t = blocks_flat.reshape(s_off, br, br, nrb)
+    if kind == "bj_device":
+        _device_block_jacobi(ops, blocks_t, a_pad, mbn, dedupe, bj_dtype)
+    elif kind == "bj2l":
+        ops.inv_f = build_device_block_jacobi_flat(blocks_t, offsets, mbn=mbn)
         nb = ops.inv_f.shape[0]
         mb = br * mbn
         d_pad = pad_to_padded(layout, scale_d) if scale_d is not None else None
-        y5 = geometric_rbm_modes(grid, br, nrb, mbn, scale_d=d_pad, q=Q_MODES)
+        if grid is not None:
+            y5 = geometric_rbm_modes(grid, br, nrb, mbn, scale_d=d_pad, q=Q_MODES)
+        else:
+            y5 = translation_modes(nb, mbn, br, d_pad)
         ac = coarse_matrix_host(a_pad, y5, br)
         # padded rows carry identity blocks; their modes can make A_c
         # ill-conditioned — regularise lightly
@@ -538,18 +641,25 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
             y5.transpose(0, 3, 1, 2).reshape(nb, -1, mb)).astype(dtype)
         ops.yq3 = torch.from_numpy(yq3).to(device)
         ops.ac_inv = torch.from_numpy(ac_inv).to(device)
+    elif kind == "chebyshev":
+        _chebyshev(ops, a_pad, *cheb, dtype, device)
     _sync(device)
     stage("precond")
     return layout, ops
 
 
-def _dia_lane_operands(a, kind, block_size, dtype, device, stage):
+def _dia_lane_operands(a, kind, block_size, grid, dtype, device, stage,
+                       layout=None, dedupe=False, bj_dtype="f32", cheb=None):
     """fmt="dia" on lane-major panels: one-shard partition layout (natural
-    order), the promoted diagonals as a br = 1 flat block table, the ELL
-    remainder, and device block Jacobi assembled from the diagonals."""
-    mbn = max(8, (int(block_size or 1024) // 8) * 8)
-    mult = math.lcm(8, mbn) if kind is not None else 8
-    layout = build_row_layout(a, 1, row_multiple=mult)
+    order) or the caller's, the promoted diagonals as a br = 1 flat block
+    table, the ELL remainder, and device block Jacobi assembled from the
+    diagonals or Chebyshev."""
+    mbn, dedupe = None, dedupe and kind == "bj_device"
+    if kind == "bj_device":
+        mbn, dedupe = _bj_node_block(a.shape[0], 1, block_size, grid, dedupe)
+    if layout is None:
+        mult = math.lcm(8, mbn) if mbn is not None else 8
+        layout = build_row_layout(a, 1, row_multiple=mult)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
@@ -562,25 +672,28 @@ def _dia_lane_operands(a, kind, block_size, dtype, device, stage):
     _sync(device)
     stage("fmt_convert")
 
-    if kind is not None:
+    if kind == "bj_device":
         # from the promoted diagonals only: remainder entries inside a block
         # are left out of the preconditioner, as in the JAX driver
-        ops.inv_f = build_device_block_jacobi_flat(
-            ops.blocks_flat.reshape(len(offsets), 1, 1, -1), offsets, mbn=mbn)
+        _device_block_jacobi(ops, ops.blocks_flat.reshape(len(offsets), 1, 1, -1),
+                             a_pad, mbn, dedupe, bj_dtype)
+    elif kind == "chebyshev":
+        _chebyshev(ops, a_pad, *cheb, dtype, device)
     _sync(device)
     stage("precond")
     return layout, ops
 
 
 def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
-                      bell_bk, dtype, device, stage):
-    """Row-major panels: partition layout (stencil: contiguous), ELL /
-    block-ELL / DIA+ELL / stencil, host block Jacobi."""
+                      bell_bk, dtype, device, stage, layout=None, cheb=None):
+    """Row-major panels: partition layout (stencil: contiguous) or the
+    caller's, ELL / block-ELL / DIA+ELL / stencil, host block Jacobi or
+    Chebyshev."""
     bell = fmt in ("block_ell", "block_ell_xla")
-    if fmt == "stencil":
+    if layout is None and fmt == "stencil":
         layout = contiguous_row_layout(a.shape[0], 1,
                                        row_multiple=math.lcm(8, br))
-    else:
+    elif layout is None:
         # block-ELL moves whole bk = 128 column blocks: rows pad to 128
         layout = build_row_layout(a, 1, row_multiple=128 if bell else 8)
     a_pad = permute_and_pad_matrix(a, layout)
@@ -602,7 +715,7 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
     stage("fmt_convert")
 
     bj = None
-    if kind is not None:
+    if kind == "bj":
         if block_size is not None:
             nblocks_per_shard = max(1, -(-layout.rows_per_shard // block_size))
         bj = build_sharded_block_jacobi(a_pad, layout, nblocks_per_shard,
@@ -615,9 +728,34 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
         ops = DiaOperands(mat=mat, bj=bj)
     else:
         ops = EllOperands(mat=mat, bj=bj)
+    if kind == "chebyshev":
+        _chebyshev(ops, a_pad, *cheb, dtype, device)
     _sync(device)
     stage("precond")
     return layout, ops
+
+
+def _pinned_layout(a, parts, fmt, pre_perm, layout, row_multiple):
+    """The row layout of a pinned partition (one part id per row), with the
+    JAX driver's checks (prealps_tpu/parallel/driver.py:265-294)."""
+    if fmt == "stencil":
+        raise ValueError(
+            "parts= (pinned partition) cannot be combined with fmt='stencil': "
+            "the row permutation destroys the constant-offset structure — use "
+            "fmt='auto'/'ell'")
+    if layout is not None:
+        raise ValueError("pass either parts= or layout=, not both")
+    if pre_perm is not None:
+        raise ValueError("fmt='auto' chose a clustering permutation; pinned "
+                         "partitions require fmt='ell'/'dia'/'block_ell'")
+    parts = np.asarray(parts, dtype=np.int64).ravel()
+    if parts.shape[0] != a.shape[0]:
+        raise ValueError(f"partition has {parts.shape[0]} entries for a "
+                         f"{a.shape[0]}-row matrix")
+    if parts.min() < 0 or parts.max() >= 1:
+        raise ValueError(f"part ids must lie in [0, 1); got "
+                         f"[{parts.min()}, {parts.max()}]")
+    return layout_from_part(a, parts, 1, row_multiple=row_multiple)
 
 
 @dataclass
@@ -647,29 +785,37 @@ class DistributedECG:
         nblocks_per_shard: int = 1,
         block_size: Optional[int] = None,
         dtype=None,
+        layout: Optional[RowLayout] = None,
         fmt: str = "ell",
         br: int = 3,
         refine: Optional[bool] = None,
         inner_tol: float = 1e-3,
-        grid: Optional[tuple] = None,
+        cheb_degree: int = 8,
+        cheb_kappa: float = 30.0,
         bj_dtype: str = "f32",
+        grid: Optional[tuple] = None,
         bj_dedupe: bool = True,
+        parts: Optional[np.ndarray] = None,
         auto_layout: bool = True,
         device="cuda",
     ) -> "DistributedECG":
         """Build the solver on ``device`` (default "cuda", which raises
         when there is no card; pass device="cpu" to run on the host). The
         other defaults are the JAX driver's: fmt="ell", precond=
-        "block_jacobi", and one block-Jacobi block per shard unless
-        block_size is given. With fmt="auto", ``auto_layout`` picks the
-        layout for the detected format; False keeps ``opts.layout`` wherever
-        it is valid."""
+        "block_jacobi", one block-Jacobi block per shard unless block_size
+        is given, Chebyshev of degree 8 with κ 30, and on lane-major panels
+        with ``grid=`` deduplicated block Jacobi (``bj_dedupe``). With
+        fmt="auto", ``auto_layout`` picks the layout for the detected
+        format; False keeps ``opts.layout`` wherever it is valid. ``parts``
+        pins the row partition (one part id per row; all zeros on one
+        shard) and ``layout`` hands over a whole ``RowLayout``; neither
+        goes with the stencil format's own layout."""
         device = resolve_device(device)
         strict_fp32()
-        if nshards not in (None, 1):
+        if nshards not in (None, 1) or (layout is not None and layout.nshards != 1):
             raise NotImplementedError(
-                f"nshards={nshards}: the multi-GPU driver is not ported yet "
-                "(ROADMAP.md queue A, item 3)")
+                f"nshards={nshards if layout is None else layout.nshards}: the "
+                "multi-GPU driver is not ported yet (ROADMAP.md queue A, item 3)")
         a = sp.csr_matrix(a)
         tb: dict = {}
         mark = [time.perf_counter()]
@@ -682,14 +828,10 @@ class DistributedECG:
         pre_perm = fmt_info = None
         bell_bk = 128
         if fmt == "auto":
-            # refuse an unported preconditioner before the detection's work
-            if precond in ("chebyshev", "cheby"):
-                raise NotImplementedError(f"precond={precond!r} {_LATER}")
             fmt, opts, a, pre_perm, fmt_info, bell_bk = _detect(
-                a, br, opts, auto_layout, precond, device)
+                a, br, opts, auto_layout, precond, device, parts is not None)
             stage("detect")
-        kind = _check_options(fmt, precond, opts.layout, grid, bj_dtype,
-                              bj_dedupe)
+        kind = _check_options(fmt, precond, opts.layout)
 
         dtype = np.dtype(dtype) if dtype is not None else a.dtype
         if dtype not in (np.float32, np.float64):
@@ -705,16 +847,29 @@ class DistributedECG:
             # remaining work to the next refinement round
             opts = replace(opts, tol=inner_tol,
                            stall_window=opts.stall_window or 250)
-        if fmt == "stencil" and opts.layout == "tbn":
+        lane_major = opts.layout == "tbn"
+        # a pinned partition's rows pad to the format's row multiple and,
+        # for the device block Jacobi of DIA, to whole blocks
+        if parts is not None:
+            mult = 128 if fmt in ("block_ell", "block_ell_xla") else 8
+            if lane_major and kind in ("bj2l", "bj_device"):
+                mbn, _ = _bj_node_block(a.shape[0], 1, block_size, grid,
+                                        bj_dedupe and kind == "bj_device")
+                mult = math.lcm(mult, mbn)
+            layout = _pinned_layout(a, parts, fmt, pre_perm, layout, mult)
+        cheb = (cheb_degree, cheb_kappa)
+        if fmt == "stencil" and lane_major:
             layout, operands = _stencil_operands(
-                a, kind, br, block_size, grid, scale_d, dtype, device, stage)
-        elif fmt == "dia" and opts.layout == "tbn":
+                a, kind, br, block_size, grid, scale_d, dtype, device, stage,
+                layout=layout, dedupe=bj_dedupe, bj_dtype=bj_dtype, cheb=cheb)
+        elif fmt == "dia" and lane_major:
             layout, operands = _dia_lane_operands(
-                a, kind, block_size, dtype, device, stage)
+                a, kind, block_size, grid, dtype, device, stage, layout=layout,
+                dedupe=bj_dedupe, bj_dtype=bj_dtype, cheb=cheb)
         else:
             layout, operands = _general_operands(
                 a, fmt, kind, br, block_size, nblocks_per_shard, bell_bk,
-                dtype, device, stage)
+                dtype, device, stage, layout=layout, cheb=cheb)
         return cls(
             layout=layout, opts=opts, scale_d=scale_d, operands=operands,
             device=device, dtype=dtype, target_tol=target_tol,

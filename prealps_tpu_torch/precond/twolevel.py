@@ -5,9 +5,11 @@ Counterpart of ``prealps_tpu/precond/twolevel.py``:
     M⁻¹ = M_BJ⁻¹ + Z A_c⁻¹ Zᵀ,      A_c = Zᵀ A Z,
 
 where Z stacks q geometric rigid-body modes per block (Nicolaides coarse
-space). The host builders (``geometric_rbm_modes``, ``coarse_matrix_host``)
-are numpy copies of the JAX package's; ``bj2l_apply`` is plain PyTorch
-(batched GEMMs: XLA einsums in the reference, cuBLAS here).
+space), or, without the node grid, one translation per component
+(``translation_modes``). The host builders (``geometric_rbm_modes``,
+``translation_modes``, ``coarse_matrix_host``) are numpy copies of the JAX
+package's; ``bj2l_apply`` is plain PyTorch (batched GEMMs: XLA einsums in
+the reference, cuBLAS here).
 """
 
 from __future__ import annotations
@@ -103,6 +105,28 @@ def geometric_rbm_modes(grid, br: int, nrb: int, mbn: int,
         o[:, :ncols] = cols[:, :ncols]
         out[b] = o.reshape(mbn, br, q).transpose(1, 0, 2)
     return out
+
+
+def translation_modes(nb: int, mbn: int, br: int,
+                      d_pad: np.ndarray | None = None) -> np.ndarray:
+    """Per-block translation modes, the grid-free coarse space of bj2l
+    (prealps_tpu/parallel/driver.py:541-564): one constant per component,
+    divided by the scaling ``d_pad`` (padded row order; zeros count as 1),
+    orthonormalised per block by QR. Returns y5 (nb, br, mbn, br)."""
+    nodes_pad = nb * mbn
+    ones = np.zeros((nodes_pad, br, br))
+    for k in range(br):
+        ones[:, k, k] = 1.0
+    if d_pad is not None:
+        d = np.asarray(d_pad).reshape(nodes_pad, br)
+        ones /= np.where(d[:, :, None] == 0.0, 1.0, d[:, :, None])
+    y = ones.reshape(nb, mbn, br, br).transpose(0, 2, 1, 3)
+    y5 = np.zeros((nb, br, mbn, br))
+    for b in range(nb):
+        m = y[b].transpose(1, 0, 2).reshape(mbn * br, br)
+        qq, _ = np.linalg.qr(m)
+        y5[b] = qq.reshape(mbn, br, br).transpose(1, 0, 2)
+    return y5
 
 
 def bj2l_apply(inv_flat: torch.Tensor, yq3: torch.Tensor, ac_inv: torch.Tensor,

@@ -14,15 +14,17 @@ The PyTorch counterpart of ``prealps_tpu/solvers/ecg.py``. Two state forms:
     W' = Cᵀ W                      one coefficient GEMM composing the update
     AP', Z' slots <- A·P', M⁻¹AP'  operator + preconditioner callbacks
 
-with the t×t algebra (masked Cholesky, triangular inverse, corrections,
-optional adaptive SVD rotation) in between. ``lax.while_loop`` becomes a
-Python loop with the same stop rules (residual vs tol, maxiter, active
-block size, breakdown, stall window); evaluating them costs one host
-synchronisation per iteration.
+  with the t×t algebra (masked Cholesky, triangular inverse, corrections,
+  optional adaptive SVD rotation) in between;
+* stacked omin (``stacked=True`` with omin, lane-major only): the five
+  panels [X, R, P, AP, Z] in one flat (5t, N) tensor, with the unstacked
+  omin's operation order (normalise P first, then alpha on the normalised
+  panel) and its three reductions.
 
-Not ported yet (ROADMAP.md queue A, item 1): the stacked omin state
-(``stacked=True`` with omin) and the warm start ``ecg_solve(x0=...)``; they
-raise NotImplementedError.
+``lax.while_loop`` becomes a Python loop with the same stop rules (residual
+vs tol, maxiter, active block size, breakdown, stall window); evaluating
+them costs one host synchronisation per iteration. ``ecg_solve(x0=...)``
+warm-starts by solving the shifted system A·dx = b − A·x0.
 """
 
 from __future__ import annotations
@@ -91,8 +93,8 @@ class ECGResult(NamedTuple):
 
 @dataclass
 class ECGState:
-    """Stacked solver state. ``w`` is (7t, N) with slots _SX.._SZ; the
-    scalars stay on the device so an iteration needs no host round trip
+    """Stacked solver state. ``w`` is (7t, N) with slots _SX.._SZ
+    (odir_fused) or (5t, N) with slots _OX.._OZ (omin); the scalars stay on the device so an iteration needs no host round trip
     beyond the loop's stop test."""
 
     w: torch.Tensor
@@ -128,13 +130,11 @@ class ECGPanelState:
 
 
 _SX, _SR, _SP, _SPP, _SAP, _SAPP, _SZ = range(7)
+_OX, _OR, _OP, _OAP, _OZ = range(5)      # stacked omin slots (X first in both)
 
 
 def _use_stacked(opts: ECGOptions) -> bool:
-    if opts.stacked and opts.variant == "omin":
-        raise NotImplementedError(
-            "the stacked omin state (stacked=True with variant='omin') is not "
-            "ported yet (ROADMAP.md queue A, item 1); use stacked=None")
+    # omin stays unstacked unless asked for, as in the JAX package
     if opts.stacked is not None:
         return opts.stacked
     return opts.layout == "tbn" and opts.variant == "odir_fused"
@@ -394,10 +394,66 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
     )
 
 
+def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
+                       normb, red_tol) -> ECGState:
+    """One stacked orthomin iteration (prealps_tpu/solvers/ecg.py:508-593).
+
+    The flat (5t, N) state is storage only: the reductions are omin's own
+    three (APᵀP with the entering RᵀR; PᵀR after normalising; APᵀZ), in the
+    unstacked order. Taking alpha as Uiᵀ(PᵀR) off one big Gram instead (the
+    odir_fused form) amplifies the raw Gram's f32 rounding by κ(U) and loses
+    the true-residual tracking that makes omin the variant robust in f32."""
+    w2 = state.w
+    mask = state.mask
+    dtype = w2.dtype
+    t = mask.shape[0]
+
+    # --- reduction 1: mu = APᵀP and the entering residual's RᵀR ---
+    rows = w2[_OR * t:(_OAP + 1) * t]          # contiguous [R, P, AP] rows
+    gb = psum(rows @ rows.T).reshape(3, t, 3, t)
+    res = torch.sqrt(torch.trace(gb[0, :, 0, :]))
+    ui, breakdown = _cholqr_factor(gb[2, :, 1, :], mask, dtype)
+    # --- A-CholQR: P̂ = P·Ui, AP̂ = AP·Ui ---
+    p_hat = ui.T @ w2[_OP * t:(_OP + 1) * t]
+    ap_hat = ui.T @ w2[_OAP * t:(_OAP + 1) * t]
+
+    # --- reduction 2: alpha on the normalised panel ---
+    r_rows = w2[_OR * t:(_OR + 1) * t]
+    alpha = psum(p_hat @ r_rows.T) * mask[:, None]
+    x_rows = w2[_OX * t:(_OX + 1) * t] + alpha.T @ p_hat
+    r_rows = r_rows - alpha.T @ ap_hat
+
+    # --- Z = M⁻¹R' ---
+    zf = m_apply(r_rows.reshape(state.panel_shape)).reshape(t, -1)
+
+    # --- reduction 3: beta = AP̂ᵀZ; new direction P <- (Z − P̂β)·mask ---
+    beta = psum(ap_hat @ zf.T)
+    p_new = zf - beta.T @ p_hat
+    if opts.adaptive:
+        # BF-Omin rank test: pivoted Cholesky of PᵀP; the permutation and
+        # the triangular solve compose into one t×t matrix
+        u2, piv, rank = pivoted_cholesky(psum(p_new @ p_new.T), -1.0)
+        t1 = torch.minimum(rank, torch.sum(mask).to(rank.dtype))
+        mask = (torch.arange(t, device=w2.device) < t1).to(dtype)
+        u2 = u2 + torch.diag((torch.diagonal(u2).abs() == 0).to(dtype))
+        perm = torch.nn.functional.one_hot(piv, t).to(dtype)   # perm[r, piv[r]] = 1
+        p_new = (perm.T @ tri_inv(u2)).T @ p_new
+    p_new = p_new * mask[:, None]
+    ap_new = a_apply(p_new.reshape(state.panel_shape)).reshape(t, -1)
+    wn = torch.cat([x_rows, r_rows, p_new, ap_new, zf])
+
+    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    return ECGState(
+        w=wn, panel_shape=state.panel_shape, mask=mask, it=state.it + 1,
+        res=res, breakdown=state.breakdown | breakdown,
+        history=_record(state, res, opts), best_res=best_res, stall=stall,
+    )
+
+
 def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
              split_assign=None):
     """Initial state + normb (prealps_tpu/solvers/ecg.py:602-655): stacked
-    for tbn + odir_fused, unstacked otherwise."""
+    for tbn + odir_fused or when asked for, unstacked otherwise."""
     stacked = _use_stacked(opts)
     ops = LAYOUTS[opts.layout]
     t = opts.t
@@ -424,7 +480,9 @@ def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
         best_res=normb.clone(),
         stall=torch.zeros((), dtype=torch.int32, device=dev))
     if stacked:
-        w0 = torch.stack([zeros, r0, p0, zeros, ap0, zeros, z0]).reshape(7 * t, -1)
+        slots = ([zeros, r0, p0, ap0, zeros] if opts.variant == "omin"
+                 else [zeros, r0, p0, zeros, ap0, zeros, z0])
+        w0 = torch.stack(slots).reshape(len(slots) * t, -1)
         return ECGState(w=w0, panel_shape=tuple(p0.shape), **common), normb
     return ECGPanelState(x_blk=zeros, r=r0, p=p0, ap=ap0, p_prev=zeros,
                          ap_prev=zeros, z=z0, **common), normb
@@ -440,8 +498,9 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
     red_tol = (opts.tol * normb / sqrt_t).to(dtype)
     tol_abs = (opts.tol * normb).to(dtype)
     if _use_stacked(opts):
-        step = lambda s: _iter_odir_fused_stacked(s, a_apply, m_apply, opts,
-                                                  normb, red_tol)
+        iter_fn = (_iter_omin_stacked if opts.variant == "omin"
+                   else _iter_odir_fused_stacked)
+        step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol)
     else:
         iter_fn, ops = _ITER_FNS[opts.variant], LAYOUTS[opts.layout]
         step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol, ops)
@@ -484,16 +543,22 @@ def ecg_solve(
     split_assign: Optional[torch.Tensor] = None,
     x0: Optional[torch.Tensor] = None,
 ) -> ECGResult:
-    """Solve A x = b from x = 0. Panels are (m, t) for layout "nt" with b
-    (m,), and (t, *space) for layout "tbn" with b (*space).
+    """Solve A x = b from x = 0, or from ``x0`` (b's shape): then the
+    solver works on the shifted system A·dx = b − A·x0 and returns x0 + dx.
+    Panels are (m, t) for layout "nt" with b (m,), and (t, *space) for
+    layout "tbn" with b (*space).
 
     a_apply / m_apply: panel -> panel operator callbacks (matrix-free)."""
-    if x0 is not None:
-        raise NotImplementedError(
-            "ecg_solve(x0=...) (warm start) is not ported yet (ROADMAP.md "
-            "queue A, item 1)")
     if m_apply is None:
         m_apply = lambda v: v
+    if x0 is not None:
+        x0 = x0.to(b.dtype)
+        if opts.layout == "nt":
+            r0 = b - a_apply(x0[:, None])[:, 0]
+        else:
+            r0 = b - a_apply(x0[None])[0]
+        res = ecg_solve(a_apply, m_apply, r0, opts, split_assign)
+        return res._replace(x=res.x + x0)
     state0, normb = ecg_init(a_apply, m_apply, b, opts, split_assign)
     final = ecg_run(a_apply, m_apply, state0, normb, opts)
     return ecg_finalize(final, normb, opts.layout)

@@ -69,8 +69,12 @@ def test_batched_inverse_and_flat_build(operator):
         jnp.asarray(o["blocks_t"]), o["offsets"], mbn=o["mbn"])
     np.testing.assert_allclose(flat_t.numpy(), np.asarray(flat_j), rtol=RTOL,
                                atol=RTOL * float(np.abs(np.asarray(flat_j)).max()))
-    with pytest.raises(NotImplementedError):
-        tbj.batched_spd_inverse(inv_t, method="newton")
+    # the Newton–Schulz inverse (50 batched GEMM pairs) against JAX's
+    newton_t = tbj.batched_spd_inverse(torch.from_numpy(np.array(dense)),
+                                       method="newton")
+    newton_j = np.asarray(jbj.batched_spd_inverse(dense, method="newton"))
+    np.testing.assert_allclose(newton_t.numpy(), newton_j, rtol=1e-10,
+                               atol=1e-10 * float(np.abs(newton_j).max()))
 
 
 @pytest.mark.parametrize("t", [1, 4])

@@ -539,3 +539,73 @@ def test_bj_apply_wide_panel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     scale = tbj.bj_apply_pallas_ref(b2.abs(), z.abs(), br)
     _close(w, tbj.bj_apply_pallas_ref(b2, z, br), scale)
+
+
+# --- the plain applies of the rest of the one-GPU driver, on the card -------
+
+def _bj_shape_inverses(device, mbn=80, nb=617, seed=31):
+    """Random SPD-like (nb, br, mbn, br, mbn) inverses at the [bj] shape
+    (mb 240 rows)."""
+    rng = np.random.default_rng(seed)
+    mb = 3 * mbn
+    g = rng.standard_normal((nb, mb, mb)).astype(np.float32) / np.sqrt(mb)
+    inv = (g @ g.transpose(0, 2, 1) + np.eye(mb)).astype(np.float32)
+    return torch.from_numpy(inv.reshape(nb, 3, mbn, 3, mbn)).to(device)
+
+
+@pytest.mark.parametrize("t", [12, 1])
+def test_bf16_lane_apply_on_card(cuda_device, t):
+    """bj_apply_lane_major with bf16 inverses (one bf16 GEMM with an f32
+    result on the card) against its plain version, the f32-upcast GEMM on
+    the CPU, at the [bj] shape (nb 617, mb 240): w in f32 on both."""
+    inv5 = _bj_shape_inverses(cuda_device).to(torch.bfloat16)
+    nrb = 617 * 80
+    z = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (t, 3, nrb)).astype(np.float32))
+    w = tbj.bj_apply_lane_major(inv5, z.to(cuda_device))
+    w_cpu = tbj.bj_apply_lane_major(inv5.cpu(), z)
+    assert w.dtype == w_cpu.dtype == torch.float32
+    scale = tbj.bj_apply_lane_major(inv5.float().abs().cpu(), z.abs()).max()
+    err = float((w.cpu() - w_cpu).abs().max())
+    assert err <= KERNEL_TOL * float(scale)
+
+
+@pytest.mark.parametrize("t", [12, 1])
+def test_grouped_apply_on_card(cuda_device, t):
+    """bj_apply_grouped on the card against bj_apply_flat on the same
+    blocks (every block of a group shares its inverse)."""
+    ng, nb = 5, 617
+    inv_u = _bj_shape_inverses(cuda_device, nb=ng)
+    rng = np.random.default_rng(40 + t)
+    gid = rng.integers(0, ng, nb)
+    gid[:ng] = np.arange(ng)
+    groups = tuple(tuple(int(b) for b in np.flatnonzero(gid == g)) for g in range(ng))
+    bg = tbj.block_groups(groups, cuda_device)
+    assert bg.order.device.type == "cuda"
+    z = torch.from_numpy(rng.standard_normal((t, 3, nb * 80)).astype(
+        np.float32)).to(cuda_device)
+    w = tbj.bj_apply_grouped(inv_u, bg, z)
+    flat = inv_u.reshape(ng, 240, 240)[torch.from_numpy(gid).to(cuda_device)]
+    w_f = tbj.bj_apply_flat(flat, z)
+    scale = tbj.bj_apply_flat(flat.abs(), z.abs()).max()
+    assert float((w - w_f).abs().max()) <= KERNEL_TOL * float(scale)
+
+
+def test_chebyshev_apply_on_card(cuda_device):
+    """The driver's Chebyshev apply (degree 8 over B1) on the card against
+    the same build's apply on the CPU."""
+    a = elasticity3d(10, 10, 10, heterogeneous=False)
+    opts = ECGOptions(t=12, tol=1e-5, layout="tbn")
+    kw = dict(fmt="stencil", br=3, precond="chebyshev", dtype=np.float32)
+    s_gpu = DistributedECG.build(a, opts=opts, device=cuda_device, **kw)
+    s_cpu = DistributedECG.build(a, opts=opts, device="cpu", **kw)
+    assert s_gpu.operands.precond_kind == "chebyshev"
+    assert s_gpu.operands.cheb.lam_max == s_cpu.operands.cheb.lam_max
+    nrb = s_cpu.operands.nrb
+    r = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (12, 3, nrb)).astype(np.float32))
+    tspmm.stencil_flat_ext.launches = 0
+    w = s_gpu.operands.m_apply(r.to(cuda_device)).cpu()
+    assert tspmm.stencil_flat_ext.launches == 7
+    w_cpu = s_cpu.operands.m_apply(r)
+    assert float((w - w_cpu).abs().max()) <= 1e-4 * float(w_cpu.abs().max())

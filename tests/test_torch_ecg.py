@@ -14,6 +14,7 @@ orders — while x still agrees to ~1e-12.)
 """
 
 import math
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -231,18 +232,64 @@ def test_tbn_panel_ops_match(op):
                                 dict(variant="omin", stacked=True, adaptive=True),
                                 dict(x0=True)])
 def test_unported_variants_raise(system, kw):
-    """What ROADMAP A1 still lists: the stacked omin state and the x0 warm
-    start."""
+    """The cases of the former refusal test, now held to the JAX package:
+    the stacked omin state (with and without the BF-Omin rank test) and
+    the x0 warm start. Equal iteration counts (±1) and x within 1e-8
+    relative; the warm start solves the shifted system, whose rhs is the
+    initial residual."""
     kw = dict(kw)
-    x0 = kw.pop("x0", None)
-    base = dict(t=4, tol=1e-6, variant="odir_fused", layout="tbn")
-    base.update(kw)
+    warm = kw.pop("x0", False)
+    oj, ot = _opts(tol=1e-8, **kw)
+    assign = _assign(system, ot.t)
     ops = system["ops_t"]
-    b = torch.from_numpy(system["b"])
-    opts = tecg.ECGOptions(**base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tecg.ecg_solve(ops.a_apply, ops.m_apply, b, opts,
-                       x0=torch.zeros_like(b) if x0 else None)
+    b = system["b"]
+    x0 = None
+    if warm:
+        cold = tecg.ecg_solve(ops.a_apply, ops.m_apply, torch.from_numpy(b),
+                              replace(ot, tol=1e-10), split_assign=assign)
+        x0 = 0.5 * cold.x.numpy()
+    rj = jecg.ecg_solve(system["a_j"], system["m_j"], jnp.asarray(b), oj,
+                        split_assign=jnp.asarray(assign.numpy()),
+                        x0=None if x0 is None else jnp.asarray(x0))
+    rt = tecg.ecg_solve(ops.a_apply, ops.m_apply, torch.from_numpy(b), ot,
+                        split_assign=assign,
+                        x0=None if x0 is None else torch.from_numpy(x0))
+    assert abs(rt.iters - int(rj.iters)) <= 1, (rt.iters, int(rj.iters))
+    assert not rt.breakdown and rt.bs == int(rj.bs)
+    x_j = np.asarray(rj.x)
+    assert np.linalg.norm(rt.x.numpy() - x_j) <= 1e-8 * np.linalg.norm(x_j)
+    if warm:
+        np.testing.assert_allclose(float(rt.normb), float(rj.normb), rtol=1e-12)
+        assert float(rt.normb) < 0.6 * np.linalg.norm(b)
+    r = b - ops.a_apply(rt.x[None])[0].numpy()
+    assert np.linalg.norm(r) <= 10 * ot.tol * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_one_stacked_omin_step_matches(system, adaptive):
+    """One stacked omin step from the same (5t, N) state as the JAX one."""
+    oj, ot = _opts(variant="omin", stacked=True, adaptive=adaptive)
+    sj, nj, st0, _ = _init_both(system, oj, ot, system["b"])
+    np.testing.assert_allclose(st0.w.numpy(), np.asarray(sj.x_blk), rtol=1e-11,
+                               atol=1e-11 * np.abs(np.asarray(sj.x_blk)).max())
+    red_tol = (oj.tol * nj / jnp.sqrt(jnp.asarray(4.0))).astype(nj.dtype)
+    for _ in range(3):
+        sj = jecg._iter_omin_stacked(sj, system["a_j"], system["m_j"], None, oj,
+                                     nj, red_tol, JTBN)
+    st = _to_port_state(sj)
+    assert st.w.shape[0] == 5 * 4
+    ops = system["ops_t"]
+    st1 = tecg._iter_omin_stacked(st, ops.a_apply, ops.m_apply, ot,
+                                  torch.tensor(float(nj), dtype=torch.float64),
+                                  torch.tensor(float(red_tol), dtype=torch.float64))
+    sj1 = jecg._iter_omin_stacked(sj, system["a_j"], system["m_j"], None, oj, nj,
+                                  red_tol, JTBN)
+    w_j = np.asarray(sj1.x_blk)
+    np.testing.assert_allclose(st1.w.numpy(), w_j, rtol=1e-10,
+                               atol=1e-10 * np.abs(w_j).max())
+    np.testing.assert_allclose(float(st1.res), float(sj1.res), rtol=1e-12)
+    np.testing.assert_array_equal(st1.mask.numpy(), np.asarray(sj1.mask))
+    assert st1.it == int(sj1.it) == 4
 
 
 @pytest.mark.parametrize("variant", ["odir_fused", "omin"])

@@ -225,3 +225,24 @@ def test_pivoted_cholesky_matches(case):
     np.testing.assert_array_equal(piv_t.numpy(), np.asarray(piv_j))
     assert int(rank_t) == int(rank_j)
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("variant", ["odir_fused", "omin"])
+def test_x0_warm_start_nt_matches(system, variant):
+    """ecg_solve(x0=...) on row-major panels (tests/test_ecg.py:216-239):
+    the shifted system's rhs is the small initial residual, and the port
+    takes the JAX iterations (±1) to the same x (1e-8 relative)."""
+    oj, ot = _opts(variant=variant, tol=1e-8)
+    b = system["b"]
+    x_cold = tecg.ecg_solve(system["a_t"], system["m_t"], torch.from_numpy(b),
+                            _opts(variant=variant, tol=1e-11)[1]).x.numpy()
+    x0 = x_cold + 1e-4 * np.random.default_rng(1).standard_normal(b.shape)
+    rj = jecg.ecg_solve(system["a_j"], system["m_j"], jnp.asarray(b), oj,
+                        x0=jnp.asarray(x0))
+    rt = tecg.ecg_solve(system["a_t"], system["m_t"], torch.from_numpy(b), ot,
+                        x0=torch.from_numpy(x0))
+    assert abs(rt.iters - int(rj.iters)) <= 1
+    np.testing.assert_allclose(float(rt.normb), float(rj.normb), rtol=1e-12)
+    assert float(rt.normb) < 1e-2 * np.linalg.norm(b)
+    x_j = np.asarray(rj.x)
+    assert np.linalg.norm(rt.x.numpy() - x_j) <= 1e-8 * np.linalg.norm(x_j)

@@ -39,13 +39,14 @@ Phases (any failure exits nonzero before a result is printed):
 12. ``[kernel]`` B6 (``bj_apply_pallas``) on the [bj] build's packed
     inverses at t = 12 against its plain version, with ``torch.bmm`` on the
     unpadded inverses (the driver's apply) timed beside them (and again on
-    the [dia] build's 1024-row inverses in phase 16);
+    the [dia] build's 1024-row inverses in phase 20);
 13. ``[lorasc]`` the single-GPU LORASC path at full size:
-    ``StencilLorascECG.build`` of heterogeneous elasticity3d 36³ (nparts 8,
-    ECG t = 12 omin, max_deflation 256, balancing ("deflate") correction,
-    f32 with double-float refinement) as ``bench.py`` configures its het
-    LORASC record; build stages, band shapes, deflated pairs (held to the
-    record's 97 within 10 %) and peak device memory;
+    ``StencilLorascECG.build`` of heterogeneous elasticity3d 36³ (generated
+    once and shared by phases 13-19; nparts 8, ECG t = 12 omin,
+    max_deflation 256, balancing ("deflate") correction, f32 with
+    double-float refinement) as ``bench.py`` configures its het LORASC
+    record; build stages, band shapes, deflated pairs (held to the record's
+    97 within 10 %) and peak device memory;
 14. ``[kernel]`` B2a (``stencil_bsr_spmm_t_pallas_bs``) on that build's
     operator at t = 12, 8, 1 and the build's nev, and B2b
     (``stencil_pallas_bs_ext``) at t = 1, each against its plain version,
@@ -56,7 +57,32 @@ Phases (any failure exits nonzero before a result is printed):
     back; three timed solves; ``with_tol(1e-8)`` to relres < 1e-8 (the
     record: 128 iterations); one solve under torch.profiler
     (chiprun_out/profile_lorasc.txt) with its device-busy share;
-16. ``[dia]`` fmt="dia" on lane-major panels at full size: elasticity3d 36³,
+16. ``[presc]`` the PRESC record's configuration (BENCH_r05.json
+    ``ecg_tts_elasticity3d_145k_het_presc``): the [lorasc] build with
+    ``pencil="sloc"`` and ``factor_store="bf16"``; build stages (the
+    ``sloc`` stage among them), the owned separator widths (largest c) and
+    peak device memory; deflated pairs within 10 % of the record's 61; a
+    solve with B2a's and B2b's counts zeroed (iterations within 10 % of the
+    record's 116, host f64 relres < 1e-5, B2a launches >= 3 × iterations,
+    B2b launched), three timed solves and one under torch.profiler
+    (chiprun_out/profile_presc.txt) with its device-busy share;
+17. ``[presc f32]`` the same build with f32 factors (the card's default):
+    the same deflated pairs exactly, iterations at most 10 % above the bf16
+    run's, three timed solves, ``with_tol(1e-8)`` to relres < 1e-8 (logged
+    beside the JAX package's reading of 229 iterations);
+18. ``[saloc]`` the [presc] build with ``pencil="saloc"``: a solve to relres
+    < 1e-5 without breakdown, its pairs and iterations logged beside the
+    JAX package's reading at this size (2 pairs, 317 iterations);
+19. ``[lorasc_bf16]`` the [lorasc] build with ``a_store="bf16"`` and
+    ``factor_store="bf16"``: ``[kernel]`` lines of B2a's bf16-block
+    instance on the build's bf16 sweep table at t 12, 8, 1 and the build's
+    nev, and of B2b's at t 1, each against its plain version (KERNEL_TOL)
+    and bitwise against the f32 instance on the widened blocks; a solve
+    (iterations <= 1.2 × [lorasc]'s + 2, relres < 1e-5, the bf16 instance
+    launched >= 2 × iterations) and three timed solves; then
+    ``a_store="bf16_all"``, which must reproduce the JAX package's pinned
+    failure (breakdown, or relres > 1e-3);
+20. ``[dia]`` fmt="dia" on lane-major panels at full size: elasticity3d 36³,
     its promoted diagonals (97 after RAC scaling, plus an ELL remainder) as
     a br = 1 stencil, device block Jacobi (1024-row blocks) from the
     diagonals, ECG t = 12, f32 with host-f64 refinement to 1e-5;
@@ -68,15 +94,15 @@ Phases (any failure exits nonzero before a result is printed):
     (launches >= iterations, iterations within 10 % of DIA_ANCHOR_ITERS,
     the JAX package's CPU run of the same build); one solve under
     torch.profiler (chiprun_out/profile_dia.txt) with its device-busy share;
-17. ``[auto]`` fmt="auto" on BENCH_r05.json's structure-hidden record
+21. ``[auto]`` fmt="auto" on BENCH_r05.json's structure-hidden record
     (elasticity3d 20³ under ``default_rng(5).permutation``, bj with
     240-row blocks, t = 12 on ``nt``, f32, tol 1e-5): the cascade must
     choose Morton block-ELL, iterations within 10 % of the record's 100;
-18. ``[spmm]`` the SpMM format sweep (prealps_tpu_torch.examples.bench_spmm)
+22. ``[spmm]`` the SpMM format sweep (prealps_tpu_torch.examples.bench_spmm)
     at nel = 36, t = 1, 4, 8, 12, 16, all five formats, its JSON lines
     printed; each format's y held to the ELL product within the kernel
     bound; B3 (``stencil_t_pallas``) launched;
-20-24. the rest of the one-GPU driver, each a full-size f32 build of the
+23-27. the rest of the one-GPU driver, each a full-size f32 build of the
     headline operator (t 12, odir_fused on tbn, tol 1e-5, device
     double-float refinement) and a solve with B1's count zeroed before it
     and read after it (launches >= iterations), then three timed solves:
@@ -98,7 +124,9 @@ Phases (any failure exits nonzero before a result is printed):
 
 Beside the headline B1 checks, ``[kernel]`` lines hold B3 at t = 12 / 8 / 1
 and B4 (planar) at t = 12 on the headline operator against their plain
-versions. Every ``[kernel]`` line gives the kernel's and the plain
+versions. The bf16 instance's library yardstick is ``torch.sparse.mm`` of
+the widened values as an f32 CSR matrix (the same function up to the
+storage rounding); its bound counts two bytes a block entry. Every ``[kernel]`` line gives the kernel's and the plain
 version's CUDA-event times, its bound (the larger of the bytes the
 product needs -- each input read once, each output written once, the
 stencil panel without its halo columns, B6's inverses unpadded -- over
@@ -111,10 +139,12 @@ The last lines of standard output are a ``[summary]`` JSON line (every
 check, every path's numbers), the card's ``nvidia-smi`` name and power
 limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
 ``bound_ms``/``library_ms`` at each kernel's first shape and, under
-``shapes``, at every shape checked; ``max_abs_err`` over its shapes,
-``launches`` from its path's run — for B4 and B6, which no path runs,
-chip_smoke's own calls; B1's entry also lists its count on every path's
-solve under ``path_launches``), and last ``{"ok": true, "device": {...}}``.
+``shapes``, at every shape checked, B2a's and B2b's with their
+``blocks_dtype``; ``max_abs_err`` over its shapes, ``launches`` from its
+path's run — for B4 and B6, which no path runs, chip_smoke's own calls;
+B1's, B2a's and B2b's entries also list their count on every path's solve
+under ``path_launches``, B2a's that of its bf16 instance under
+``bf16_launches``), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -142,6 +172,17 @@ LORASC_ANCHOR_ITERS = 65
 LORASC_ANCHOR_PAIRS = 97
 LORASC_DEEP_ANCHOR_ITERS = 128
 LORASC_BAND = 0.10
+# PRESC (BENCH_r05.json ecg_tts_elasticity3d_145k_het_presc, bench.py:559-579
+# and :209-226: the het LORASC build with pencil="sloc", bf16 banded factors
+# as the TPU's factor_store="auto" picks them): 116 iterations and 61
+# deflated pairs at tol 1e-5, relres 7.85e-6
+PRESC_ANCHOR_ITERS = 116
+PRESC_ANCHOR_PAIRS = 61
+# readings, not bands (docs/PERFORMANCE.md:1034-1037 and :759-763, the JAX
+# package on a TPU; iteration counts only): PRESC with_tol(1e-8) 229
+# iterations; SALOC at this size 2 pairs and 317 iterations
+PRESC_DEEP_READING = 229
+SALOC_READING = (2, 317)
 # fmt="dia" on lane-major panels (elasticity3d 36³, bj, t 12, f32, tol 1e-5):
 # the JAX package's run of the same build on a CPU
 # (python -m tests.test_torch_anchors --nel 36: 182 iterations in 2 host
@@ -328,10 +369,13 @@ def in_turns(kernel_fn, plain_fn, nbytes, reps=20):
 
 def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
     """B2a (B2b with ``ext``, B3 with ``b3``) against its plain version on
-    the card at width t; returns a record."""
+    the card at width t; returns a record. On bf16 blocks (B2a, B2b) the
+    kernel's output must also be bitwise the f32 instance's on the widened
+    blocks (the same sums in the same order)."""
     import numpy as np
     import torch
 
+    from prealps_tpu_torch.ops.formats import StencilBsrTMatrix
     from prealps_tpu_torch.ops.spmm import (
         extend_wrap,
         stencil_bsr_spmm_t_pallas,
@@ -345,16 +389,21 @@ def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (t, br, nrb)).astype(np.float32)).to(a_t.blocks_t.device)
     x_ext = extend_wrap(x, halo).contiguous()
-    if ext:
-        kernel = lambda: stencil_pallas_bs_ext(a_t.blocks_t, a_t.offsets, x_ext, halo)
-    elif b3:
-        kernel = lambda: stencil_bsr_spmm_t_pallas(a_t, x)
-    else:
-        kernel = lambda: stencil_bsr_spmm_t_pallas_bs(a_t, x)
+
+    def product(mat):
+        if ext:
+            return stencil_pallas_bs_ext(mat.blocks_t, mat.offsets, x_ext, halo)
+        if b3:
+            return stencil_bsr_spmm_t_pallas(mat, x)
+        return stencil_bsr_spmm_t_pallas_bs(mat, x)
+
+    kernel = lambda: product(a_t)
     plain = lambda: stencil_scan_accumulate(a_t.blocks_t, a_t.offsets, x_ext, halo)
     y_k = kernel()
     y_p = plain()
-    scale = stencil_scan_accumulate(a_t.blocks_t.abs(), a_t.offsets, x_ext.abs(), halo)
+    bf16 = a_t.blocks_t.dtype == torch.bfloat16
+    wide = a_t.blocks_t.float() if bf16 else a_t.blocks_t
+    scale = stencil_scan_accumulate(wide.abs(), a_t.offsets, x_ext.abs(), halo)
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
     err_bound = KERNEL_TOL * float(scale.max())
@@ -363,8 +412,15 @@ def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
         fail(f"{name}: kernel output not finite")
     if err > err_bound:
         fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
-    nbytes = 4 * (a_t.blocks_t.numel() + x.numel() + y_k.numel())
+    if bf16 and not torch.equal(
+            y_k, product(StencilBsrTMatrix(wide, a_t.offsets, a_t.shape))):
+        fail(f"{name}: the bf16 instance is not bitwise the f32 instance on the "
+             "widened blocks")
+    del wide
+    nbytes = (a_t.blocks_t.element_size() * a_t.blocks_t.numel()
+              + 4 * (x.numel() + y_k.numel()))
     rec = {"shape": name, "br": br, "t": t, "S": s_max, "nrb": nrb, "halo": halo,
+           "blocks_dtype": "bf16" if bf16 else "f32",
            "max_abs_err": err, "err_bound": err_bound,
            **in_turns(kernel, plain, nbytes, reps=5 if t > 12 else 20),
            **bound(nbytes, 2 * s_max * br * br * t * nrb),
@@ -576,38 +632,45 @@ def within(iters, anchor, band=ANCHOR_BAND):
     return abs(iters - anchor) <= band * anchor
 
 
-def lorasc_phase(dev, nel=36):
-    """Phases 13-15: the single-GPU LORASC path at full size (nel = 36).
-    Returns (B2a checks, B2b checks, path record, B2a launches, B2b
-    launches)."""
+def lorasc_build(a, nel, dev, **kw):
+    """StencilLorascECG.build of the het operator in the configuration of
+    the JAX package's het LORASC record (bench.py:209-226): 8 box parts,
+    ECG t = 12 omin, nev 256, the balancing ("deflate") correction, f32 with
+    double-float refinement to 1e-5; ``kw`` adds the pencil and the stores.
+    Returns (solver, build seconds, peak device GB)."""
     import numpy as np
     import torch
 
-    from prealps_tpu_torch.core.generators import elasticity3d
-    from prealps_tpu_torch.ops.spmm import (
-        stencil_bsr_spmm_t_pallas_bs,
-        stencil_pallas_bs_ext,
-    )
     from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
 
-    t0 = time.perf_counter()
-    a = elasticity3d(nel, nel, nel, heterogeneous=True)
-    n = a.shape[0]
-    b = np.random.default_rng(0).standard_normal(n)
-    log(f"[lorasc] het elasticity3d({nel}³) n={n} nnz={a.nnz} generated in "
-        f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     solver = StencilLorascECG.build(
         a, nparts=8, br=3, grid=(nel + 1, nel + 1, nel),
         opts=ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="omin",
                         layout="tbn"),
-        max_deflation=256, correction="deflate", pencil="agg", inner_tol=1e-3,
-        dtype=np.float32, device=dev)
+        max_deflation=256, correction="deflate", inner_tol=1e-3,
+        dtype=np.float32, device=dev, **kw)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    return (solver, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def lorasc_phase(dev, a, b, nel=36):
+    """Phases 13-15: the single-GPU LORASC path at full size (nel = 36) on
+    the het operator ``a``. Returns (B2a checks, B2b checks, path record,
+    B2a launches, B2b launches)."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.ops.spmm import (
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_pallas_bs_ext,
+    )
+
+    n = a.shape[0]
+    solver, build_s, peak_gb = lorasc_build(a, nel, dev, pencil="agg")
     pc = solver.precond
     plan = pc.plan
     ops = pc.operands
@@ -687,6 +750,200 @@ def lorasc_phase(dev, nel=36):
             "anchors": {"iters": LORASC_ANCHOR_ITERS, "pairs": LORASC_ANCHOR_PAIRS,
                         "deep_iters": LORASC_DEEP_ANCHOR_ITERS}}
     return b2a, b2b, path, la, lb
+
+
+def lorasc_solve(solver, a, b, tag):
+    """The path's solve with B2a's and B2b's counts (and B2a's count of its
+    bf16-block instance) zeroed just before and read just after. Returns
+    (info, B2a launches, B2b launches, bf16 B2a launches, seconds)."""
+    from prealps_tpu_torch.ops.spmm import (
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_pallas_bs_ext,
+    )
+
+    stencil_bsr_spmm_t_pallas_bs.launches = 0
+    stencil_bsr_spmm_t_pallas_bs.bf16_launches = 0
+    stencil_pallas_bs_ext.launches = 0
+    info, _, secs = checked_solve(solver, a, b, tag)
+    return (info, stencil_bsr_spmm_t_pallas_bs.launches,
+            stencil_pallas_bs_ext.launches,
+            stencil_bsr_spmm_t_pallas_bs.bf16_launches, secs)
+
+
+def presc_phases(dev, a, b, lorasc_iters, nel=36):
+    """Phases 16-19 on the het operator of [lorasc]: PRESC (the SSLOC
+    pencil) with bf16 and with f32 banded factors, the SALOC pencil, and
+    [lorasc] with the bf16 operator stores. Returns (bf16 B2a checks, bf16
+    B2b checks, {phase: record})."""
+    import numpy as np
+    import torch
+
+    out = {}
+    # --- 16. [presc]: the record's configuration (bf16 factors) ---
+    solver, build_s, peak_gb = lorasc_build(a, nel, dev, pencil="sloc",
+                                            factor_store="bf16")
+    pc, ops = solver.precond, solver.precond.operands
+    if ops["aii_linv"].dtype != torch.bfloat16 or "w_lift" not in ops:
+        fail("[presc] the build stored no bf16 factors or attached no lift")
+    c = ops["sloc"].shape[1]
+    owned = [int(v) for v in ops["own_dof_mask"].sum(dim=1).tolist()]
+    log(f"[presc] built in {build_s:.2f} s, stages (s): {json.dumps(pc.timings)}; "
+        f"owned separator dofs per part {owned}, largest c={c}; nev={pc.nev} "
+        f"deflated={pc.deflated} (record {PRESC_ANCHOR_PAIRS}); peak device "
+        f"memory {peak_gb:.2f} GB")
+    if not within(pc.deflated, PRESC_ANCHOR_PAIRS, LORASC_BAND):
+        fail(f"[presc] {pc.deflated} deflated pairs, outside {PRESC_ANCHOR_PAIRS} "
+             f"± {100 * LORASC_BAND:.0f} %")
+    info, la, lb, _, warm_s = lorasc_solve(solver, a, b, "presc")
+    iters = int(info["iters"])
+    log(f"[presc] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
+        f"{info['refine_rounds']} relres={info['relres']:.3e} B2a launches={la} "
+        f"B2b launches={lb} (record {PRESC_ANCHOR_ITERS} iterations, relres 7.85e-6)")
+    if la < 3 * iters:
+        fail(f"[presc] B2a launched {la} times for {iters} iterations (< 3×)")
+    if lb < 1:
+        fail("[presc] B2b was not launched by the refinement finish")
+    if not within(iters, PRESC_ANCHOR_ITERS, LORASC_BAND):
+        fail(f"[presc] {iters} iterations, outside {PRESC_ANCHOR_ITERS} ± "
+             f"{100 * LORASC_BAND:.0f} %")
+    timed = timed_solves(solver, b, iters, "presc")
+    solve_s = statistics.median(timed)
+    busy_ms, wall_ms = profile_solve(solver, b, "presc")
+    log(f"[presc] timed solves (s): {[round(v, 4) for v in timed]}; median "
+        f"{solve_s:.4f} s, {1e3 * solve_s / iters:.3f} ms/iteration; device busy "
+        f"{busy_ms:.1f} ms per solve: {100 * busy_ms / (1e3 * solve_s):.0f} % of "
+        "the timed median")
+    out["presc"] = {"factor_store": "bf16", "build_s": build_s,
+                    "build_stages_s": pc.timings, "c": c, "owned_dofs": owned,
+                    "peak_GB": peak_gb, "nev": pc.nev, "deflated": pc.deflated,
+                    "iters": iters, "refine_rounds": info["refine_rounds"],
+                    "relres": info["relres"], "b2a_launches": la, "b2b_launches": lb,
+                    "solve_s": timed, "ms_per_iter": 1e3 * solve_s / iters,
+                    "profile_device_ms": busy_ms, "profile_wall_ms": wall_ms,
+                    "anchors": {"iters": PRESC_ANCHOR_ITERS, "pairs": PRESC_ANCHOR_PAIRS}}
+    del solver, pc, ops
+
+    # --- 17. [presc] with f32 factors (the card's default) ---
+    solver, build_s, peak_gb = lorasc_build(a, nel, dev, pencil="sloc",
+                                            factor_store="f32")
+    pc = solver.precond
+    if pc.deflated != out["presc"]["deflated"]:
+        fail(f"[presc f32] {pc.deflated} deflated pairs, the bf16 build "
+             f"{out['presc']['deflated']}: the factor cast must follow the build")
+    info, la, lb, _, warm_s = lorasc_solve(solver, a, b, "presc f32")
+    iters32 = int(info["iters"])
+    if iters32 > 1.1 * iters:
+        fail(f"[presc f32] {iters32} iterations, > 1.1 × the bf16 run's {iters}")
+    timed32 = timed_solves(solver, b, iters32, "presc f32")
+    deep = solver.with_tol(1e-8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_d, info_d = deep.solve(b)
+    torch.cuda.synchronize()
+    deep_s = time.perf_counter() - t0
+    rel_d = float(np.linalg.norm(b - a @ x_d) / np.linalg.norm(b))
+    log(f"[presc f32] built in {build_s:.2f} s, stages (s): {json.dumps(pc.timings)}; "
+        f"deflated={pc.deflated} (the bf16 build's); warm solve {warm_s:.3f} s: "
+        f"iters={iters32} refine_rounds={info['refine_rounds']} relres="
+        f"{info['relres']:.3e} B2a launches={la}; timed solves (s): "
+        f"{[round(v, 4) for v in timed32]}; with_tol(1e-8): {deep_s:.3f} s, "
+        f"iters={info_d['iters']} refine_rounds={info_d['refine_rounds']} "
+        f"relres={rel_d:.3e} (the JAX package's round-5 reading: "
+        f"{PRESC_DEEP_READING} iterations)")
+    if not (rel_d < 1e-8) or info_d["breakdown"]:
+        fail(f"[presc f32] with_tol(1e-8) reached relres {rel_d:.3e}")
+    out["presc_f32"] = {"factor_store": "f32", "build_s": build_s,
+                        "build_stages_s": pc.timings, "peak_GB": peak_gb,
+                        "deflated": pc.deflated, "iters": iters32,
+                        "refine_rounds": info["refine_rounds"], "relres": info["relres"],
+                        "b2a_launches": la, "b2b_launches": lb, "solve_s": timed32,
+                        "deep": {"iters": info_d["iters"], "relres": rel_d,
+                                 "solve_s": deep_s,
+                                 "refine_rounds": info_d["refine_rounds"]},
+                        "deep_reading_iters": PRESC_DEEP_READING}
+    del solver, deep, pc
+
+    # --- 18. [saloc]: the SALOC pencil on the same build ---
+    solver, build_s, peak_gb = lorasc_build(a, nel, dev, pencil="saloc",
+                                            factor_store="bf16")
+    pc = solver.precond
+    info, la, lb, _, warm_s = lorasc_solve(solver, a, b, "saloc")
+    log(f"[saloc] built in {build_s:.2f} s, stages (s): {json.dumps(pc.timings)}; "
+        f"deflated={pc.deflated}; warm solve {warm_s:.3f} s: iters={info['iters']} "
+        f"refine_rounds={info['refine_rounds']} relres={info['relres']:.3e} B2a "
+        f"launches={la} (the JAX package's reading at this size: "
+        f"{SALOC_READING[0]} pairs, {SALOC_READING[1]} iterations)")
+    out["saloc"] = {"build_s": build_s, "build_stages_s": pc.timings,
+                    "deflated": pc.deflated, "iters": int(info["iters"]),
+                    "refine_rounds": info["refine_rounds"], "relres": info["relres"],
+                    "b2a_launches": la, "b2b_launches": lb, "solve_s": warm_s,
+                    "reading": {"pairs": SALOC_READING[0], "iters": SALOC_READING[1]}}
+    del solver, pc
+
+    # --- 19. [lorasc_bf16]: a_store="bf16" and bf16 factors, then bf16_all ---
+    solver, build_s, peak_gb = lorasc_build(a, nel, dev, pencil="agg",
+                                            a_store="bf16", factor_store="bf16")
+    pc, ops = solver.precond, solver.precond.operands
+    a_m = ops["a_stencil_m"]
+    if (a_m.blocks_t.dtype != torch.bfloat16
+            or ops["a_stencil"].blocks_t.dtype != torch.float32):
+        fail("[lorasc_bf16] expected a bf16 sweep copy beside the f32 operator")
+    log(f"[lorasc_bf16] built in {build_s:.2f} s, stages (s): "
+        f"{json.dumps(pc.timings)}; deflated={pc.deflated}; bf16 sweep table "
+        f"{a_m.blocks_t.numel() * 2 / 1e6:.1f} MB beside the f32 operator's "
+        f"{ops['a_stencil'].blocks_t.numel() * 4 / 1e6:.1f} MB")
+    csr = stencil_csr(a_m.blocks_t.float(), a_m.offsets)
+    b2a = [check_lane(f"lorasc_bf16 {what}, bf16 blocks (br3,t{t})", a_m, t,
+                      seed=90 + t, csr=csr if t == 12 else None)
+           for what, t in (("sweeps", 12), ("Lanczos-width panel", 8),
+                           ("single vector", 1), ("nev", pc.nev))]
+    b2b = [check_lane("lorasc_bf16 pre-extended, bf16 blocks (br3,t1)", a_m, 1,
+                      seed=99, ext=True, csr=csr)]
+    del csr
+    info, la, lb, l16, warm_s = lorasc_solve(solver, a, b, "lorasc_bf16")
+    iters16 = int(info["iters"])
+    limit = 1.2 * lorasc_iters + 2
+    log(f"[lorasc_bf16] warm solve {warm_s:.3f} s: iters={iters16} refine_rounds="
+        f"{info['refine_rounds']} relres={info['relres']:.3e} B2a launches={la} "
+        f"(bf16 instance {l16}) B2b launches={lb}; [lorasc] {lorasc_iters}, "
+        f"limit 1.2× + 2 = {limit:.1f} (the TPU record, bf16 factors: "
+        f"{LORASC_ANCHOR_ITERS} iterations)")
+    if l16 < 2 * iters16:
+        fail(f"[lorasc_bf16] the bf16 instance launched {l16} times for "
+             f"{iters16} iterations (< 2×)")
+    if iters16 > limit:
+        fail(f"[lorasc_bf16] {iters16} iterations > 1.2 × {lorasc_iters} + 2")
+    timed16 = timed_solves(solver, b, iters16, "lorasc_bf16")
+    log(f"[lorasc_bf16] timed solves (s): {[round(v, 4) for v in timed16]}; "
+        f"median {statistics.median(timed16):.4f} s")
+    out["lorasc_bf16"] = {"build_s": build_s, "build_stages_s": pc.timings,
+                          "peak_GB": peak_gb, "deflated": pc.deflated,
+                          "iters": iters16, "refine_rounds": info["refine_rounds"],
+                          "relres": info["relres"], "b2a_launches": la,
+                          "b2a_bf16_launches": l16, "b2b_launches": lb,
+                          "solve_s": timed16, "lorasc_iters": lorasc_iters,
+                          "limit": limit}
+    del solver, pc, ops, a_m
+
+    solver, build_s, _ = lorasc_build(a, nel, dev, pencil="agg", a_store="bf16_all",
+                                      factor_store="bf16")
+    if solver.precond.operands["a_stencil"].blocks_t.dtype != torch.bfloat16:
+        fail("[lorasc_bf16_all] the iteration operator is not bf16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    rel = float(np.linalg.norm(b - a @ x) / np.linalg.norm(b))
+    log(f"[lorasc_bf16_all] {time.perf_counter() - t0:.3f} s: iters={info['iters']} "
+        f"breakdown={info['breakdown']} relres={rel:.3e} (the JAX package's pinned "
+        "failure: breakdown or relres > 1e-3)")
+    if not (info["breakdown"] or rel > 1e-3):
+        fail(f"[lorasc_bf16_all] converged (relres {rel:.3e}): bf16(A) was expected "
+             "to break the iteration")
+    out["lorasc_bf16_all"] = {"build_s": build_s, "iters": int(info["iters"]),
+                              "breakdown": bool(info["breakdown"]), "relres": rel}
+    del solver
+    return b2a, b2b, out
 
 
 def dia_phase(dev, a, b):
@@ -911,7 +1168,7 @@ def a1_solve(solver, a, b, tag, anchor=None, min_per_iter=1):
 
 
 def a1_phases(dev, a, b, nel, bj_iters):
-    """Phases 20-24, the rest of the one-GPU driver at full size:
+    """Phases 23-27, the rest of the one-GPU driver at full size:
     Chebyshev, the deduplicated and the bf16 block Jacobi, bj2l without
     grid= and the stacked omin state. Returns {phase: record}."""
     import dataclasses
@@ -1274,26 +1531,38 @@ def main() -> int:
     b6 = [check_bj_apply(bsolver.operands.inv_f, 3, 12, seed=21)]
     del bsolver
 
-    # --- 13-15. the single-GPU LORASC path, with B2a and B2b ---
-    b2a, b2b, lorasc_path, la, lb = lorasc_phase(dev)
+    # --- 13-15. the single-GPU LORASC path, with B2a and B2b, on the het
+    # operator that phases 16-19 share ---
+    t0 = time.perf_counter()
+    a_het = elasticity3d(nel, nel, nel, heterogeneous=True)
+    b_het = np.random.default_rng(0).standard_normal(a_het.shape[0])
+    log(f"[lorasc] het elasticity3d({nel}³) n={a_het.shape[0]} nnz={a_het.nnz} "
+        f"generated in {time.perf_counter() - t0:.2f} s")
+    b2a, b2b, lorasc_path, la, lb = lorasc_phase(dev, a_het, b_het, nel)
 
-    # --- 16-19. fmt="dia", fmt="auto" and the SpMM format sweep ---
+    # --- 16-19. PRESC, SALOC and the bf16 stores, with B2a's bf16 instance ---
+    b2a_bf16, b2b_bf16, presc_paths = presc_phases(dev, a_het, b_het,
+                                                   lorasc_path["iters"], nel)
+    del a_het, b_het
+
+    # --- 20-22. fmt="dia", fmt="auto" and the SpMM format sweep ---
     b1_dia, b2b_dia, b6_dia, dia_path, dia_launches = dia_phase(dev, a, b)
     b6.append(b6_dia)
     b6_launches = bj_apply_pallas.launches
     auto_path = auto_phase(dev)
     spmm_recs, b3_launches = spmm_phase(dev, a)
 
-    # --- 20-24. the rest of the one-GPU driver ---
+    # --- 23-27. the rest of the one-GPU driver ---
     a1_paths = a1_phases(dev, a, b, nel, biters)
 
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
-        "lane_checks": b2a + b2b, "b3_checks": b3, "b4_checks": b4,
+        "lane_checks": b2a + b2b, "lane_bf16_checks": b2a_bf16 + b2b_bf16,
+        "b3_checks": b3, "b4_checks": b4,
         "dia_checks": b1_dia + b2b_dia, "main_path": main_path,
         "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
-        "lorasc_path": lorasc_path, "dia_path": dia_path, "auto_path": auto_path,
-        "spmm_sweep": spmm_recs, **a1_paths,
+        "lorasc_path": lorasc_path, **presc_paths, "dia_path": dia_path,
+        "auto_path": auto_path, "spmm_sweep": spmm_recs, **a1_paths,
         "total_s": time.perf_counter() - t_start}))
 
     def entry(name, source, replaces, launches_, recs):
@@ -1307,7 +1576,9 @@ def main() -> int:
                 "replaces": f"prealps_tpu/{replaces}", "launches": launches_,
                 "max_abs_err": max(c["max_abs_err"] for c in recs),
                 **{k: head[k] for k in keys},
-                "shapes": [{"shape": c["shape"], **{k: c[k] for k in keys}}
+                "shapes": [{"shape": c["shape"], **{k: c[k] for k in keys},
+                            **({"blocks_dtype": c["blocks_dtype"]}
+                               if "blocks_dtype" in c else {})}
                            for c in recs]}
 
     b1 = entry("stencil_flat_ext", "stencil.cu", "ops/spmm.py:800", launches,
@@ -1317,16 +1588,27 @@ def main() -> int:
                            **{k: (v["launches"] if "launches" in v else
                                   v["stacked"]["launches"] + v["unstacked"]["launches"])
                               for k, v in a1_paths.items()}}
+    # B2a's and B2b's counts on each LORASC-family path's solve, and of the
+    # bf16-block instance on [lorasc_bf16]'s
+    lorasc_family = {"lorasc": lorasc_path, **presc_paths}
+    b2a_rec = entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:511",
+                    la, b2a + b2a_bf16)
+    b2a_rec["path_launches"] = {k: v["b2a_launches"] for k, v in lorasc_family.items()
+                                if "b2a_launches" in v}
+    b2a_rec["bf16_launches"] = {"lorasc_bf16":
+                                presc_paths["lorasc_bf16"]["b2a_bf16_launches"]}
+    b2b_rec = entry("stencil_pallas_bs_ext", "stencil.cu", "ops/spmm.py:695", lb,
+                    b2b + b2b_bf16 + b2b_dia)
+    b2b_rec["path_launches"] = {k: v["b2b_launches"] for k, v in lorasc_family.items()
+                                if "b2b_launches" in v}
     kernels = {"kernels": [
         b1,
         entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:97", glaunches,
               b5_checks),
         entry("bj_apply_pallas", "bj_apply.cu", "direct/device_bj.py:165",
               b6_launches, b6),
-        entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:511", la,
-              b2a),
-        entry("stencil_pallas_bs_ext", "stencil.cu", "ops/spmm.py:695", lb,
-              b2b + b2b_dia),
+        b2a_rec,
+        b2b_rec,
         entry("stencil_bsr_spmm_t_pallas", "stencil.cu", "ops/spmm.py:417",
               b3_launches, b3),
         entry("stencil_spmm_planar", "stencil.cu", "ops/spmm.py:619", b4_launches,

@@ -28,7 +28,8 @@
 //               memory equals B1's flat (S*br*br, nrb).
 //
 // The output y has the panel's row map over nrb columns. Four combinations
-// are built, the ones the layouts above use.
+// are built, the ones the layouts above use, with f32 blocks; the two
+// lane-major s-major ones (B2a / B3, B2b) also with bf16 blocks (below).
 //
 // What bounds it: bytes. At the headline operator (S = 27, br = 3, t = 12,
 // nrb = 49,360) one call must read the block table once (48.0 MB) and the
@@ -82,7 +83,22 @@
 // unchanged; no tensor cores (f32 parity rules out TF32). A br other than 1
 // or 3 (no path of the repository has one) takes the generic kernel below:
 // one thread per (node, output row m, 8 columns).
+//
+// Block element type. The TPU kernels take bf16 blocks too: the lane-major
+// body promotes them (spmm.py:482-507, B2a and B2b), the flat body widens
+// them (:786-790, B1). Here the block type TB is a template parameter of
+// the body: float, or __nv_bfloat16, whose entries are loaded as 2-byte
+// words (coalesced along nrb), kept in registers through the prefetch and
+// widened to f32 where they are used (__bfloat162float, exact). The panel,
+// the sums and y stay f32 in the same fmaf order, so a bf16 instance's
+// output is bitwise the f32 instance's on the widened blocks. bf16 is
+// instantiated for the lane-major maps (wrap and pre-extended), the ones a
+// path runs: LORASC's a_store="bf16" sweeps and a_store="bf16_all"'s
+// iteration operator. At the het LORASC operator (nrb = 49,284, S = 27,
+// br = 3) the bf16 table halves the block bytes: t = 12 needs 38.1 MB
+// (11.4 us at 3.35 TB/s) against the f32 instance's 62.1 MB (18.5 us).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -109,6 +125,17 @@ __device__ __forceinline__ size_t row_of(int j, int k, int br, int t) {
   return KMAJOR ? (size_t)k * t + j : (size_t)j * br + k;
 }
 
+// One block entry, as stored (the prefetch keeps it in this type) ...
+__device__ __forceinline__ float load_blk(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 load_blk(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+// ... and widened to f32 where it is used (exact for bf16).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 template <bool PLANAR>
 __device__ __forceinline__ size_t blk_of(int s, int m, int k, int br,
                                          int n_off) {
@@ -123,9 +150,10 @@ __device__ __forceinline__ size_t blk_of(int s, int m, int k, int br,
 // next D offsets are loaded into registers while the current D are summed
 // (the loop is unrolled by two, so the two register sets alternate without
 // copies); with D = 0 each offset's values are loaded as it is summed.
-template <int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP, bool PLANAR>
+template <typename TB, int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP,
+          bool PLANAR>
 __global__ void __launch_bounds__(128)
-stencil_pipe(const float* __restrict__ blocks, const float* __restrict__ x,
+stencil_pipe(const TB* __restrict__ blocks, const float* __restrict__ x,
              float* __restrict__ y, const StencilOffsets offs, int n_off,
              int t_run, int nrb, int ncol, int lead, int nchunks) {
   constexpr int BB = BR * BR;
@@ -141,13 +169,13 @@ stencil_pipe(const float* __restrict__ blocks, const float* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < NX; ++i) acc[i] = 0.0f;
 
-  auto load = [&](int s, float (&b)[BB], float (&xv)[NX]) {
+  auto load = [&](int s, TB (&b)[BB], float (&xv)[NX]) {
     const size_t col = (size_t)col_of<WRAP>(r, offs.v[s], nrb, lead);
 #pragma unroll
     for (int m = 0; m < BR; ++m)
 #pragma unroll
       for (int k = 0; k < BR; ++k)
-        b[m * BR + k] = __ldg(blocks + blk_of<PLANAR>(s, m, k, BR, n_off) * nrb + r);
+        b[m * BR + k] = load_blk(blocks + blk_of<PLANAR>(s, m, k, BR, n_off) * nrb + r);
 #pragma unroll
     for (int k = 0; k < BR; ++k)
 #pragma unroll
@@ -156,30 +184,34 @@ stencil_pipe(const float* __restrict__ blocks, const float* __restrict__ x,
             jj < nj ? __ldg(x + row_of<KMAJOR>(j0 + jj, k, BR, t) * ncol + col)
                     : 0.0f;
   };
-  auto sum = [&](const float (&b)[BB], const float (&xv)[NX]) {
+  auto sum = [&](const TB (&b)[BB], const float (&xv)[NX]) {
 #pragma unroll
     for (int k = 0; k < BR; ++k)
 #pragma unroll
       for (int jj = 0; jj < JG; ++jj)
 #pragma unroll
         for (int m = 0; m < BR; ++m)
-          acc[m * JG + jj] = fmaf(b[m * BR + k], xv[k * JG + jj], acc[m * JG + jj]);
+          acc[m * JG + jj] =
+              fmaf(widen(b[m * BR + k]), xv[k * JG + jj], acc[m * JG + jj]);
   };
 
   if constexpr (D == 0) {
     for (int s = 0; s < n_off; ++s) {
-      float b[BB], xv[NX];
+      TB b[BB];
+      float xv[NX];
       load(s, b, xv);
       sum(b, xv);
     }
   } else {
-    float bc[D][BB], xc[D][NX];
+    TB bc[D][BB];
+    float xc[D][NX];
 #pragma unroll
     for (int d = 0; d < D; ++d)
       if (d < n_off) load(d, bc[d], xc[d]);
 #pragma unroll 2
     for (int s0 = 0; s0 < n_off; s0 += D) {
-      float bn[D][BB], xn[D][NX];
+      TB bn[D][BB];
+      float xn[D][NX];
 #pragma unroll
       for (int d = 0; d < D; ++d)
         if (s0 + D + d < n_off) load(s0 + D + d, bn[d], xn[d]);
@@ -204,9 +236,9 @@ stencil_pipe(const float* __restrict__ blocks, const float* __restrict__ x,
 
 // Any br: blockIdx.y = tile * br + m; the thread sums output row m of
 // panel columns [tile*TT, tile*TT + TT) ∩ [0, t).
-template <bool KMAJOR, bool WRAP, bool PLANAR>
+template <typename TB, bool KMAJOR, bool WRAP, bool PLANAR>
 __global__ void __launch_bounds__(128)
-stencil_any_br(const float* __restrict__ blocks, const float* __restrict__ x,
+stencil_any_br(const TB* __restrict__ blocks, const float* __restrict__ x,
                float* __restrict__ y, const StencilOffsets offs, int n_off,
                int br, int t, int nrb, int ncol, int lead) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -221,7 +253,7 @@ stencil_any_br(const float* __restrict__ blocks, const float* __restrict__ x,
     const size_t col = (size_t)col_of<WRAP>(r, offs.v[s], nrb, lead);
     for (int k = 0; k < br; ++k) {
       const float bv =
-          __ldg(blocks + blk_of<PLANAR>(s, m, k, br, n_off) * nrb + r);
+          widen(load_blk(blocks + blk_of<PLANAR>(s, m, k, br, n_off) * nrb + r));
 #pragma unroll
       for (int jj = 0; jj < TT; ++jj)
         if (jj < nj)
@@ -235,14 +267,15 @@ stencil_any_br(const float* __restrict__ blocks, const float* __restrict__ x,
     if (jj < nj) y[row_of<KMAJOR>(j0 + jj, m, br, t) * nrb + r] = acc[jj];
 }
 
-template <int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP, bool PLANAR>
-static cudaError_t launch_pipe(const float* blocks, const float* x, float* y,
+template <typename TB, int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP,
+          bool PLANAR>
+static cudaError_t launch_pipe(const TB* blocks, const float* x, float* y,
                                const StencilOffsets& offs, int n_off, int t,
                                int nrb, int ncol, int lead, cudaStream_t st) {
   const int nchunks = (t + JG - 1) / JG;
   const long long ntiles = (nrb + 127) / 128;
   if (ntiles * nchunks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  stencil_pipe<BR, JG, D, WHOLE, KMAJOR, WRAP, PLANAR>
+  stencil_pipe<TB, BR, JG, D, WHOLE, KMAJOR, WRAP, PLANAR>
       <<<dim3((unsigned)(ntiles * nchunks)), 128, 0, st>>>(
           blocks, x, y, offs, n_off, t, nrb, ncol, lead, nchunks);
   return cudaSuccess;
@@ -254,12 +287,12 @@ static cudaError_t launch_pipe(const float* blocks, const float* x, float* y,
 // two at t = 8, one at t = 12 and 16 (the depths that timed fastest).
 // Other widths (the LORASC build's nev and lift width) take chunks of 8
 // columns, one offset ahead; any other br stencil_any_br.
-template <bool KMAJOR, bool WRAP, bool PLANAR>
-static cudaError_t launch(const float* blocks, const float* x, float* y,
+template <typename TB, bool KMAJOR, bool WRAP, bool PLANAR>
+static cudaError_t launch(const TB* blocks, const float* x, float* y,
                           const StencilOffsets& offs, int n_off, int br, int t,
                           int nrb, int ncol, int lead, cudaStream_t st) {
 #define PREALPS_PIPE(BR_, JG_, D_, WHOLE_)                                 \
-  return launch_pipe<BR_, JG_, D_, WHOLE_, KMAJOR, WRAP, PLANAR>(          \
+  return launch_pipe<TB, BR_, JG_, D_, WHOLE_, KMAJOR, WRAP, PLANAR>(      \
       blocks, x, y, offs, n_off, t, nrb, ncol, lead, st)
 #define PREALPS_WIDTHS(BR_)                        \
   switch (t) {                                     \
@@ -276,7 +309,7 @@ static cudaError_t launch(const float* blocks, const float* x, float* y,
 #undef PREALPS_PIPE
   if ((long long)br * ((t + TT - 1) / TT) > 65535) return cudaErrorInvalidValue;
   const dim3 grid((nrb + 127) / 128, br * ((t + TT - 1) / TT));
-  stencil_any_br<KMAJOR, WRAP, PLANAR><<<grid, 128, 0, st>>>(
+  stencil_any_br<TB, KMAJOR, WRAP, PLANAR><<<grid, 128, 0, st>>>(
       blocks, x, y, offs, n_off, br, t, nrb, ncol, lead);
   return cudaSuccess;
 }
@@ -284,6 +317,8 @@ static cudaError_t launch(const float* blocks, const float* x, float* y,
 extern "C" {
 
 // The one entry point of every stencil layout.
+//   blocks_dtype: 0 for float blocks, 1 for bf16 blocks (lane-major maps
+//           only: not kmajor, not planar); the panel and y are float;
 //   kmajor: the panel is (br*t, ncol) with row k*t + j (else (t, br, ncol),
 //           row j*br + k); y has the same row map over nrb columns;
 //   wrap:   columns wrap mod nrb (ncol = nrb, lead = 0); else the panel
@@ -293,16 +328,17 @@ extern "C" {
 // and returns cudaGetLastError() of the launch; does not synchronise or
 // allocate. The library links its own CUDA runtime, so the card is set here
 // rather than inherited from the caller's runtime.
-int prealps_stencil_f32(const float* blocks, const float* x, float* y,
-                        const int* offsets_host, int n_off, int br, int t,
-                        int nrb, int ncol, int lead, int kmajor, int wrap,
-                        int planar, int device, void* stream) {
+int prealps_stencil(const void* blocks, int blocks_dtype, const float* x,
+                    float* y, const int* offsets_host, int n_off, int br, int t,
+                    int nrb, int ncol, int lead, int kmajor, int wrap,
+                    int planar, int device, void* stream) {
   cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (n_off < 1 || n_off > PREALPS_STENCIL_MAX_OFFSETS || br < 1 || t < 1 ||
       nrb < 1 || lead < 0 || ncol < nrb + 2 * lead ||
       (wrap && (lead != 0 || ncol != nrb)) || (kmajor && (wrap || planar)) ||
-      (planar && !wrap))
+      (planar && !wrap) || blocks_dtype < 0 || blocks_dtype > 1 ||
+      (blocks_dtype == 1 && (kmajor || planar)))
     return (int)cudaErrorInvalidValue;
   StencilOffsets offs;
   for (int i = 0; i < PREALPS_STENCIL_MAX_OFFSETS; ++i)
@@ -313,20 +349,32 @@ int prealps_stencil_f32(const float* blocks, const float* x, float* y,
       return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // the maps the repository's layouts use: B1 (k-major, extended), B4
-  // (lane-major, wrap, plane-major), B2a / B3 and B2b (lane-major, s-major)
+  // (lane-major, wrap, plane-major), B2a / B3 and B2b (lane-major, s-major),
+  // the last two also with bf16 blocks
   cudaError_t e;
+  if (blocks_dtype == 1) {
+    const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(blocks);
+    if (wrap)
+      e = launch<__nv_bfloat16, false, true, false>(bb, x, y, offs, n_off, br,
+                                                    t, nrb, ncol, lead, st);
+    else
+      e = launch<__nv_bfloat16, false, false, false>(bb, x, y, offs, n_off, br,
+                                                     t, nrb, ncol, lead, st);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
+  const float* bf = static_cast<const float*>(blocks);
   if (kmajor)
-    e = launch<true, false, false>(blocks, x, y, offs, n_off, br, t, nrb,
-                                   ncol, lead, st);
+    e = launch<float, true, false, false>(bf, x, y, offs, n_off, br, t, nrb,
+                                          ncol, lead, st);
   else if (planar)
-    e = launch<false, true, true>(blocks, x, y, offs, n_off, br, t, nrb,
-                                  ncol, lead, st);
+    e = launch<float, false, true, true>(bf, x, y, offs, n_off, br, t, nrb,
+                                         ncol, lead, st);
   else if (wrap)
-    e = launch<false, true, false>(blocks, x, y, offs, n_off, br, t, nrb,
-                                   ncol, lead, st);
+    e = launch<float, false, true, false>(bf, x, y, offs, n_off, br, t, nrb,
+                                          ncol, lead, st);
   else
-    e = launch<false, false, false>(blocks, x, y, offs, n_off, br, t, nrb,
-                                    ncol, lead, st);
+    e = launch<float, false, false, false>(bf, x, y, offs, n_off, br, t, nrb,
+                                           ncol, lead, st);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

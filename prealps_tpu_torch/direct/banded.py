@@ -18,7 +18,14 @@ batched ``torch.matmul`` (the JAX package leaves these einsums to XLA).
 ``torch.linalg.cholesky_ex``; a failed factor (or a non-finite inverse) in
 any subdomain zeroes that block's inverses and sets ``failed``, as the JAX
 version's NaN mapping does. The two-level (row-sharded) solve and the Schur
-routines are not ported (ROADMAP.md queue A, items 5-6).
+routines are not ported (ROADMAP.md queue A, items 6-7).
+
+The factors may be stored in bf16 (LORASC's ``factor_store="bf16"``) while
+the vectors stay f32. The solves then compute what the JAX package's mixed
+einsum computes: each block's factor is widened to the vector's type
+(exactly) inside the recursion, and the products, sums and output are in
+the vector's type. Widening one block at a time keeps the bf16 factors the
+only stored copy.
 """
 
 from __future__ import annotations
@@ -74,14 +81,16 @@ def block_banded_cholesky(d: torch.Tensor, e: torch.Tensor,
 def block_banded_solve(fac: BlockBandedCholesky, v: torch.Tensor) -> torch.Tensor:
     """Solve A w = v for the factored block-banded A; v: (P, nblk, bs, t)."""
     nblk = v.shape[1]
+    l_inv = lambda i: fac.l_inv[:, i].to(v.dtype)
+    m_off = lambda i: fac.m_off[:, i].to(v.dtype)
     y = [None] * nblk
     for i in range(nblk):
-        rhs = v[:, i] if i == 0 else v[:, i] - fac.m_off[:, i] @ y[i - 1]
-        y[i] = fac.l_inv[:, i] @ rhs
+        rhs = v[:, i] if i == 0 else v[:, i] - m_off(i) @ y[i - 1]
+        y[i] = l_inv(i) @ rhs
     w = [None] * nblk
     for i in reversed(range(nblk)):
-        rhs = y[i] if i == nblk - 1 else y[i] - fac.m_off[:, i + 1].mT @ w[i + 1]
-        w[i] = fac.l_inv[:, i].mT @ rhs
+        rhs = y[i] if i == nblk - 1 else y[i] - m_off(i + 1).mT @ w[i + 1]
+        w[i] = l_inv(i).mT @ rhs
     return torch.stack(w, dim=1)
 
 
@@ -89,14 +98,16 @@ def block_banded_solve_t(fac: BlockBandedCholesky, v3: torch.Tensor) -> torch.Te
     """t-major variant of block_banded_solve: v3 (nblk, P, t, bs), the layout
     of the LORASC sweeps. Same factors, same math."""
     nblk = v3.shape[0]
+    l_inv = lambda i: fac.l_inv[:, i].to(v3.dtype)
+    m_off = lambda i: fac.m_off[:, i].to(v3.dtype)
     y = [None] * nblk
     for i in range(nblk):
-        rhs = v3[i] if i == 0 else v3[i] - y[i - 1] @ fac.m_off[:, i].mT
-        y[i] = rhs @ fac.l_inv[:, i].mT
+        rhs = v3[i] if i == 0 else v3[i] - y[i - 1] @ m_off(i).mT
+        y[i] = rhs @ l_inv(i).mT
     w = [None] * nblk
     for i in reversed(range(nblk)):
-        rhs = y[i] if i == nblk - 1 else y[i] - w[i + 1] @ fac.m_off[:, i + 1]
-        w[i] = rhs @ fac.l_inv[:, i]
+        rhs = y[i] if i == nblk - 1 else y[i] - w[i + 1] @ m_off(i + 1)
+        w[i] = rhs @ l_inv(i)
     return torch.stack(w, dim=0)
 
 

@@ -19,6 +19,10 @@ the values):
   nrb 49,284) at t 12, 8, 1, 97 (the build's nev) and 256 (its lift
   width), and at the sweep's t 4 and 16; B2b there at t 1 and on the
   unscaled DIA table at t 12;
+* B2a's bf16-block instance on the same operator's bf16 table at t 12, 8,
+  1 and 256, and B2b's at t 1, each in turns with the f32 instance at the
+  same shape (f32, bf16, bf16, f32); a checkout whose wrappers refuse bf16
+  blocks prints that it does not take them;
 * B3 at t 12, 8, 1 and B4 at t 12 on the headline operator;
 * B6 at the ``bj`` path's shape (nb 617, mb 240) and the ``dia`` path's (nb
   145, mb 1024), t 12, beside ``torch.bmm`` of the unpadded inverses.
@@ -167,7 +171,27 @@ def main() -> int:
     record("B2b", "lorasc br3 t1",
            lambda: stencil_pallas_bs_ext(het.blocks_t, het.offsets, x_ext, halo_l),
            4 * (het.blocks_t.numel() + 2 * 3 * nrb_l))
-    del het, lor
+
+    # the bf16-block instance (a_store="bf16"), in turns with the f32 one
+    lor16 = StencilBsrTMatrix(het.blocks_t.to(torch.bfloat16), het.offsets, het.shape)
+    try:
+        for t in (12, 8, 1, 256):
+            x = rand(t, 3, nrb_l)
+            reps = 5 if t > 16 else 20
+            for blocks, tag in ((lor, "f32"), (lor16, "bf16"), (lor16, "bf16"),
+                                (lor, "f32")):
+                record("B2a", f"lorasc {tag} blocks br3 t{t}",
+                       lambda: stencil_bsr_spmm_t_pallas_bs(blocks, x),
+                       blocks.blocks_t.element_size() * blocks.blocks_t.numel()
+                       + 8 * x.numel(), reps=reps)
+        for bt, tag in ((het.blocks_t, "f32"), (lor16.blocks_t, "bf16"),
+                        (lor16.blocks_t, "bf16"), (het.blocks_t, "f32")):
+            record("B2b", f"lorasc {tag} blocks br3 t1",
+                   lambda: stencil_pallas_bs_ext(bt, het.offsets, x_ext, halo_l),
+                   bt.element_size() * bt.numel() + 8 * 3 * nrb_l)
+    except TypeError as e:   # a checkout before the bf16 instance
+        print(f"[ab] bf16 blocks not taken by this checkout: {e}", flush=True)
+    del het, lor, lor16
 
     # B6 at the bj and the dia path's block sizes, beside torch.bmm
     for nb, mb, bbr in ((617, 240, 3), (145, 1024, 1)):

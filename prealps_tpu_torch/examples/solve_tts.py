@@ -10,7 +10,12 @@ tol 1e-5, rhs ``default_rng(0)``):
 * ``dia``: ``fmt="dia"`` on lane-major panels, block Jacobi (1024-row
   blocks), ECG t = 12 odir_fused, host-f64 refinement;
 * ``lorasc``: heterogeneous operator, 8 box parts, ECG t = 12 omin, nev
-  256, balancing ("deflate") correction, double-float refinement.
+  256, balancing ("deflate") correction, double-float refinement;
+* ``presc``: ``lorasc`` with the SSLOC pencil (``pencil="sloc"``) and bf16
+  banded factors, the JAX package's PRESC record configuration;
+  ``presc_f32`` the same with f32 factors (the card's default);
+* ``lorasc_bf16``: ``lorasc`` with ``a_store="bf16"`` (the sweeps through
+  B2a's bf16-block instance) and bf16 banded factors.
 
 The script imports ``prealps_tpu_torch`` from the caller's path, so one copy
 of it times any checkout of the port whose entry points take these
@@ -42,7 +47,10 @@ import time
 import numpy as np
 import torch
 
-PATHS = ("headline", "dia", "lorasc")
+PATHS = ("headline", "dia", "lorasc", "presc", "presc_f32", "lorasc_bf16")
+LORASC_OPTIONS = {"lorasc": {}, "presc": dict(pencil="sloc", factor_store="bf16"),
+                  "presc_f32": dict(pencil="sloc", factor_store="f32"),
+                  "lorasc_bf16": dict(a_store="bf16", factor_store="bf16")}
 
 
 def launch_us(dev, calls: int = 2000) -> tuple:
@@ -94,15 +102,15 @@ def build(path: str, a, nel: int, dev):
     from prealps_tpu_torch.solvers.ecg import ECGOptions
 
     grid = (nel + 1, nel + 1, nel)
-    if path == "lorasc":
+    if path in LORASC_OPTIONS:
         from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
 
         return StencilLorascECG.build(
             a, nparts=8, br=3, grid=grid,
             opts=ECGOptions(t=12, tol=1e-5, maxiter=3000, variant="omin",
                             layout="tbn"),
-            max_deflation=256, correction="deflate", pencil="agg",
-            inner_tol=1e-3, dtype=np.float32, device=dev)
+            max_deflation=256, correction="deflate", inner_tol=1e-3,
+            dtype=np.float32, device=dev, **LORASC_OPTIONS[path])
     opts = ECGOptions(t=12, tol=1e-5, maxiter=3000, variant="odir_fused",
                       layout="tbn")
     if path == "headline":
@@ -136,7 +144,7 @@ def main(argv=None) -> int:
 
     nel = args.nel
     for path in paths:
-        a = elasticity3d(nel, nel, nel, heterogeneous=path == "lorasc")
+        a = elasticity3d(nel, nel, nel, heterogeneous=path in LORASC_OPTIONS)
         b = np.random.default_rng(0).standard_normal(a.shape[0])
         t0 = time.perf_counter()
         solver = build(path, a, nel, dev)
@@ -157,7 +165,7 @@ def main(argv=None) -> int:
                "build_s": build_s, "solve_s": timed,
                "median_s": statistics.median(timed),
                "device_ms": profiled_device_ms(solver, b)}
-        if path == "lorasc":
+        if path in LORASC_OPTIONS:
             rec["deflated"] = solver.precond.deflated
         print(json.dumps(rec), flush=True)
         del solver

@@ -148,8 +148,7 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         operands.inv_u = dev("inv_u", dtype)
         operands.groups = block_groups(meta["groups"], device)
     if arrays.get("inv5") is not None:
-        bits = np.array(np.asarray(arrays["inv5"]).view(np.uint16), order="C")
-        operands.inv5 = torch.from_numpy(bits).view(torch.bfloat16).to(device)
+        operands.inv5 = _tensor(arrays["inv5"]).to(device)
     if arrays.get("inv_panel") is not None:
         lam_min, lam_max, degree = meta["cheb"]
         operands.cheb = Chebyshev(
@@ -173,7 +172,18 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
     )
 
 
-_LORASC_INDEX_OPERANDS = ("int_nodes", "sep_nodes")
+_LORASC_INDEX_OPERANDS = ("int_nodes", "sep_nodes", "own_dof")
+
+
+def _tensor(arr, dtype=None) -> torch.Tensor:
+    """numpy array -> CPU tensor; bf16 arrays (numpy's ``bfloat16`` from
+    ml_dtypes, as the JAX package hands them over) through their uint16
+    bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr.view(np.uint16), order="C")
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
 
 
 def lorasc_from_reference(plan_fields: dict, operands_np: dict, meta: dict,
@@ -186,21 +196,24 @@ def lorasc_from_reference(plan_fields: dict, operands_np: dict, meta: dict,
       ``sep_nodes``, ``aii_linv``, ``aii_moff``, ``aii_failed``,
       ``agg_linv``, ``agg_moff``, ``agg_failed``, ``sep_mask``, ``e_mat``,
       ``sigma``, and for the balancing correction ``w_lift``, ``aw_sep``,
-      ``coarse_linv``; ``a_lo_blocks`` where the solve refines in f32.
+      ``coarse_linv``; ``a_lo_blocks`` where the solve refines in f32; for
+      the PRESC pencils ``sloc``, ``sloc_inv``, ``own_dof`` and
+      ``own_dof_mask``; ``blocks_t_m``, the table of ``a_stencil_m``
+      (``a_store="bf16"``). bf16 arrays (factors, tables) stay bf16.
     meta: ``offsets`` (stencil node offsets), ``shape`` (n, n) and
       ``deflated``.
     """
     device = resolve_device(device)
     strict_fp32()
+    offsets = tuple(int(o) for o in meta["offsets"])
+    shape = tuple(int(v) for v in meta["shape"])
     ops = {}
     for name, arr in operands_np.items():
-        if name == "blocks_t":
-            continue
-        dtype = np.int64 if name in _LORASC_INDEX_OPERANDS else None
-        ops[name] = torch.from_numpy(np.array(arr, dtype=dtype, order="C")).to(device)
-    ops["a_stencil"] = StencilBsrTMatrix(
-        blocks_t=torch.from_numpy(np.array(operands_np["blocks_t"], order="C")).to(device),
-        offsets=tuple(int(o) for o in meta["offsets"]),
-        shape=tuple(int(v) for v in meta["shape"]))
+        t = _tensor(arr, np.int64 if name in _LORASC_INDEX_OPERANDS else None)
+        if name in ("blocks_t", "blocks_t_m"):
+            key = "a_stencil" if name == "blocks_t" else "a_stencil_m"
+            ops[key] = StencilBsrTMatrix(t.to(device), offsets, shape)
+        else:
+            ops[name] = t.to(device)
     return ScalableLorasc(plan=ArrowBandPlan(**plan_fields), operands=ops,
                           deflated=int(meta["deflated"]))

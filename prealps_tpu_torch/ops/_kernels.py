@@ -39,8 +39,8 @@ build_info: dict = {}   # source -> path, seconds, compiler log of its library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {         # C entry point -> (argtypes, restype)
-    "prealps_stencil_f32": ([_P, _P, _P, ctypes.POINTER(_I)] + [_I] * 10
-                            + [_P], _I),
+    "prealps_stencil": ([_P, _I, _P, _P, ctypes.POINTER(_I)] + [_I] * 10
+                        + [_P], _I),
     "prealps_stencil_max_offsets": ([], _I),
     "prealps_block_ell_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "prealps_bj_apply_f32": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
@@ -124,24 +124,29 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def stencil_f32(blocks: torch.Tensor, offsets: tuple, x: torch.Tensor,
-                y: torch.Tensor, *, br: int, t: int, nrb: int, ncol: int,
-                lead: int, kmajor: bool, wrap: bool, planar: bool,
-                what: str) -> None:
+_BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stencil(blocks: torch.Tensor, offsets: tuple, x: torch.Tensor,
+            y: torch.Tensor, *, br: int, t: int, nrb: int, ncol: int,
+            lead: int, kmajor: bool, wrap: bool, planar: bool,
+            what: str) -> None:
     """Launch the stencil kernel writing into ``y`` (checked by the caller:
-    CUDA, f32, contiguous, shapes consistent). The index maps are those of
-    ``csrc/stencil.cu``: ``kmajor`` (panel row k·t + j, else j·br + k),
-    ``wrap`` (columns mod nrb, else r + lead + off of an extended panel of
-    ``ncol`` columns) and ``planar`` (blocks (br, S·br, nrb), else
-    (S, br, br, nrb)). ``what`` names the wrapper in errors."""
+    CUDA, contiguous, shapes consistent; x and y f32, blocks f32, or bf16 on
+    the lane-major maps). The index maps are those of ``csrc/stencil.cu``:
+    ``kmajor`` (panel row k·t + j, else j·br + k), ``wrap`` (columns mod
+    nrb, else r + lead + off of an extended panel of ``ncol`` columns) and
+    ``planar`` (blocks (br, S·br, nrb), else (S, br, br, nrb)). ``what``
+    names the wrapper in errors."""
     lib = load()["stencil.cu"]
     n_off = len(offsets)
     if n_off > lib.prealps_stencil_max_offsets():
         raise ValueError(f"{what}: {n_off} stencil offsets; the kernel takes "
                          f"at most {lib.prealps_stencil_max_offsets()}")
     offs = (ctypes.c_int * n_off)(*offsets)
-    rc = lib.prealps_stencil_f32(
-        blocks.data_ptr(), x.data_ptr(), y.data_ptr(), offs, n_off, br, t,
+    rc = lib.prealps_stencil(
+        blocks.data_ptr(), _BLOCK_DTYPES[blocks.dtype], x.data_ptr(),
+        y.data_ptr(), offs, n_off, br, t,
         nrb, ncol, lead, int(kmajor), int(wrap), int(planar),
         y.device.index or 0, _stream(y))
     _check(lib, rc, f"{what} launch")

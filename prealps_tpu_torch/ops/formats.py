@@ -135,7 +135,9 @@ class StencilBsrMatrix:
 
 @dataclass
 class StencilBsrTMatrix:
-    """Lane-major stencil blocks blocks_t[s, m, k, r] (node index minor)."""
+    """Lane-major stencil blocks blocks_t[s, m, k, r] (node index minor),
+    in the working type or in bf16 (LORASC's ``a_store`` copies), which the
+    lane-major products widen to their f32 panel's type."""
 
     blocks_t: torch.Tensor  # (S, br, br, nrb)
     offsets: tuple

@@ -20,7 +20,13 @@ General formats, row-major (n, t) panels:
 Stencil formats. Every stencil kernel below launches the one hand-written
 kernel of ``csrc/stencil.cu`` with its own index maps (panel rows, columns,
 block rows); CPU tensors run the plain version, and a CUDA tensor the
-kernel does not take raises. Each wrapper counts its own launches.
+kernel does not take raises. Each wrapper counts its own launches. The
+lane-major wrappers of the LORASC path (B2a, B2b) take f32 or bf16 blocks
+with an f32 panel and give an f32 result, as the TPU kernels promote bf16
+blocks; the kernel widens each bf16 entry to f32 (exact) and sums in the
+f32 instance's order, and the plain versions widen the table first. B1,
+B3 and B4 take f32 blocks on the card: no path of the port sends them
+bf16 tables (ROADMAP.md queue B).
 
 * ``stencil_flat_ext`` (B1) — the flat stencil SpMM on a pre-extended
   k-major panel (the TPU kernel ``prealps_tpu/ops/spmm.py::stencil_flat_ext``);
@@ -212,7 +218,8 @@ def stencil_flat_ext(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,
                          "(or both on the CPU)")
     if blocks_flat.dtype != torch.float32 or x_ext.dtype != torch.float32:
         raise TypeError(f"stencil_flat_ext kernel takes float32, got "
-                        f"{blocks_flat.dtype} and {x_ext.dtype}")
+                        f"{blocks_flat.dtype} and {x_ext.dtype} (bf16 flat "
+                        "blocks have no port path: ROADMAP.md queue B)")
     if not (blocks_flat.is_contiguous() and x_ext.is_contiguous()):
         raise ValueError("stencil_flat_ext kernel takes contiguous operands")
     nrb = blocks_flat.shape[1]
@@ -221,7 +228,7 @@ def stencil_flat_ext(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,
                     device=blocks_flat.device)
     if nrb == 0 or t == 0:
         return y
-    _kernels.stencil_f32(blocks_flat, offsets, x_ext, y, br=br, t=t, nrb=nrb,
+    _kernels.stencil(blocks_flat, offsets, x_ext, y, br=br, t=t, nrb=nrb,
                          ncol=x_ext.shape[1], lead=halo, kmajor=True,
                          wrap=False, planar=False, what="stencil_flat_ext")
     stencil_flat_ext.launches += 1
@@ -245,8 +252,10 @@ def stencil_scan_accumulate(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor
                             halo: int) -> torch.Tensor:
     """Lane-major stencil SpMM oracle.
 
-    blocks_t: (S, br, br, nrb); x_ext: (t, br, nrb + 2·halo) with halos
-    attached -> y (t, br, nrb)."""
+    blocks_t: (S, br, br, nrb), in the panel's type or bf16 (widened to it
+    first, exactly); x_ext: (t, br, nrb + 2·halo) with halos attached -> y
+    (t, br, nrb)."""
+    blocks_t = blocks_t.to(x_ext.dtype)
     _, br, _, nrb = blocks_t.shape
     t = x_ext.shape[0]
     y = [torch.zeros((t, nrb), dtype=x_ext.dtype, device=x_ext.device)
@@ -269,7 +278,9 @@ def stencil_scan_accumulate_df(blocks_t: torch.Tensor, offsets,
     error-free two_prod and every accumulation a compensated two_sum, so
     (y_hi, y_lo) carries ~49 mantissa bits. Used once per refinement round
     for the residual, where a plain f32 SpMM's rounding floor (~1e-5
-    relative) would cap the attainable tolerance."""
+    relative) would cap the attainable tolerance. bf16 blocks are widened
+    to the panel's type first (exactly)."""
+    blocks_t = blocks_t.to(x_ext.dtype)
     _, br, _, nrb = blocks_t.shape
     t = x_ext.shape[0]
     z = torch.zeros((t, nrb), dtype=x_ext.dtype, device=x_ext.device)
@@ -312,9 +323,10 @@ def _check_lane_args(name, blocks_t, offsets, x, halo, wrap):
         raise ValueError(f"{name}: operands on {blocks_t.device} and "
                          f"{x.device}; both must be on one CUDA card (or both "
                          "on the CPU)")
-    if blocks_t.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"{name} kernel takes float32, got {blocks_t.dtype} "
-                        f"and {x.dtype}")
+    if (blocks_t.dtype not in (torch.float32, torch.bfloat16)
+            or x.dtype != torch.float32):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 blocks and "
+                        f"a float32 panel, got {blocks_t.dtype} and {x.dtype}")
     if not (blocks_t.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{name} kernel takes contiguous operands")
     return False
@@ -324,7 +336,7 @@ def _lane_launch(blocks, offsets, x, y, lead, *, wrap, what, planar=False):
     """Launch the stencil kernel on a lane-major panel x (t, br, ncol) into
     y (t, br, nrb)."""
     t, br, nrb = y.shape
-    _kernels.stencil_f32(blocks, offsets, x, y, br=br, t=t, nrb=nrb,
+    _kernels.stencil(blocks, offsets, x, y, br=br, t=t, nrb=nrb,
                          ncol=x.shape[2], lead=lead, kmajor=False, wrap=wrap,
                          planar=planar, what=what)
 
@@ -332,8 +344,8 @@ def _lane_launch(blocks, offsets, x, y, lead, *, wrap, what, planar=False):
 def _wrap_product(name: str, a: StencilBsrTMatrix, xt: torch.Tensor):
     """The lane-major product with wrap halos of B2a and B3: (y, whether
     the kernel was launched). CPU tensors run ``stencil_scan_accumulate``
-    on ``extend_wrap(xt)``; CUDA tensors launch the kernel (f32,
-    contiguous, one card), which wraps the columns itself."""
+    on ``extend_wrap(xt)``; CUDA tensors launch the kernel (f32 panel, f32
+    or bf16 blocks, contiguous, one card), which wraps the columns itself."""
     offsets = tuple(int(o) for o in a.offsets)
     halo = max(abs(o) for o in offsets)
     if _check_lane_args(name, a.blocks_t, offsets, xt, 0, wrap=True):
@@ -349,13 +361,17 @@ def _wrap_product(name: str, a: StencilBsrTMatrix, xt: torch.Tensor):
 def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
     """B2a: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same
     (``_wrap_product``); counts its launches in
-    ``stencil_bsr_spmm_t_pallas_bs.launches``."""
+    ``stencil_bsr_spmm_t_pallas_bs.launches`` and, of those, the launches
+    of the bf16-block instance in ``.bf16_launches``."""
     y, launched = _wrap_product("stencil_bsr_spmm_t_pallas_bs", a, xt)
     stencil_bsr_spmm_t_pallas_bs.launches += launched
+    stencil_bsr_spmm_t_pallas_bs.bf16_launches += (
+        launched and a.blocks_t.dtype == torch.bfloat16)
     return y
 
 
 stencil_bsr_spmm_t_pallas_bs.launches = 0
+stencil_bsr_spmm_t_pallas_bs.bf16_launches = 0
 
 
 def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
@@ -364,8 +380,9 @@ def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
     x_ext (t, br, nrb + 2·halo) -> (t, br, nrb).
 
     CPU tensors run ``stencil_scan_accumulate``. CUDA tensors launch the
-    CUDA kernel (f32, contiguous, one card) and count one launch in
-    ``stencil_pallas_bs_ext.launches``.
+    CUDA kernel (f32 panel, f32 or bf16 blocks, contiguous, one card) and
+    count one launch in ``stencil_pallas_bs_ext.launches`` (and in
+    ``.bf16_launches`` for bf16 blocks).
     """
     offsets = tuple(int(o) for o in offsets)
     if _check_lane_args("stencil_pallas_bs_ext", blocks_t, offsets, x_ext, halo,
@@ -379,10 +396,12 @@ def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
     _lane_launch(blocks_t, offsets, x_ext, y, halo, wrap=False,
                  what="stencil_pallas_bs_ext")
     stencil_pallas_bs_ext.launches += 1
+    stencil_pallas_bs_ext.bf16_launches += blocks_t.dtype == torch.bfloat16
     return y
 
 
 stencil_pallas_bs_ext.launches = 0
+stencil_pallas_bs_ext.bf16_launches = 0
 
 
 def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
@@ -392,8 +411,13 @@ def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.T
     The TPU kernel reads its wrap-extended, zero-padded panel at
     i·chunk + halo + off, which is B2a's wrap map, so it is the same
     product (``_wrap_product``), counted in
-    ``stencil_bsr_spmm_t_pallas.launches``.
+    ``stencil_bsr_spmm_t_pallas.launches``. Its kernel takes f32 blocks
+    only: no port path sends bf16 blocks through B3.
     """
+    if a.blocks_t.dtype == torch.bfloat16 and xt.device.type == "cuda":
+        raise TypeError("stencil_bsr_spmm_t_pallas kernel takes float32 blocks, "
+                        "got torch.bfloat16 (bf16 blocks through B3 have no "
+                        "port path: ROADMAP.md queue B)")
     y, launched = _wrap_product("stencil_bsr_spmm_t_pallas", a, xt)
     stencil_bsr_spmm_t_pallas.launches += launched
     return y
@@ -453,7 +477,8 @@ def stencil_spmm_planar(blocks3: torch.Tensor, x2: torch.Tensor, *, offsets,
                          "both on the CPU)")
     if blocks3.dtype != torch.float32 or x2.dtype != torch.float32:
         raise TypeError(f"stencil_spmm_planar kernel takes float32, got "
-                        f"{blocks3.dtype} and {x2.dtype}")
+                        f"{blocks3.dtype} and {x2.dtype} (bf16 planar blocks "
+                        "have no port path: ROADMAP.md queue B)")
     if not (blocks3.is_contiguous() and x2.is_contiguous()):
         raise ValueError("stencil_spmm_planar kernel takes contiguous operands")
     t = x2.shape[0]

@@ -22,11 +22,17 @@ Solve:
     shortfall. ``solve(host_rounds=True)``, the port's counterpart of the JAX
     driver's ``PREALPS_HOST_REFINE=1``, runs that host loop from zero instead.
 
+Operator storage (``a_store``, f32 builds only; the build always runs from
+the f32 blocks): ``"bf16"`` attaches a bf16 copy ``a_stencil_m`` that the
+preconditioner's two sweep products use (B2a's bf16-block instance), while
+the iteration operator stays f32; ``"bf16_all"`` makes the iteration
+operator bf16 too, with the finish's correction A_lo = A − bf16(A) in f32.
+bf16(A) of the het operator is indefinite, so ``"bf16_all"`` breaks down:
+it is kept for measurement, as in the JAX package.
+
 Differences from the JAX driver: no jit caches, no chunked dispatch and no
 speculative finish (``ecg_run`` runs each round to its stop and the finish
-runs once per round), no rhs residency. Not ported (NotImplementedError,
-ROADMAP.md queue A item 4): the bf16 operator stores ``a_store="bf16"`` and
-``"bf16_all"``.
+runs once per round), no rhs residency.
 """
 
 from __future__ import annotations
@@ -99,7 +105,7 @@ class StencilLorascECG:
         restarts: int = 5,
         node_part=None,
         in_sep=None,
-        factor_store: str | None = None,
+        factor_store: str = "auto",
         a_store: str | None = None,
         device="cuda",
         precond: ScalableLorasc | None = None,
@@ -107,16 +113,14 @@ class StencilLorascECG:
         """Scale ``a``, convert it to the lane-major stencil format on
         ``device`` and build the LORASC preconditioner (or take ``precond``,
         a preconditioner already built for the scaled operator, e.g. by
-        ``interop.lorasc_from_reference``). Options are the JAX driver's."""
+        ``interop.lorasc_from_reference``). Options are the JAX driver's
+        (``a_store`` None is "f32")."""
         device = resolve_device(device)
         strict_fp32()
         if opts.layout != "tbn":
             raise ValueError("StencilLorascECG requires layout='tbn'")
-        if a_store in ("bf16", "bf16_all"):
-            raise NotImplementedError(
-                f"a_store={a_store!r} is not ported yet (ROADMAP.md queue A, "
-                "item 4)")
-        if a_store not in (None, "f32"):
+        a_store = a_store or "f32"
+        if a_store not in ("f32", "bf16", "bf16_all"):
             raise ValueError(f"a_store must be f32 | bf16 | bf16_all, got {a_store!r}")
         a = sp.csr_matrix(a)
         dtype = np.dtype(dtype) if dtype is not None else a.dtype
@@ -140,11 +144,21 @@ class StencilLorascECG:
                 pencil=pencil, host_refine=host_refine, correction=correction,
                 restarts=restarts, node_part=node_part, in_sep=in_sep,
                 factor_store=factor_store, device=device)
+        ops = precond.operands
+        store = torch.float32
+        if a_store != "f32" and dtype == np.float32:
+            a_t = ops["a_stencil"]
+            a_bf = StencilBsrTMatrix(a_t.blocks_t.to(torch.bfloat16),
+                                     a_t.offsets, a_t.shape)
+            if a_store == "bf16_all":
+                ops["a_stencil"], store = a_bf, torch.bfloat16
+            else:
+                ops["a_stencil_m"] = a_bf
         if refine and dtype == np.float32:
-            # lo half of the f64 -> f32 operator rounding, A = A_f32 + A_lo:
+            # lo half of the f64 -> store operator rounding, A = A_st + A_lo:
             # without it the device residual reads below the true one
-            precond.operands["a_lo_blocks"] = _stencil_lo_blocks(
-                a, precond.operands["a_stencil"], br).to(device)
+            ops["a_lo_blocks"] = _stencil_lo_blocks(
+                a, ops["a_stencil"], br, store_dtype=store).to(device)
         n = a.shape[0]
         return cls(n=n, br=br, nrb=n // br, opts=opts, scale_d=scale_d,
                    precond=precond, device=device, target_tol=target_tol,
@@ -289,16 +303,20 @@ class StencilLorascECG:
         return x, info
 
 
-def _stencil_lo_blocks(a: sp.spmatrix, a_t: StencilBsrTMatrix, br: int) -> torch.Tensor:
-    """(S, br, br, nrb) f32 blocks of A_lo = A − f32(A) for the stencil
+def _stencil_lo_blocks(a: sp.spmatrix, a_t: StencilBsrTMatrix, br: int,
+                       store_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(S, br, br, nrb) f32 blocks of A_lo = A − store(A) for the stencil
     offsets of ``a_t`` (the layout of StencilBsrTMatrix.blocks_t), on the
-    host. The correction is kept in f32: its own rounding then sits far
-    below the refinement's residual floor."""
+    host; store() rounds to the type the solve's A blocks are kept in (f32,
+    or bf16 for ``a_store="bf16_all"``; torch rounds to nearest even). The
+    correction is kept in f32: its own rounding then sits far below the
+    refinement's residual floor."""
     coo = sp.csr_matrix(a).tocoo()
     nrb = a.shape[0] // br
     offs = np.asarray(a_t.offsets)
     slot = np.searchsorted(offs, (coo.col // br) - (coo.row // br))
-    lo_vals = (coo.data - coo.data.astype(np.float32).astype(np.float64)).astype(np.float32)
+    vals_st = torch.from_numpy(coo.data).to(store_dtype).to(torch.float64).numpy()
+    lo_vals = (coo.data - vals_st).astype(np.float32)
     lo = np.zeros((offs.size, br, br, nrb), dtype=np.float32)
     lo[slot, coo.row % br, coo.col % br, coo.row // br] = lo_vals
     return torch.from_numpy(lo)

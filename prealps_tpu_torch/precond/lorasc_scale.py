@@ -14,18 +14,24 @@ lorasc_eigsolve.c:31-205 PARPACK deflation):
   A·(embed_sep v) are Aig·v, separator rows of A·(embed_int z) are Agi·z),
   so every operator product of the build and the apply is the lane-major
   stencil kernel B2a (``ops/spmm.py::stencil_bsr_spmm_t``).
+* **PRESC pencils** (``pencil="sloc" | "saloc"``, reference presc.h:18-21):
+  S u = λ Sloc u with the exact local Schur complement of each part's
+  owned separator rows (SSLOC), or S u = λ Aloc u with Aloc =
+  blockdiag(Agg_pp) (SALOC), assembled on the device one part at a time
+  (``_build_sloc_operands``).
 * **Apply**: in arrow coordinates through node-level gathers while the ECG
-  operator stays in the original (stencil) ordering.
+  operator stays in the original (stencil) ordering. ``factor_store="bf16"``
+  stores the four banded factor tensors in bf16 after every build consumer
+  has run in f32; the solves widen them block by block.
 
 Vectors are lane-major (t, br, nrb) panels; node-major intermediates are
 flat (nrb + 1, br·t) with a trailing zero node that padding indices point
 at. Scatters use ``index_add_`` with int64 indices.
 
-Not ported (ROADMAP.md): the PRESC pencils ``pencil="sloc" | "saloc"``
-(queue A item 5), bf16 factor storage ``factor_store="bf16"``, and the
-generic block-arrow partition behind ``grid=None`` (the periphery); each
-raises NotImplementedError. ``factor_store="auto"`` picks f32, as the JAX
-rule does on every backend but the TPU.
+Not ported (ROADMAP.md queue A, item 7): the generic block-arrow partition
+behind ``grid=None``, which raises NotImplementedError.
+``factor_store="auto"`` picks f32, as the JAX rule does on every backend but
+the TPU.
 """
 
 from __future__ import annotations
@@ -355,8 +361,12 @@ def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor) -> torch.Tenso
     * balancing deflation ("w_lift" present): M⁻¹ = Pᵀ M0⁻¹ P + Q with
       Q = Ŵ Λc⁻¹ Ŵᵀ, P = I − A Q over the lifted basis Ŵ = [−Aii⁻¹Aig E; E],
       so AŴ = [0; S E] is separator-supported and P needs no operator apply.
+
+    The two sweep products use ``a_stencil_m`` where the build attached one
+    (the bf16 copy of ``a_store="bf16"``: a preconditioner-side
+    perturbation only; the iteration keeps the full-precision operator).
     """
-    a_t = ops["a_stencil"]
+    a_t = ops.get("a_stencil_m", ops["a_stencil"])
     deflate = "w_lift" in ops
     t = r.shape[0]
     rn = _to_node_major(r)
@@ -399,6 +409,174 @@ def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor) -> torch.Tenso
 # ---------------------------------------------------------------------------
 # build
 # ---------------------------------------------------------------------------
+
+def _sep_node_owners(node_graph: sp.csr_matrix, plan: ArrowBandPlan,
+                     part_arr: np.ndarray) -> np.ndarray:
+    """Owner part of each separator node: the part it couples to most
+    strongly (|A| mass), near-ties (within 1 %) going to the least-loaded
+    candidate, so the separator splits evenly (numpy copy of the JAX
+    version; reference: the ODB structure keeps each rank's separator rows
+    local, preAlps_utils.c:521)."""
+    g = node_graph.tocsr()
+    owners = np.zeros(plan.nsn, dtype=np.int64)
+    fill = np.zeros(plan.nparts, dtype=np.int64)
+    for j in range(plan.nsn):
+        u = int(plan.sep_nodes[j])
+        cols = g.indices[g.indptr[u]: g.indptr[u + 1]]
+        vals = np.abs(g.data[g.indptr[u]: g.indptr[u + 1]])
+        parts = part_arr[cols]
+        mask = parts >= 0
+        if not np.any(mask):
+            owners[j] = int(np.argmin(fill))
+            fill[owners[j]] += 1
+            continue
+        w = np.zeros(plan.nparts)
+        np.add.at(w, parts[mask], vals[mask])
+        cand = np.flatnonzero(w >= 0.99 * w.max())
+        owners[j] = int(cand[np.argmin(fill[cand])])
+        fill[owners[j]] += 1
+    return owners
+
+
+def _sloc_index_maps(plan: ArrowBandPlan, node_graph, offsets):
+    """Host index maps of the PRESC operands (the JAX build's, in numpy):
+    each part's owned nodes (pad nrb) and their count nso,
+    ``own_dof`` (P, c) (separator band dof of each owned dof, c = nso·br)
+    and its mask, and the scatter maps ``aig_col`` (S, P, nbn_i) and
+    ``agg_col`` (S, P, nso): the owned slot of node + offset when the
+    neighbour is owned by the same part, else the dump slot nso."""
+    br, P, nrb = plan.br, plan.nparts, plan.nrb
+    owners = _sep_node_owners(node_graph, plan, plan.part_arr)
+    nso = max(int(np.bincount(owners, minlength=P).max()), 1)
+    own_nodes = np.full((P, nso), nrb, dtype=np.int64)    # pad -> nrb
+    owned_slot = np.full(nrb + 1, nso, dtype=np.int64)    # dump slot
+    owner_of_node = np.full(nrb + 1, -1, dtype=np.int64)
+    fill = np.zeros(P, dtype=np.int64)
+    for j in range(plan.nsn):
+        p = owners[j]
+        u = int(plan.sep_nodes[j])
+        own_nodes[p, fill[p]] = u
+        owned_slot[u] = fill[p]
+        owner_of_node[u] = p
+        fill[p] += 1
+    sep_pos_of_node = np.full(nrb + 1, plan.nsn_pad - 1, dtype=np.int64)
+    sep_pos_of_node[plan.sep_nodes[: plan.nsn]] = np.arange(plan.nsn)
+    own_mask = own_nodes < nrb
+    own_pos = sep_pos_of_node[np.minimum(own_nodes, nrb)]
+    own_dof = (own_pos[:, :, None] * br
+               + np.arange(br)[None, None, :]).reshape(P, nso * br)
+
+    def scatter_map(nodes, valid):
+        col = np.full((len(offsets),) + nodes.shape, nso, dtype=np.int32)
+        for s, off in enumerate(offsets):
+            nb = nodes + off
+            ok = valid & (nb >= 0) & (nb < nrb)
+            nb_c = np.where(ok, nb, nrb)
+            same_owner = owner_of_node[nb_c] == np.arange(P)[:, None]
+            col[s] = np.where(ok & same_owner, owned_slot[nb_c], nso)
+        return col
+
+    valid_band = plan.int_nodes < nrb
+    return dict(nso=nso, own_nodes=own_nodes, own_mask=own_mask,
+                own_dof=own_dof, valid_band=valid_band,
+                aig_col=scatter_map(plan.int_nodes, valid_band),
+                agg_col=scatter_map(own_nodes, own_mask))
+
+
+def _own_apply(ops: dict, m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """blockdiag over the parts of m (P, c, c) applied to the owned
+    separator dofs of v (ng_pad, k) and scattered back, identity on the
+    separator's pad rows: the PRESC pencils' B (m = Sloc) and B⁻¹
+    (m = Sloc⁻¹). Only the pad slots of ``own_dof`` repeat, and they carry
+    zeros, so the scatter does not depend on order."""
+    own, own_mask = ops["own_dof"], ops["own_dof_mask"][:, :, None]
+    sep = ops["sep_mask"][:, None]
+    yo = (m @ (v[own] * own_mask)) * own_mask
+    y = torch.zeros_like(v).index_add_(0, own.reshape(-1), yo.reshape(-1, v.shape[1]))
+    return y * sep + v * (1.0 - sep)
+
+
+def _build_sloc_operands(plan: ArrowBandPlan, node_graph, a_stencil, dev: dict,
+                         dtype, schur: bool = True) -> dict:
+    """SSLOC / SALOC pencil operands (reference presc.h:18-21), added to
+    ``dev``: ``sloc`` (P, c, c), ``sloc_inv``, ``own_dof`` and
+    ``own_dof_mask``.
+
+    schur=True (SSLOC, presc.c:239-241): per part p the exact local Schur
+    complement Sloc_p = Agg_pp − Agi_p Aii_p⁻¹ Aig_p over the separator
+    rows owned by p. Aig_p and Agg_pp are scatter-added from the resident
+    lane-major blocks (only the dump slot receives duplicates, so the sums
+    do not depend on order), W = Aii_p⁻¹ Aig_p rides the part's banded
+    factor, and Sloc_p = Agg_pp − Aig_pᵀ W, symmetrised. One part at a
+    time: the batched form's temporaries reach ~1.6 GB at n = 148k.
+    schur=False (SALOC, presc_eigsolve.c:249-423): Aloc_p = Agg_pp alone.
+    Each operand gets identity on its pad dofs and a batched Cholesky;
+    sloc_inv = L⁻ᵀ L⁻¹. A factor that fails raises FloatingPointError."""
+    br, P, nrb = plan.br, plan.nparts, plan.nrb
+    bt = a_stencil.blocks_t                          # (S, br, br, nrb)
+    device = bt.device
+    tdt = _torch_dtype(dtype)
+    maps = _sloc_index_maps(plan, node_graph, a_stencil.offsets)
+    nso = maps["nso"]
+    c = nso * br
+
+    def idx(arr):
+        return torch.from_numpy(np.asarray(arr, dtype=np.int64)).to(device)
+
+    def mask(arr):
+        return torch.from_numpy(np.asarray(arr, dtype=dtype)).to(device)
+
+    int_nodes_c = idx(np.minimum(plan.int_nodes, nrb - 1))
+    own_nodes_c = idx(np.minimum(maps["own_nodes"], nrb - 1))
+    band_ok, own_ok = mask(maps["valid_band"]), mask(maps["own_mask"])
+    aig_col, agg_col = idx(maps["aig_col"]), idx(maps["agg_col"])
+
+    def assemble(nodes, ok, col):
+        """(rows·br, c) dense coupling of ``nodes`` (rows of them) to the
+        part's owned separator dofs: block s of node j lands in owned slot
+        col[s, j] (slot nso is the dump)."""
+        rows = nodes.shape[0]
+        vals = (bt[:, :, :, nodes].permute(0, 3, 1, 2)
+                * ok[None, :, None, None]).to(tdt)            # (S, rows, br, br)
+        out = torch.zeros((rows * (nso + 1), br, br), dtype=tdt, device=device)
+        slot = torch.arange(rows, device=device)[None, :] * (nso + 1) + col
+        out.index_add_(0, slot.reshape(-1), vals.reshape(-1, br, br))
+        out = out.reshape(rows, nso + 1, br, br)[:, :nso]
+        return out.permute(0, 2, 1, 3).reshape(rows * br, c)
+
+    no_fail = torch.zeros((), dtype=torch.bool, device=device)
+    parts = []
+    for p in range(P):
+        agg = assemble(own_nodes_c[p], own_ok[p], agg_col[:, p])
+        if not schur:
+            parts.append(0.5 * (agg + agg.T))
+            continue
+        aig = assemble(int_nodes_c[p], band_ok[p], aig_col[:, p])
+        fac = BlockBandedCholesky(dev["aii_linv"][p: p + 1],
+                                  dev["aii_moff"][p: p + 1], no_fail)
+        vb = aig.reshape(1, plan.nblk_i, plan.bs_i, c).permute(1, 0, 3, 2)
+        w = block_banded_solve_t(fac, vb).permute(1, 0, 3, 2).reshape(
+            plan.nblk_i * plan.bs_i, c)
+        sloc = agg - aig.T @ w
+        parts.append(0.5 * (sloc + sloc.T))
+        del aig, vb, w
+    sloc = torch.stack(parts)
+    del parts
+
+    # identity on the pad dofs keeps the batched Cholesky defined
+    m = mask(np.repeat(maps["own_mask"], br, axis=1))           # (P, c)
+    eye = torch.eye(c, dtype=tdt, device=device)[None]
+    sloc = sloc * (m[:, :, None] * m[:, None, :]) + eye * (1.0 - m[:, :, None] * eye)
+    lfac, info = torch.linalg.cholesky_ex(0.5 * (sloc + sloc.mT))
+    if bool((info != 0).any() | torch.isnan(lfac).any()):
+        raise FloatingPointError("PRESC pencil operand (Sloc/Aloc) is not SPD")
+    linv = torch.linalg.solve_triangular(lfac, eye.expand_as(lfac), upper=False)
+    dev["sloc"] = sloc
+    dev["sloc_inv"] = linv.mT @ linv
+    dev["own_dof"] = idx(maps["own_dof"])
+    dev["own_dof_mask"] = m
+    return dev
+
 
 def _host_refine_pairs(a: sp.csr_matrix, plan: ArrowBandPlan,
                        vecs_np: np.ndarray, deflation_tol: float,
@@ -485,7 +663,7 @@ def build_scalable_lorasc(
     node_part: np.ndarray | None = None,
     in_sep: np.ndarray | None = None,
     lanczos_block: int | None = None,
-    factor_store: str | None = None,
+    factor_store: str = "auto",
     device="cpu",
 ) -> ScalableLorasc:
     """Build the scalable LORASC for a stencil-structured operator ``a``
@@ -494,23 +672,20 @@ def build_scalable_lorasc(
     grid: (gx, gy, gz) node-grid dims for the geometric box partition, or a
     pinned partition through node_part / in_sep. a_stencil: an existing
     lane-major StencilBsrTMatrix of ``a`` on ``device`` (shared with the
-    solver). correction: "sigma" (zg += E σ Eᵀ g) or "deflate" (balancing
+    solver). pencil: "agg" (S u = λ Agg u), or the PRESC pencils "sloc"
+    (S u = λ Sloc u, exact local Schur complements) and "saloc" (S u =
+    λ Aloc u). correction: "sigma" (zg += E σ Eᵀ g) or "deflate" (balancing
     projection over the lifted basis). lanczos_block: panel width of the
     block Lanczos (None = env PREALPS_LANCZOS_BLOCK, default 8).
+    factor_store: storage type of the banded factors the apply streams,
+    "f32", "bf16" or "auto" (auto is f32 off a TPU, the JAX rule).
     """
     device = torch.device(device)
-    if pencil in ("sloc", "saloc"):
-        raise NotImplementedError(
-            f"pencil={pencil!r} (PRESC) is not ported yet (ROADMAP.md queue A, "
-            "item 5)")
-    if pencil != "agg":
+    if pencil not in ("agg", "sloc", "saloc"):
         raise ValueError(f"unknown pencil {pencil!r} (agg | sloc | saloc)")
     if correction not in ("sigma", "deflate"):
         raise ValueError(f"unknown correction {correction!r} (sigma | deflate)")
-    if factor_store == "bf16":
-        raise NotImplementedError(
-            "factor_store='bf16' is not ported yet (ROADMAP.md queue A, item 4)")
-    if factor_store not in (None, "auto", "f32"):
+    if factor_store not in ("auto", "f32", "bf16"):
         raise ValueError(
             f"unknown factor_store {factor_store!r} (f32 | bf16 | auto)")
     if grid is None and node_part is None:
@@ -598,6 +773,12 @@ def build_scalable_lorasc(
     dev["sep_mask"] = torch.from_numpy(sep_mask).to(device)
     _mark("factor")
 
+    presc = pencil in ("sloc", "saloc")
+    if presc:
+        _build_sloc_operands(plan, node_graph, a_stencil, dev, dtype,
+                             schur=pencil == "sloc")
+        _mark(pencil)
+
     # --- deflation eigensolve on the device (replaces PARPACK) ---
     ng_pad = plan.ng_pad
     nev = min(max_deflation, max(plan.ng - 1, 1))
@@ -620,11 +801,18 @@ def build_scalable_lorasc(
         # identity on padding keeps pad Ritz values at 1 (never deflated)
         return (agg_v - agi_zi) * mask_col + v * (1.0 - mask_col)
 
-    def b_apply_panel(v):
-        return _sep_flat(plan, block_banded_matvec(d_g, e_g, _sep_band(plan, v)))
+    if presc:
+        def b_apply_panel(v):
+            return _own_apply(ops, ops["sloc"], v)
 
-    def op_apply_panel(v):
-        return _agg_solve(plan, ops, s_apply_panel(v))
+        def op_apply_panel(v):
+            return _own_apply(ops, ops["sloc_inv"], s_apply_panel(v))
+    else:
+        def b_apply_panel(v):
+            return _sep_flat(plan, block_banded_matvec(d_g, e_g, _sep_band(plan, v)))
+
+        def op_apply_panel(v):
+            return _agg_solve(plan, ops, s_apply_panel(v))
 
     v0 = torch.from_numpy(sep_mask * 1e-2).to(device=device, dtype=tdt)
     if lanczos_block > 1 and restarts > 0:
@@ -663,10 +851,11 @@ def build_scalable_lorasc(
     deflated = int(ok.sum())
 
     # host f64 refinement of the kept pairs: by default only where it pays
-    # (f32 σ form; the deflate form self-corrects pair noise)
+    # (f32 σ form of the agg pencil; the deflate form self-corrects pair
+    # noise); the PRESC pencils never refine on the host, as in JAX
     if host_refine is None:
-        host_refine = f32 and plan.ng > 0 and correction == "sigma"
-    if host_refine:
+        host_refine = f32 and pencil == "agg" and plan.ng > 0 and correction == "sigma"
+    if host_refine and pencil == "agg":
         th_np = theta.cpu().numpy()
         rs_np = resid.cpu().numpy()
         bn_np = bnorm2.cpu().numpy()
@@ -690,6 +879,13 @@ def build_scalable_lorasc(
         _attach_deflation_lift(plan, dev, dtype,
                                lam_floor=deflation_tol * floor_frac)
         _mark("lift")
+
+    # banded-factor storage for the solve's applies: every build consumer
+    # (Lanczos, the PRESC operands, the lift) has run on the f32 factors;
+    # L̃⁻ᵀL̃⁻¹ stays SPD for any stored factors
+    if factor_store == "bf16":
+        for key in ("aii_linv", "aii_moff", "agg_linv", "agg_moff"):
+            dev[key] = dev[key].to(torch.bfloat16)
     return ScalableLorasc(plan=plan, operands=dev, deflated=deflated,
                           timings=timings, nev=nev)
 

@@ -609,3 +609,194 @@ def test_chebyshev_apply_on_card(cuda_device):
     assert tspmm.stencil_flat_ext.launches == 7
     w_cpu = s_cpu.operands.m_apply(r)
     assert float((w - w_cpu).abs().max()) <= 1e-4 * float(w_cpu.abs().max())
+
+
+# --- the bf16-block instance of the stencil kernel (B2a, B2b) ---------------
+
+
+def _bf16_case(st, x, halo):
+    """One product on bf16 blocks: the bf16 instance, the f32 instance on the
+    widened blocks (bitwise the same sums), the plain version and its
+    scale."""
+    st16 = tfmt.StencilBsrTMatrix(st.blocks_t.to(torch.bfloat16), st.offsets, st.shape)
+    st32 = tfmt.StencilBsrTMatrix(st16.blocks_t.float(), st.offsets, st.shape)
+    before = tspmm.stencil_bsr_spmm_t_pallas_bs.launches
+    y16 = tspmm.stencil_bsr_spmm_t_pallas_bs(st16, x)
+    y32 = tspmm.stencil_bsr_spmm_t_pallas_bs(st32, x)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.launches == before + 2
+    x_ext = tspmm.extend_wrap(x, halo)
+    ref = tspmm.stencil_scan_accumulate(st16.blocks_t, st.offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st32.blocks_t.abs(), st.offsets,
+                                          x_ext.abs(), halo)
+    assert y16.dtype == torch.float32
+    assert torch.equal(y16, y32)
+    _close(y16, ref, scale)
+
+
+@pytest.mark.parametrize("t", [1, 5, 8, 12, 97, 256])
+def test_b2a_bf16_blocks_bitwise_f32_instance(cuda_device, t):
+    """B2a on bf16 blocks (the LORASC sweeps under a_store="bf16") at the
+    whole-width instances (1, 8, 12), the chunked ones (5, 97, 256):
+    bitwise equal to the f32 instance on the widened blocks, within
+    KERNEL_TOL of the plain version."""
+    st, x, _, halo = _lane_operands(3, t, seed=300 + t, device=cuda_device)
+    _bf16_case(st, x, halo)
+
+
+@pytest.mark.parametrize("nrb", [301, 4099])
+@pytest.mark.parametrize("t", [12, 1])
+def test_b2a_bf16_wrap_edges(cuda_device, nrb, t):
+    """bf16 blocks at odd nrb with offsets at 0, ±1, ±(nrb-1) and ±nrb."""
+    offsets = (-nrb, -(nrb - 1), -1, 0, 1, nrb - 1, nrb)
+    st, x = _random_lane(nrb, offsets, 3, t, seed=nrb + 7 * t, device=cuda_device)
+    _bf16_case(st, x, nrb)
+
+
+@pytest.mark.parametrize("n_off", [1, 512])
+@pytest.mark.parametrize("t", [12, 1])
+def test_b2b_bf16_offset_counts(cuda_device, n_off, t):
+    """B2b (pre-extended) on bf16 blocks with 1 and 512 offsets: bitwise the
+    f32 instance on the widened blocks, within KERNEL_TOL of the plain
+    version."""
+    nrb = 1031
+    offsets = (0,) if n_off == 1 else tuple(range(-256, 256))
+    lead = max(1, max(abs(o) for o in offsets))
+    st, x = _random_lane(nrb, offsets, 1, t, seed=n_off + 3 * t, device=cuda_device)
+    b16 = st.blocks_t.to(torch.bfloat16)
+    x_ext = tspmm.extend_wrap(x, lead).contiguous()
+    before = tspmm.stencil_pallas_bs_ext.launches
+    y16 = tspmm.stencil_pallas_bs_ext(b16, offsets, x_ext, lead)
+    y32 = tspmm.stencil_pallas_bs_ext(b16.float(), offsets, x_ext, lead)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_pallas_bs_ext.launches == before + 2
+    assert torch.equal(y16, y32)
+    ref = tspmm.stencil_scan_accumulate(b16, offsets, x_ext, lead)
+    scale = tspmm.stencil_scan_accumulate(b16.float().abs(), offsets, x_ext.abs(), lead)
+    _close(y16, ref, scale)
+
+
+def test_b2b_bf16_lorasc_finish_shape(cuda_device):
+    """B2b at t 1 on the elasticity stencil's bf16 table."""
+    st, _, x_ext, halo = _lane_operands(3, 1, seed=77, device=cuda_device)
+    b16 = st.blocks_t.to(torch.bfloat16)
+    y16 = tspmm.stencil_pallas_bs_ext(b16, st.offsets, x_ext, halo)
+    y32 = tspmm.stencil_pallas_bs_ext(b16.float(), st.offsets, x_ext, halo)
+    torch.cuda.synchronize()
+    assert torch.equal(y16, y32)
+    ref = tspmm.stencil_scan_accumulate(b16, st.offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(b16.float().abs(), st.offsets, x_ext.abs(), halo)
+    _close(y16, ref, scale)
+
+
+def test_flat_and_planar_refuse_bf16_blocks(cuda_device):
+    """No port path builds flat or planar bf16 tables, or sends bf16 blocks
+    through B3 (ROADMAP.md queue B)."""
+    bf, offs, x_ext, halo = _operands(elasticity3d(5, 5, 4), 3, 2, seed=0,
+                                      device=cuda_device)
+    with pytest.raises(TypeError, match="queue B"):
+        tspmm.stencil_flat_ext(bf.to(torch.bfloat16), offs, x_ext, halo, 3)
+    st, x, _, _ = _lane_operands(3, 2, seed=0, device=cuda_device)
+    b3 = tspmm.stencil_blocks_planar(st.blocks_t).contiguous().to(torch.bfloat16)
+    nrb = st.blocks_t.shape[3]
+    with pytest.raises(TypeError, match="queue B"):
+        tspmm.stencil_spmm_planar(b3, x.reshape(2, -1), offsets=st.offsets, br=3,
+                                  nrb=nrb)
+    st16 = tfmt.StencilBsrTMatrix(st.blocks_t.to(torch.bfloat16), st.offsets, st.shape)
+    launches = tspmm.stencil_bsr_spmm_t_pallas.launches
+    with pytest.raises(TypeError, match="queue B"):
+        tspmm.stencil_bsr_spmm_t_pallas(st16, x)
+    assert tspmm.stencil_bsr_spmm_t_pallas.launches == launches
+
+
+def test_bf16_factor_banded_solve_on_card(cuda_device):
+    """The banded solve with bf16 factors and f32 vectors on the card
+    against the same solve on the CPU: f32 sums (cuBLAS GEMMs against the
+    CPU's), within 1e-5 relative."""
+    from prealps_tpu_torch.direct.banded import (
+        BlockBandedCholesky,
+        block_banded_cholesky,
+        block_banded_solve_t,
+    )
+
+    rng = np.random.default_rng(12)
+    P, nblk, bs, t = 3, 5, 48, 12
+    d = rng.standard_normal((P, nblk, bs, bs)) * 0.1
+    d = d @ np.swapaxes(d, -1, -2) + 4 * np.eye(bs)
+    e = rng.standard_normal((P, nblk, bs, bs)) * 0.1
+    fac = block_banded_cholesky(torch.from_numpy(d).float(), torch.from_numpy(e).float())
+    fac16 = BlockBandedCholesky(fac.l_inv.to(torch.bfloat16),
+                                fac.m_off.to(torch.bfloat16), fac.failed)
+    v = torch.from_numpy(rng.standard_normal((nblk, P, t, bs)).astype(np.float32))
+    w_cpu = block_banded_solve_t(fac16, v)
+    fac_g = BlockBandedCholesky(fac16.l_inv.to(cuda_device), fac16.m_off.to(cuda_device),
+                                fac16.failed.to(cuda_device))
+    w_gpu = block_banded_solve_t(fac_g, v.to(cuda_device))
+    assert w_gpu.dtype == torch.float32 and fac_g.l_inv.dtype == torch.bfloat16
+    err = float((w_gpu.cpu() - w_cpu).abs().max())
+    assert err <= 1e-5 * float(w_cpu.abs().max())
+
+
+@pytest.mark.parametrize("pencil", ["sloc", "saloc"])
+def test_sloc_assembly_on_card_matches_cpu(cuda_device, pencil):
+    """The PRESC operands of het elasticity3d 8³ (4 parts, f32) built on the
+    card and on the CPU: Sloc / Aloc within 1e-5 relative, the owned-dof
+    map equal."""
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.precond.lorasc_scale import build_scalable_lorasc
+
+    a_s = sym_rac_scaling(elasticity3d(8, 8, 8, heterogeneous=True))[0]
+    kw = dict(nparts=4, br=3, grid=(9, 9, 8), dtype=np.float32, pencil=pencil,
+              max_deflation=24, correction="deflate")
+    ops_g = build_scalable_lorasc(a_s, device=cuda_device, **kw).operands
+    ops_c = build_scalable_lorasc(a_s, device="cpu", **kw).operands
+    assert torch.equal(ops_g["own_dof"].cpu(), ops_c["own_dof"])
+    s_g, s_c = ops_g["sloc"].cpu(), ops_c["sloc"]
+    assert float((s_g - s_c).abs().max()) <= 1e-5 * float(s_c.abs().max())
+
+
+# (nparts, t, max_deflation of the sloc solve, of the a_store="bf16" solve):
+# tests/test_presc.py's SSLOC nev (48) and tests/test_lorasc_scale.py's
+# a_store nev (24) at 4 parts, t 4; the configuration of
+# test_small_lorasc_solve_on_the_card_matches_cpu at 8 parts, t 12. At
+# 4 parts SSLOC with nev 24 deflates no pair, in the JAX package too, and
+# its f32 solve breaks down or not with the rounding, JAX's on the CPU
+# included (ROADMAP.md queue C; prealps_tpu_torch/examples/presc_history.py).
+PRESC_CARD_CASES = {"4parts_t4": (4, 4, 48, 24), "8parts_t12": (8, 12, 64, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(PRESC_CARD_CASES))
+def test_presc_and_bf16_store_solves_on_card(cuda_device, case):
+    """StencilLorascECG het 8³ on the card with pencil="sloc" and bf16
+    factors, and with a_store="bf16" and bf16 factors: no breakdown, host
+    relres below 1e-5 on the card and on the CPU, the same deflated pairs,
+    iteration totals within max(2, 10 %) (chip_smoke's band); B2a launched
+    at least 3× an iteration, its bf16 instance (a_store="bf16") at least
+    twice."""
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+
+    nparts, t, md_sloc, md_store = PRESC_CARD_CASES[case]
+    a = elasticity3d(8, 8, 8, heterogeneous=True)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    kw = dict(nparts=nparts, br=3, grid=(9, 9, 8), correction="deflate",
+              dtype=np.float32, factor_store="bf16",
+              opts=ECGOptions(t=t, tol=1e-5, maxiter=1000, variant="omin", layout="tbn"))
+    for extra in (dict(pencil="sloc", max_deflation=md_sloc),
+                  dict(a_store="bf16", max_deflation=md_store)):
+        s = StencilLorascECG.build(a, device=cuda_device, **kw, **extra)
+        assert s.precond.operands["aii_linv"].dtype == torch.bfloat16
+        la = tspmm.stencil_bsr_spmm_t_pallas_bs.launches
+        l16 = tspmm.stencil_bsr_spmm_t_pallas_bs.bf16_launches
+        x_g, info_g = s.solve(b)
+        assert tspmm.stencil_bsr_spmm_t_pallas_bs.launches - la >= 3 * info_g["iters"]
+        if "a_store" in extra:
+            assert (tspmm.stencil_bsr_spmm_t_pallas_bs.bf16_launches - l16
+                    >= 2 * info_g["iters"])
+        s_c = StencilLorascECG.build(a, device="cpu", **kw, **extra)
+        x_c, info_c = s_c.solve(b)
+        assert s.precond.deflated == s_c.precond.deflated > 0
+        for x, info in ((x_g, info_g), (x_c, info_c)):
+            assert not info["breakdown"]
+            assert np.linalg.norm(b - a @ x) < 1e-5 * np.linalg.norm(b)
+        assert abs(info_g["iters"] - info_c["iters"]) <= max(2, 0.1 * info_c["iters"]), (
+            extra, info_g["iters"], info_c["iters"])

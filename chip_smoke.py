@@ -120,7 +120,29 @@ Phases (any failure exits nonzero before a result is printed):
     with variant="omin", stacked and unstacked: the stacked count within
     ±1 of the unstacked count plus one per inner solve (the stacked state's
     stop test reads the residual entering the iteration, as in the JAX
-    package).
+    package);
+28. ``[sharded_nccl1]`` the headline built and solved through a one-rank
+    NCCL group (``parallel/mesh.py``): 130 iterations and x bitwise
+    ``[main]``'s, the collectives counted;
+29. ``[kernel]`` B1 at a [sharded4] shard's shape (12,400 nodes, halo
+    1,407, t 12; rank 1's nodes of the headline table), the library
+    yardstick the shard's rows as CSR on the extended panel;
+30. ``[sharded4]`` the headline at full width over 4 ranks spawned on this
+    card (the ``spawn`` start method; a gloo group, since NCCL takes one
+    card a rank): every rank the same x, host f64 relres < 1e-5, no
+    breakdown, B1 launched >= iterations on every rank (counts zeroed in
+    each rank just before its solve), iterations within 10 % of
+    SHARDED4_ANCHOR_ITERS (the JAX driver at nshards 4 on a CPU); rank 0's
+    timed solves, which are not a scaling number (4 ranks share one card),
+    and one solve of rank 0 under torch.profiler (by host time:
+    chiprun_out/profile_sharded4.txt);
+31. ``[sharded_dryrun]`` ``__graft_entry__.dryrun_multichip``'s three
+    DistributedECG paths (het 8³, t 2, tol 1e-6) over 4 ranks on the card,
+    stencil+bj2l also over 8 (88 nodes a shard against a halo of 91: the
+    all-gather branch): f32 (the stencil kernel's type), and ell+bj also in
+    f64; stencil+bj2l (f32) and ell+bj (f64) within 10 % of the JAX
+    driver's count at the same nshards, the f32 stencil+cheb and ell+bj
+    counts logged beside JAX's (DRYRUN_ANCHOR_ITERS).
 
 Beside the headline B1 checks, ``[kernel]`` lines hold B3 at t = 12 / 8 / 1
 and B4 (planar) at t = 12 on the headline operator against their plain
@@ -143,7 +165,7 @@ limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
 ``blocks_dtype``; ``max_abs_err`` over its shapes, ``launches`` from its
 path's run — for B4 and B6, which no path runs, chip_smoke's own calls;
 B1's, B2a's and B2b's entries also list their count on every path's solve
-under ``path_launches``, B2a's that of its bf16 instance under
+under ``path_launches`` (B1's also each sharded rank's), B2a's that of its bf16 instance under
 ``bf16_launches``), and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -199,6 +221,28 @@ CHEB_ANCHOR_ITERS = 44          # precond="chebyshev", degree 8, κ 30
 DEDUP_ANCHOR_ITERS = 234        # precond="bj", grid=, bj_dedupe: x-line blocks
 BJ2L_NOGRID_ANCHOR_ITERS = 182  # precond="bj2l", grid=None
 PATH_BAND = 0.10
+# the sharded phases (the JAX driver over nshards CPU devices, f32, the
+# Python k-way partition: python -m tests.test_torch_anchors --path P
+# --nshards N [--nel 36] [--dtype f64]). [sharded4]: the headline at
+# nshards 4 (n_pad 148,800), 131 iterations in 2 rounds, relres 5.3e-7.
+SHARDED4_ANCHOR_ITERS = 131
+# [sharded_dryrun]: __graft_entry__.dryrun_multichip's DistributedECG paths
+# (het elasticity3d 8³, RAC-scaled, t 2, tol 1e-6, f32). JAX on a CPU:
+# nshards 4: stencil+cheb 1662, ell+bj 967, stencil+bj2l 531; nshards 8:
+# stencil+bj2l 559 (MULTICHIP_r05.json, 8 shards: 1312 / 957 / 559); ell+bj
+# in f64 at nshards 4: 192. Held to PATH_BAND: stencil+bj2l (f32) and
+# ell+bj (f64). The f32 counts of stencil+cheb and ell+bj are logged beside
+# JAX's only: at t 2 on the het operator they hinge on whether an f32 inner
+# solve ends at a stall window (250 iterations), which follows the
+# rounding, and they part between the packages on one shard already.
+DRYRUN_ANCHOR_ITERS = {("dry_stencil_cheb", "f32", 4): 1662,
+                       ("dry_ell_bj", "f32", 4): 967,
+                       ("dry_stencil_bj2l", "f32", 4): 531,
+                       ("dry_stencil_bj2l", "f32", 8): 559,
+                       ("dry_ell_bj", "f64", 4): 192}
+DRYRUN_HELD = {("dry_stencil_bj2l", "f32"), ("dry_ell_bj", "f64")}
+MULTICHIP_R05 = {"dry_stencil_cheb": 1312, "dry_ell_bj": 957, "dry_stencil_bj2l": 559}
+SHARDED_TIMEOUT = 420      # seconds a spawn of ranks may take before they are killed
 # yardsticks: one H100 SXM's HBM3 rate and f32 rate outside the tensor cores
 # (NVIDIA's data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -276,6 +320,29 @@ def stencil_csr(blocks_t, offsets):
     n = nrb * br
     coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
                                   torch.cat(vals), (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def stencil_csr_ext(blocks_t, offsets, halo):
+    """A shard's stencil rows (S, br, br, nrb) as a torch CSR matrix on the
+    columns of its extended panel (nrb + 2·halo nodes): the same function
+    as B1 on a pre-extended panel, for the torch.sparse.mm yardstick."""
+    import torch
+
+    _, br, _, nrb = blocks_t.shape
+    r = torch.arange(nrb, device=blocks_t.device)
+    rows, cols, vals = [], [], []
+    for s_i, off in enumerate(offsets):
+        for m in range(br):
+            for k in range(br):
+                v = blocks_t[s_i, m, k]
+                keep = v != 0
+                rows.append(r[keep] * br + m)
+                cols.append((r[keep] + halo + off) * br + k)
+                vals.append(v[keep])
+    shape = (nrb * br, (nrb + 2 * halo) * br)
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), shape).coalesce()
     return coo.to_sparse_csr()
 
 
@@ -1271,6 +1338,342 @@ def a1_phases(dev, a, b, nel, bj_iters):
     return out
 
 
+def _headline_opts():
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    return ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000, variant="odir_fused",
+                      layout="tbn")
+
+
+def _headline_build(a, nel, device, group=None, nshards=1):
+    """The headline build (stencil, bj2l with 240-row blocks, t 12, f32)."""
+    import numpy as np
+
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+
+    return DistributedECG.build(
+        a, nshards=nshards, fmt="stencil", br=3, precond="bj2l", block_size=240,
+        grid=(nel + 1, nel + 1, nel), opts=_headline_opts(), dtype=np.float32,
+        device=device, group=group)
+
+
+def _collective_calls():
+    from prealps_tpu_torch.parallel import mesh
+
+    return {f.__name__: f.calls for f in (mesh.all_reduce, mesh.all_gather,
+                                          mesh.ring_exchange, mesh.all_to_all)}
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sharded_headline_rank(rank, group, nel, timed, device):
+    """One rank of [sharded4]: the headline built over the group on the
+    shared card (``device``), a solve with B1's count zeroed just before
+    and read just after, then ``timed`` timed solves (this rank's host
+    clock)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
+    from prealps_tpu_torch.parallel import mesh
+
+    a = elasticity3d(nel, nel, nel, heterogeneous=False)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    t0 = time.perf_counter()
+    solver = _headline_build(a, nel, device, group, mesh.size_of(group))
+    build_s = time.perf_counter() - t0
+    ops = solver.operands
+    stencil_flat_ext.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    x, info = solver.solve(b)
+    _sync(device)
+    warm_s = time.perf_counter() - t0
+    launches = stencil_flat_ext.launches
+    calls = _collective_calls()
+    timed_s = []
+    for _ in range(timed):
+        _sync(device)
+        t0 = time.perf_counter()
+        solver.solve(b)
+        _sync(device)
+        timed_s.append(time.perf_counter() - t0)
+    # one more solve on every rank (the collectives must pair up), rank 0's
+    # under torch.profiler on a CUDA device: its device time and its table
+    prof_rec = {}
+    if rank == 0 and torch.device(device).type == "cuda":
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solver.solve(b)
+            _sync(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        table = prof.key_averages().table(sort_by="self_cpu_time_total",
+                                          row_limit=30)
+        prof_rec = {"profile_device_ms": device_busy_ms(prof),
+                    "profile_wall_ms": wall_ms, "profile_table": table}
+    else:
+        solver.solve(b)
+    return {"rank": rank, "iters": int(info["iters"]), **prof_rec,
+            "refine_rounds": info["refine_rounds"],
+            "device_rounds": info["device_rounds"],
+            "breakdown": bool(info["breakdown"]),
+            "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+            "launches": launches, "calls": calls, "build_s": build_s,
+            "warm_s": warm_s, "timed_s": timed_s, "n_pad": solver.layout.n_pad,
+            "nrb_loc": ops.nrb, "halo": ops.halo, "timings": solver.timings,
+            "x_sha": hashlib.sha256(x.tobytes()).hexdigest(),
+            "x": x if rank == 0 else None}
+
+
+def _dryrun_problem(dtype):
+    """__graft_entry__._problem(nel=8) in the port: het elasticity3d 8³,
+    RAC-scaled, b = default_rng(0), both in dtype."""
+    import numpy as np
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+
+    a, _ = sym_rac_scaling(elasticity3d(8, 8, 8))
+    b = np.random.default_rng(0).standard_normal(a.shape[0]).astype(dtype)
+    return a.astype(dtype), b
+
+
+DRYRUN_PATHS = {   # dryrun_multichip's builds: keywords and layout
+    "dry_stencil_cheb": (dict(fmt="stencil", br=3, precond="chebyshev"), "tbn"),
+    "dry_ell_bj": (dict(fmt="ell", precond="block_jacobi"), "nt"),
+    "dry_stencil_bj2l": (dict(fmt="stencil", br=3, precond="bj2l", block_size=24,
+                              grid=(9, 9, 8)), "tbn"),
+}
+
+
+def _dryrun_rank(rank, group, runs, device):
+    """One rank of [sharded_dryrun]: each (path, dtype) of ``runs`` built
+    over the group on the shared card (``device``; scale=False, t 2, tol
+    1e-6) and solved with B1's count zeroed just before and read just
+    after."""
+    import hashlib
+
+    import numpy as np
+
+    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
+    from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    out = {}
+    for path, dt in runs:
+        dtype = np.float32 if dt == "f32" else np.float64
+        a, b = _dryrun_problem(dtype)
+        kw, layout = DRYRUN_PATHS[path]
+        solver = DistributedECG.build(
+            a, nshards=mesh.size_of(group), scale=False, dtype=dtype,
+            device=device, group=group,
+            opts=ECGOptions(t=2, tol=1e-6, maxiter=6000, variant="odir_fused",
+                            layout=layout), **kw)
+        stencil_flat_ext.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        x, info = solver.solve(b)
+        _sync(device)
+        out[f"{path}_{dt}"] = {
+            "path": path, "dtype": dt, "iters": int(info["iters"]),
+            "refine_rounds": info.get("refine_rounds"),
+            "breakdown": bool(info["breakdown"]),
+            "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+            "launches": stencil_flat_ext.launches,
+            "solve_s": time.perf_counter() - t0, "n_pad": solver.layout.n_pad,
+            "nodes_a_shard": getattr(solver.operands, "nrb", None),
+            "halo": getattr(solver.operands, "halo", None),
+            "x_sha": hashlib.sha256(x.tobytes()).hexdigest()}
+    return out
+
+
+def _spawn_ranks(fn, world, args):
+    """``world`` ranks of ``fn`` on the card through one gloo group (a
+    FileStore in a fresh directory); a failing or hung rank fails the run."""
+    import shutil
+    import tempfile
+
+    from prealps_tpu_torch.parallel import mesh
+
+    store = tempfile.mkdtemp(prefix="prealps_store_")
+    try:
+        return mesh.spawn(fn, world, args=args, init_method=f"file://{store}/store",
+                          backend="gloo", timeout=SHARDED_TIMEOUT, threads=2)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"{fn.__name__} over {world} ranks: {e}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def sharded_nccl1_phase(dev, a, b, nel, x_main, main_iters):
+    """[sharded_nccl1]: the headline through a one-rank NCCL group must
+    reproduce [main] exactly (iterations, and x bitwise). Returns (record,
+    the group build's flat block table, its offsets and halo)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
+    from prealps_tpu_torch.parallel import mesh
+
+    store = tempfile.mkdtemp(prefix="prealps_nccl1_")
+    group = mesh.init_group("nccl", 0, 1, f"file://{store}/store", timeout=300,
+                            device=dev)
+    try:
+        solver = _headline_build(a, nel, dev, group=group)
+        before = _collective_calls()
+        stencil_flat_ext.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solver.solve(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = stencil_flat_ext.launches
+        calls = {k: v - before[k] for k, v in _collective_calls().items()}
+        ops = solver.operands
+        table, offsets, halo = ops.blocks_flat, ops.offsets, ops.halo
+        backend = mesh.backend_of(group)
+    finally:
+        dist.destroy_process_group()
+    iters = int(info["iters"])
+    same = bool(np.array_equal(x, x_main))
+    dx = float(np.linalg.norm(x - x_main) / np.linalg.norm(x_main))
+    log(f"[sharded_nccl1] backend {backend}, 1 rank: {secs:.3f} s, iters={iters} "
+        f"refine_rounds={info['refine_rounds']} B1 launches={launches}, "
+        f"collectives {calls}; x bitwise [main]'s: {same} (|dx|/|x| {dx:.3e})")
+    if iters != main_iters or iters != TPU_ANCHOR_ITERS:
+        fail(f"[sharded_nccl1] {iters} iterations; [main] ran {main_iters}, the "
+             f"record {TPU_ANCHOR_ITERS}")
+    if not same:
+        fail("[sharded_nccl1] x differs from [main]'s")
+    if calls["all_reduce"] < iters or launches < iters:
+        fail(f"[sharded_nccl1] the group path did not run: {calls}, B1 {launches}")
+    return ({"backend": backend, "iters": iters, "launches": launches,
+             "calls": calls, "solve_s": secs, "x_bitwise_main": same},
+            table, offsets, halo)
+
+
+def sharded4_phase(nel, x_main, device="cuda:0"):
+    """[sharded4]: the headline at full width over 4 spawned ranks sharing
+    cuda:0 through a gloo group."""
+    import numpy as np
+
+    world = 4
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_sharded_headline_rank, world, (nel, 2, device))
+    wall_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        log(f"[sharded4] rank {r['rank']}: build {r['build_s']:.2f} s, warm solve "
+            f"{r['warm_s']:.3f} s, iters={r['iters']} rounds={r['refine_rounds']} "
+            f"(device {r['device_rounds']}) relres={r['relres']:.3e} B1 launches="
+            f"{r['launches']}, collectives {r['calls']}")
+        if r["x_sha"] != r0["x_sha"] or r["iters"] != r0["iters"]:
+            fail(f"[sharded4] rank {r['rank']} returned another x or count than rank 0")
+        if r["breakdown"] or not r["relres"] < SOLVE_TOL:
+            fail(f"[sharded4] rank {r['rank']}: breakdown {r['breakdown']}, host f64 "
+                 f"relres {r['relres']:.3e}")
+        if r["launches"] < r["iters"]:
+            fail(f"[sharded4] rank {r['rank']}: B1 launched {r['launches']} times "
+                 f"for {r['iters']} iterations")
+    iters = r0["iters"]
+    x = r0["x"]
+    if x.shape != x_main.shape or not np.all(np.isfinite(x)):
+        fail("[sharded4] solution not finite or of the wrong shape")
+    dx = float(np.linalg.norm(x - x_main) / np.linalg.norm(x_main))
+    tts = statistics.median(r0["timed_s"])
+    log(f"[sharded4] {world} ranks sharing one card (gloo, host copies): n_pad "
+        f"{r0['n_pad']}, {r0['nrb_loc']} nodes a shard, halo {r0['halo']}; "
+        f"iters={iters} (JAX package on a CPU at nshards 4: "
+        f"{SHARDED4_ANCHOR_ITERS}); rank 0's timed solves (s) "
+        f"{[round(v, 4) for v in r0['timed_s']]}, median {tts:.4f} s "
+        f"({1e3 * tts / iters:.3f} ms/iteration; 4 ranks share one card: not a "
+        f"scaling number); |x - x_main|/|x_main| = {dx:.3e}; spawn {wall_s:.1f} s")
+    if not within(iters, SHARDED4_ANCHOR_ITERS, PATH_BAND):
+        fail(f"[sharded4] {iters} iterations, outside {SHARDED4_ANCHOR_ITERS} ± "
+             f"{100 * PATH_BAND:.0f} %")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "profile_sharded4.txt"), "w") as f:
+        f.write(r0["profile_table"])
+    log(f"[profile] rank 0 of [sharded4], one solve by host time (device "
+        f"{r0['profile_device_ms']:.1f} ms of {r0['profile_wall_ms']:.1f} ms wall, "
+        f"busy {100 * r0['profile_device_ms'] / r0['profile_wall_ms']:.0f} %; "
+        "4 ranks share the card):")
+    for line in r0["profile_table"].splitlines()[:15]:
+        log("[profile] " + line)
+    return {"world": world, "iters": iters, "refine_rounds": r0["refine_rounds"],
+            "relres": r0["relres"], "launches": [r["launches"] for r in ranks],
+            "calls": r0["calls"], "build_s": [r["build_s"] for r in ranks],
+            "build_stages_s": r0["timings"], "warm_s": r0["warm_s"],
+            "solve_s": r0["timed_s"], "ms_per_iter": 1e3 * tts / iters,
+            "n_pad": r0["n_pad"], "nrb_loc": r0["nrb_loc"], "halo": r0["halo"],
+            "dx_main": dx, "spawn_s": wall_s, "anchor_iters": SHARDED4_ANCHOR_ITERS,
+            "profile_device_ms": r0["profile_device_ms"],
+            "profile_wall_ms": r0["profile_wall_ms"]}
+
+
+def sharded_dryrun_phase(device="cuda:0"):
+    """[sharded_dryrun]: dryrun_multichip's three DistributedECG paths over 4
+    ranks sharing the card (f32; ell+bj also f64), stencil+bj2l also over
+    8."""
+    out = {}
+    plan = ((4, [("dry_stencil_bj2l", "f32"), ("dry_ell_bj", "f32"),
+                 ("dry_ell_bj", "f64"), ("dry_stencil_cheb", "f32")]),
+            (8, [("dry_stencil_bj2l", "f32")]))
+    for world, runs in plan:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_dryrun_rank, world, (runs, device))
+        wall_s = time.perf_counter() - t0
+        for key, rec in ranks[0].items():
+            path, dt = rec["path"], rec["dtype"]
+            for r in ranks:
+                if r[key]["x_sha"] != rec["x_sha"] or r[key]["iters"] != rec["iters"]:
+                    fail(f"[sharded_dryrun] {key} at {world}: ranks disagree")
+            # f32 refines to the tolerance on the host f64 residual; f64 is
+            # one solve, held to 10 × its tolerance
+            if rec["breakdown"] or not rec["relres"] < (1e-6 if dt == "f32" else 1e-5):
+                fail(f"[sharded_dryrun] {key} at {world}: breakdown "
+                     f"{rec['breakdown']}, relres {rec['relres']:.3e}")
+            stencil = path != "dry_ell_bj"
+            if stencil and min(r[key]["launches"] for r in ranks) < rec["iters"]:
+                fail(f"[sharded_dryrun] {key} at {world}: B1 launched fewer times "
+                     "than iterations")
+            anchor = DRYRUN_ANCHOR_ITERS[(path, dt, world)]
+            held = (path, dt) in DRYRUN_HELD
+            log(f"[sharded_dryrun] {path} {dt} over {world} ranks: iters="
+                f"{rec['iters']} rounds={rec['refine_rounds']} relres="
+                f"{rec['relres']:.3e} in {rec['solve_s']:.2f} s (rank 0), B1 "
+                f"launches {[r[key]['launches'] for r in ranks]}, "
+                f"{rec['nodes_a_shard']} nodes a shard, halo {rec['halo']}; JAX "
+                f"on a CPU at nshards {world}: {anchor}"
+                + (f" (held to ± {100 * PATH_BAND:.0f} %)" if held else
+                   " (logged, not held: f32 stall windows)")
+                + (f"; MULTICHIP_r05.json at 8 shards: {MULTICHIP_R05[path]}"
+                   if dt == "f32" else ""))
+            if held and not within(rec["iters"], anchor, PATH_BAND):
+                fail(f"[sharded_dryrun] {key} at {world}: {rec['iters']} "
+                     f"iterations, outside {anchor} ± {100 * PATH_BAND:.0f} %")
+            out[f"{key}_x{world}"] = dict(
+                rec, world=world, anchor_iters=anchor, held=held,
+                launches=[r[key]["launches"] for r in ranks])
+        log(f"[sharded_dryrun] {world} ranks: spawn and solves {wall_s:.1f} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "prealps_tpu_torch")):
         fail("prealps_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -1285,7 +1688,7 @@ def main() -> int:
 
     from prealps_tpu_torch import strict_fp32
     from prealps_tpu_torch.core.generators import elasticity3d, poisson3d
-    from prealps_tpu_torch.core.layout import permute_and_pad_matrix
+    from prealps_tpu_torch.core.layout import contiguous_row_layout, permute_and_pad_matrix
     from prealps_tpu_torch.direct.device_bj import bj_apply_pallas
     from prealps_tpu_torch.ops import _kernels
     from prealps_tpu_torch.ops.formats import (
@@ -1396,6 +1799,7 @@ def main() -> int:
         f"(iterations {iters}; the JAX package's record of this solve: "
         f"{TPU_ANCHOR_ITERS} iterations)")
     profile_solve(solver, b, "solve")
+    x_main, _ = solver.solve(b)          # [sharded_nccl1] must reproduce it
     main_path = {
         "n": n, "nnz": int(a.nnz), "iters": iters,
         "refine_rounds": info.get("refine_rounds"), "relres": info["relres"],
@@ -1555,6 +1959,21 @@ def main() -> int:
     # --- 23-27. the rest of the one-GPU driver ---
     a1_paths = a1_phases(dev, a, b, nel, biters)
 
+    # --- 28. the headline through a one-rank NCCL group ---
+    nccl1, table, offsets, halo = sharded_nccl1_phase(dev, a, b, nel, x_main, iters)
+    # --- 29. B1 at a [sharded4] shard's shape: rank 1's nodes ---
+    nrb_loc = contiguous_row_layout(n, 4, row_multiple=240).rows_per_shard // 3
+    shard_flat = table[:, nrb_loc:2 * nrb_loc].contiguous()
+    shard_csr = stencil_csr_ext(shard_flat.view(len(offsets), 3, 3, nrb_loc),
+                                offsets, halo)
+    checks.append(check_kernel(f"[sharded4] shard apply (br3,t12,nrb {nrb_loc})",
+                               shard_flat, offsets, halo, 3, 12, seed=81,
+                               csr=shard_csr))
+    del table, shard_flat, shard_csr
+    # --- 30-31. over spawned ranks sharing the card through gloo ---
+    sharded4 = sharded4_phase(nel, x_main)
+    dryrun = sharded_dryrun_phase()
+
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
         "lane_checks": b2a + b2b, "lane_bf16_checks": b2a_bf16 + b2b_bf16,
@@ -1563,6 +1982,7 @@ def main() -> int:
         "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
         "lorasc_path": lorasc_path, **presc_paths, "dia_path": dia_path,
         "auto_path": auto_path, "spmm_sweep": spmm_recs, **a1_paths,
+        "sharded_nccl1": nccl1, "sharded4": sharded4, "sharded_dryrun": dryrun,
         "total_s": time.perf_counter() - t_start}))
 
     def entry(name, source, replaces, launches_, recs):
@@ -1587,7 +2007,11 @@ def main() -> int:
     b1["path_launches"] = {"main": launches, "bj": blaunches, "dia": dia_launches,
                            **{k: (v["launches"] if "launches" in v else
                                   v["stacked"]["launches"] + v["unstacked"]["launches"])
-                              for k, v in a1_paths.items()}}
+                              for k, v in a1_paths.items()},
+                           "sharded_nccl1": nccl1["launches"],
+                           "sharded4": sharded4["launches"],
+                           **{f"sharded_dryrun_{k}": v["launches"]
+                              for k, v in dryrun.items() if "stencil" in k}}
     # B2a's and B2b's counts on each LORASC-family path's solve, and of the
     # bf16-block instance on [lorasc_bf16]'s
     lorasc_family = {"lorasc": lorasc_path, **presc_paths}

@@ -1,16 +1,18 @@
-"""Row layouts: how a global sparse operator maps onto padded device rows.
+"""Row layouts: how a global sparse operator maps onto padded shard rows.
 
-The one-device subset of ``prealps_tpu/core/layout.py``, copied in numpy: a
-``RowLayout`` records the row permutation and the padding that makes every
-shard's row panel a multiple of the block sizes. Padded rows carry an
-identity diagonal, so the operator stays SPD and padded solution entries
-are exactly zero; with a stencil operator the padded nodes' blocks are zero
-off the diagonal, which is what makes the single-shard wrap halo of the
-stencil SpMM exact (parallel/driver.py).
+numpy copies of ``prealps_tpu/core/layout.py``: a ``RowLayout`` records the
+row permutation and the padding that makes every shard's row panel the
+same multiple of the block sizes. Padded rows carry an identity diagonal,
+so the operator stays SPD and padded solution entries are exactly zero;
+with a stencil operator the padded nodes' blocks are zero off the
+diagonal, which is what makes the wrap halo of the stencil SpMM exact on
+one shard and the ring halo exact on several (parallel/driver.py).
 
 Two constructors: ``contiguous_row_layout`` (stencil formats: no
-permutation) and ``build_row_layout`` / ``layout_from_part`` (general
-formats: rows grouped by part; with one shard the partition is all zeros).
+permutation, all padding at the global tail) and ``build_row_layout`` /
+``layout_from_part`` (general formats: rows grouped by the k-way
+partition, each shard padded at its own tail). ``build_halo_plan`` derives
+the ELL SpMM's neighbour exchange over several shards.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import scipy.sparse as sp
 
-from prealps_tpu_torch.core.partition import partition_to_perm
+from prealps_tpu_torch.core.partition import kway_partition, partition_to_perm
 
 
 @dataclass(frozen=True)
@@ -58,16 +60,17 @@ def contiguous_row_layout(n: int, nshards: int, row_multiple: int = 8) -> RowLay
     )
 
 
-def build_row_layout(a: sp.spmatrix, nshards: int, row_multiple: int = 8) -> RowLayout:
-    """Layout of A's rows over ``nshards`` devices. One shard only: its
-    partition puts every row in part 0."""
-    if nshards != 1:
-        raise NotImplementedError(
-            f"build_row_layout(nshards={nshards}): the k-way partition of the "
-            "multi-GPU driver is not ported yet (ROADMAP.md queue A, item 3)")
-    n = sp.csr_matrix(a).shape[0]
-    return layout_from_part(a, np.zeros(n, dtype=np.int64), 1,
-                            row_multiple=row_multiple)
+def build_row_layout(a: sp.spmatrix, nshards: int, refine_passes: int = 8,
+                     row_multiple: int = 8) -> RowLayout:
+    """Partition A's rows into ``nshards`` balanced parts (``kway_partition``;
+    one shard: every row in part 0) and build the layout."""
+    a = sp.csr_matrix(a)
+    n = a.shape[0]
+    if nshards == 1:
+        part = np.zeros(n, dtype=np.int64)
+    else:
+        part = kway_partition(a, nshards, refine_passes)
+    return layout_from_part(a, part, nshards, row_multiple=row_multiple)
 
 
 def layout_from_part(a: sp.spmatrix, part: np.ndarray, nshards: int,
@@ -131,3 +134,77 @@ def pad_to_padded(layout: RowLayout, x: np.ndarray) -> np.ndarray:
 def unpad_from_padded(layout: RowLayout, xp: np.ndarray) -> np.ndarray:
     """Padded permuted vector/block -> original global ordering."""
     return np.asarray(xp)[layout.inv_perm]
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """Static neighbour-exchange schedule of the ELL SpMM over several
+    shards (``prealps_tpu/core/layout.py::HaloPlan``): each shard packs the
+    rows of X its neighbours reference (``send_idx``), one all-to-all moves
+    the packs, and the shard's ELL columns are remapped into
+    [own rows ∥ halo buffer] coordinates (``cols_local``)."""
+
+    h: int                    # rows per (src, dst) slot (max over pairs)
+    send_idx: np.ndarray      # (S, S, h) int32: local rows shard s packs for d
+    cols_local: np.ndarray    # (n_pad, L) int32: ELL cols in local+halo space
+    comm_rows: int            # true (unpadded) total rows exchanged
+
+    @property
+    def halo_rows_per_shard(self) -> int:
+        return self.send_idx.shape[1] * self.h
+
+
+def build_halo_plan(layout: RowLayout, ell_cols: np.ndarray,
+                    ell_vals: np.ndarray) -> HaloPlan:
+    """The exchange schedule of the padded ELL structure: ``ell_cols`` /
+    ``ell_vals`` (n_pad, L) global padded column ids and values (zero values
+    mark padding slots, left out of the dependency scan)."""
+    s_n = layout.nshards
+    mpl = layout.rows_per_shard
+    used = ell_vals != 0
+    owner_of = ell_cols // mpl
+
+    needed = [[None] * s_n for _ in range(s_n)]  # needed[s][q]: global cols
+    h = 1
+    comm_rows = 0
+    for s in range(s_n):
+        rows = slice(s * mpl, (s + 1) * mpl)
+        cols_s = ell_cols[rows][used[rows]]
+        own = owner_of[rows][used[rows]]
+        for q in range(s_n):
+            if q == s:
+                continue
+            cq = np.unique(cols_s[own == q])
+            needed[s][q] = cq
+            h = max(h, cq.size)
+            comm_rows += cq.size
+
+    send_idx = np.zeros((s_n, s_n, h), dtype=np.int32)
+    for q in range(s_n):
+        for s in range(s_n):
+            if q == s:
+                continue
+            cq = needed[s][q]
+            send_idx[q, s, : cq.size] = (cq - q * mpl).astype(np.int32)
+
+    cols_local = np.zeros_like(ell_cols, dtype=np.int32)
+    for s in range(s_n):
+        rows = slice(s * mpl, (s + 1) * mpl)
+        c = ell_cols[rows]
+        o = c // mpl
+        out = np.where(o == s, c - s * mpl, 0).astype(np.int64)
+        for q in range(s_n):
+            if q == s:
+                continue
+            cq = needed[s][q]
+            sel = o == q
+            if cq.size and np.any(sel):
+                # padding (zero-value) slots may name off-shard columns
+                # absent from cq: clamp them into the buffer (value zero)
+                pos = np.minimum(np.searchsorted(cq, c[sel]), cq.size - 1)
+                out[sel] = mpl + q * h + pos
+            elif np.any(sel):
+                out[sel] = 0
+        cols_local[rows] = out.astype(np.int32)
+    return HaloPlan(h=h, send_idx=send_idx, cols_local=cols_local,
+                    comm_rows=comm_rows)

@@ -343,8 +343,11 @@ int prealps_stencil(const void* blocks, int blocks_dtype, const float* x,
   StencilOffsets offs;
   for (int i = 0; i < PREALPS_STENCIL_MAX_OFFSETS; ++i)
     offs.v[i] = i < n_off ? offsets_host[i] : 0;
+  // the wrap map folds an offset once (|off| <= nrb); the extended map
+  // reads r + lead + off, so there |off| <= lead is all it needs (a shard
+  // thinner than the stencil halo has offsets wider than its nodes)
   for (int i = 0; i < n_off; ++i)
-    if (offs.v[i] < -nrb || offs.v[i] > nrb ||
+    if ((wrap && (offs.v[i] < -nrb || offs.v[i] > nrb)) ||
         (!wrap && (offs.v[i] < -lead || offs.v[i] > lead)))
       return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

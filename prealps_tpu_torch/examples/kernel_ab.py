@@ -12,7 +12,9 @@ Shapes (all f32, inputs from ``default_rng``; the times do not depend on
 the values):
 
 * B1 on the headline operator (elasticity3d 36³ scaled, padded as the
-  stencil path pads it: nrb 49,360, S 27, br 3) at t 12 and 1; on the DIA
+  stencil path pads it: nrb 49,360, S 27, br 3) at t 12 and 1; at a
+  4-shard headline shard's shape (rank 1's 12,400 nodes of the 4-shard
+  layout, on its extended panel: halo 1,407) at t 12 and 1; on the DIA
   path's table (the scaled operator's 97 promoted diagonals, n_pad
   148,480) and the unscaled operator's 99, at t 12 and 1;
 * B2a on the LORASC path's operator shape (heterogeneous elasticity3d 36³,
@@ -128,6 +130,19 @@ def main() -> int:
         record("B3", f"headline br3 t{t}",
                lambda: stencil_bsr_spmm_t_pallas(head, x),
                4 * (head.blocks_t.numel() + 2 * x.numel()))
+    # a shard of the headline over 4 ranks (the sharded driver's layout)
+    lay4 = contiguous_row_layout(a.shape[0], 4, row_multiple=math.lcm(24, 240))
+    nrb4 = lay4.rows_per_shard // br
+    head4 = csr_to_stencil_bsr_t(permute_and_pad_matrix(a_s, lay4), br=3,
+                                 dtype=np.float32, device=dev)
+    bf4 = stencil_blocks_flat(head4.blocks_t)[:, nrb4:2 * nrb4].contiguous()
+    del head4
+    for t in (12, 1):
+        x_ext = rand(br * t, nrb4 + 2 * halo)
+        record("B1", f"4-rank shard br3 t{t} nrb{nrb4}",
+               lambda: stencil_flat_ext(bf4, head.offsets, x_ext, halo, br),
+               4 * (bf4.numel() + 2 * br * t * nrb4))
+    del bf4
     b3 = stencil_blocks_planar(head.blocks_t).contiguous()
     x2 = rand(12, br * nrb)
     record("B4", "headline br3 t12",

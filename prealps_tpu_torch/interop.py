@@ -32,14 +32,22 @@ from prealps_tpu_torch.parallel.driver import (
     EllOperands,
     StencilOperands,
 )
+from prealps_tpu_torch.parallel.mesh import rank_of, shard_device, size_of
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi
 from prealps_tpu_torch.precond.chebyshev import Chebyshev
 from prealps_tpu_torch.precond.lorasc_scale import ArrowBandPlan, ScalableLorasc
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 
 
-def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> DistributedECG:
+def solver_from_reference(arrays: dict, meta: dict, device="cuda",
+                          group=None) -> DistributedECG:
     """Port solver on a reference build's operands.
+
+    With ``group`` (a process group of ``meta["nshards"]`` ranks), every
+    rank passes the reference's global arrays (a JAX build over as many
+    shards) and keeps its own shard: its nodes or rows of the operator and
+    the preconditioner, its part of every block array, the replicated
+    coarse inverse.
 
     arrays — numpy unless noted:
       ``scale_d``  (n,) RAC scaling vector, or None
@@ -51,7 +59,9 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         none; for bj2l also ``yq3`` (nb, q, mb) coarse modes and ``ac_inv``
         (nb·q, nb·q) coarse inverse (without them the preconditioner is
         plain block Jacobi, "bj_flat");
-      * "ell": ``ell_vals``, ``ell_cols`` (n_pad, L);
+      * "ell": ``ell_vals``, ``ell_cols`` (n_pad, L); over several shards
+        ``ell_cols`` in [own rows ∥ halo buffer] coordinates and
+        ``ell_send_idx`` (S, S, h) (the JAX build's halo plan operands);
       * "block_ell" / "block_ell_xla": ``bell_blocks`` (nrb, S, 8, bk),
         ``bell_blkcols`` (nrb, S);
       * "dia": ``dia_diags`` (D, n_pad) promoted diagonals (or the JAX
@@ -71,7 +81,8 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         lane-major, (n_pad,) row-major), with ``meta["cheb"]`` = (λ_min,
         λ_max, degree).
     meta:
-      ``n``, ``n_pad``, ``rows_per_shard``, ``opts`` (dict of ECGOptions
+      ``n``, ``n_pad``, ``rows_per_shard``, ``nshards`` (default 1),
+      ``opts`` (dict of ECGOptions
       fields, as the reference solver holds them after build),
       ``target_tol``; ``fmt``; for the stencil ``stencil_offsets`` (S node
       offsets) and ``br``; for DIA ``dia_offsets`` and ``layout`` ("nt" or
@@ -81,20 +92,33 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
 
     The operands' dtype (float32 or float64) is the solve's dtype.
     """
-    device = resolve_device(device)
+    nshards = int(meta.get("nshards", 1))
+    if nshards != size_of(group):
+        raise ValueError(f"a build over {nshards} shards needs a group of as "
+                         f"many ranks; got {size_of(group)}")
+    shard = rank_of(group)
+    device = resolve_device(device) if group is None else shard_device(device, shard)
     strict_fp32()
     fmt = meta.get("fmt", "stencil")
+    lane = fmt == "stencil" or (fmt == "dia" and meta.get("layout") == "tbn")
 
-    def dev(name, dtype=None):
+    def part(arr, axis=0):
+        """This shard's equal part of a global array along ``axis``."""
+        arr = np.asarray(arr)
+        n = arr.shape[axis] // nshards
+        return np.take(arr, np.arange(shard * n, (shard + 1) * n), axis=axis)
+
+    def dev(name, dtype=None, axis=0, replicated=False):
         # copies: arrays handed over from another framework may be read-only
-        return torch.from_numpy(np.array(arrays[name], dtype=dtype, order="C")).to(device)
+        arr = arrays[name] if replicated else part(arrays[name], axis)
+        return torch.from_numpy(np.array(arr, dtype=dtype, order="C")).to(device)
 
     n_pad = int(meta["n_pad"])
     if fmt == "stencil":
         br = int(meta["br"])
         offsets = tuple(int(o) for o in meta["stencil_offsets"])
         blocks = np.asarray(arrays["blocks"])
-        blocks_flat = blocks.reshape(len(offsets) * br * br, blocks.shape[-1])
+        blocks_flat = part(blocks.reshape(len(offsets) * br * br, blocks.shape[-1]), 1)
         dtype = blocks_flat.dtype
         bj2l = arrays.get("yq3") is not None
         operands = StencilOperands(
@@ -102,7 +126,7 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
             offsets=offsets, br=br,
             inv_f=dev("inv_f", dtype) if arrays.get("inv_f") is not None else None,
             yq3=dev("yq3", dtype) if bj2l else None,
-            ac_inv=dev("ac_inv", dtype) if bj2l else None)
+            ac_inv=dev("ac_inv", dtype, replicated=True) if bj2l else None)
     elif fmt == "dia" and meta.get("layout") == "tbn":
         offsets = tuple(int(o) for o in meta["dia_offsets"])
         diags = np.asarray(arrays["dia_diags"])
@@ -122,10 +146,14 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
                              inv_perm=dev("bj_inv_perm", np.int64),
                              mode=meta["bj_mode"])
         if fmt == "ell":
+            mpl = n_pad // nshards
+            send_idx = (None if nshards == 1 else torch.from_numpy(
+                part(arrays["ell_send_idx"]).astype(np.int64)[0]).to(device))
+            width = mpl if send_idx is None else mpl + send_idx.numel()
             operands = EllOperands(
                 mat=EllMatrix(dev("ell_vals"), dev("ell_cols", np.int32),
-                              (n_pad, n_pad)),
-                bj=bj)
+                              (mpl, width)),
+                bj=bj, send_idx=send_idx)
             dtype = np.asarray(arrays["ell_vals"]).dtype
         elif fmt in ("block_ell", "block_ell_xla"):
             operands = BlockEllOperands(
@@ -148,15 +176,17 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         operands.inv_u = dev("inv_u", dtype)
         operands.groups = block_groups(meta["groups"], device)
     if arrays.get("inv5") is not None:
-        operands.inv5 = _tensor(arrays["inv5"]).to(device)
+        operands.inv5 = _tensor(part(arrays["inv5"])).to(device)
     if arrays.get("inv_panel") is not None:
         lam_min, lam_max, degree = meta["cheb"]
         operands.cheb = Chebyshev(
-            inv_diag=dev("inv_panel", dtype), lam_min=float(lam_min),
+            inv_diag=dev("inv_panel", dtype, axis=-1 if lane else 0),
+            lam_min=float(lam_min),
             lam_max=float(lam_max), degree=int(degree),
             a_apply=operands.a_apply, lane_major=operands.layout == "tbn")
+    operands.group, operands.shard = group, shard
     layout = RowLayout(
-        n=int(meta["n"]), n_pad=n_pad, nshards=1,
+        n=int(meta["n"]), n_pad=n_pad, nshards=nshards,
         rows_per_shard=int(meta["rows_per_shard"]),
         perm=np.asarray(arrays["perm"]), inv_perm=np.asarray(arrays["inv_perm"]),
         offsets=np.asarray(arrays["layout_offsets"]))
@@ -168,7 +198,7 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda") -> Distribute
         operands=operands, device=device, dtype=np.dtype(dtype),
         target_tol=float(meta["target_tol"]),
         a_scaled=None if a_scaled is None else sp.csr_matrix(a_scaled),
-        pre_perm=arrays.get("pre_perm"),
+        pre_perm=arrays.get("pre_perm"), group=group,
     )
 
 

@@ -6,7 +6,12 @@ started together, for ``sm_90a`` into a shared library with a plain C
 interface under ``prealps_tpu_torch/_build/`` (each file name carries a hash
 of its source and flags, so an edited source is rebuilt), then loaded with
 ctypes. Nothing is built or loaded at import time, and there is no
-fallback: a missing ``nvcc`` or a failed build raises.
+fallback: a missing ``nvcc`` or a failed build raises. Processes that load
+at once (the ranks of a sharded solve) are safe: the build runs under an
+exclusive lock on ``_build/.lock`` (``flock``, released when its holder
+exits), so one process builds and the others, once it is done, find the
+libraries; each library is written under a temporary name and renamed into
+place, so none is ever seen half written.
 
 Tensors are passed as raw device pointers (``Tensor.data_ptr()``) and the
 launch goes to ``torch.cuda.current_stream()``; the C functions return the
@@ -16,6 +21,7 @@ launch's ``cudaGetLastError()``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,12 +78,25 @@ def _build_all() -> dict:
     """Compile every source that has no up-to-date library, in parallel;
     returns source -> library path."""
     outs = {src: _target(src) for src in SOURCES}
+    if all(out.is_file() for out in outs.values()):
+        for src in SOURCES:
+            build_info[src] = dict(path=str(outs[src]), seconds=0.0, log="(cached)")
+        return outs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released on close or exit
+        _build_locked(outs)
+    return outs
+
+
+def _build_locked(outs: dict) -> None:
+    """The build under the lock: whatever another process built while this
+    one waited counts as cached."""
     todo = [src for src, out in outs.items() if not out.is_file()]
     for src in SOURCES:
         if src not in todo:
             build_info[src] = dict(path=str(outs[src]), seconds=0.0, log="(cached)")
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
         for src in todo:
@@ -96,7 +115,6 @@ def _build_all() -> dict:
             build_info[src] = dict(path=str(outs[src]), seconds=secs, log=log.strip())
         if failed:
             raise RuntimeError("\n\n".join(failed))
-    return outs
 
 
 def load() -> dict:

@@ -10,11 +10,14 @@ from __future__ import annotations
 
 import torch
 
+from prealps_tpu_torch.parallel.mesh import all_reduce
 
-def psum(x):
-    """Cross-device sum of a local partial result. The identity on one
-    device; the multi-GPU driver will make it an all-reduce."""
-    return x
+
+def psum(x, group=None):
+    """Cross-shard sum of a local partial result: an all-reduce over the
+    process group (``parallel/mesh.py::all_reduce``, on a contiguous copy),
+    and the identity without one (one shard), as JAX's ``psum(x, None)``."""
+    return x if group is None else all_reduce(x, group)
 
 
 def chol_masked(c: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,8 @@ bf16 tables (ROADMAP.md queue B).
 * ``stencil_spmm_planar`` (B4) — the planar panel (t, br·nrb) with the
   plane-major block table of ``stencil_blocks_planar``. Plain version:
   ``stencil_spmm_planar_ref``.
+* ``extend_wrap`` / ``extend_ring`` — the halo columns of a pre-extended
+  panel: wrapped on one shard, from the ring neighbours on several.
 * ``stencil_scan_accumulate`` — the lane-major 4-D oracle every stencil
   kernel is checked against.
 * ``stencil_scan_accumulate_df`` — the double-float (hi, lo) product of the
@@ -66,6 +68,7 @@ from prealps_tpu_torch.ops.formats import (
     EllMatrix,
     StencilBsrTMatrix,
 )
+from prealps_tpu_torch.parallel.mesh import all_gather, rank_of, ring_exchange, size_of
 
 
 def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -246,6 +249,31 @@ def extend_wrap(xf: torch.Tensor, halo: int) -> torch.Tensor:
     if halo > nrb:
         raise ValueError(f"halo {halo} exceeds the node count {nrb}")
     return torch.cat([xf[..., nrb - halo:], xf, xf[..., :halo]], dim=-1)
+
+
+def extend_ring(xf: torch.Tensor, halo: int, group) -> torch.Tensor:
+    """Attach ring halos along the last (node) axis on a sharded panel:
+    [left, x, right], ``left`` the last ``halo`` nodes of rank − 1 and
+    ``right`` the first ``halo`` of rank + 1 (mod the group's size), as the
+    JAX driver's two ``ppermute`` build it (prealps_tpu/parallel/driver.py:
+    735-742). Exact for stencil operators: the wrapped entries meet zero
+    boundary blocks. A shard thinner than the halo gathers the whole panel
+    from every rank instead and takes its window of the panel's periodic
+    extension, nodes s·nrb − halo to (s + 1)·nrb + halo (mod the node
+    count): the JAX driver's all-gather-and-roll branch (:749-754), which
+    also holds where the window is longer than the panel. One shard (or no
+    group) is ``extend_wrap``."""
+    world = size_of(group)
+    if world == 1:
+        return extend_wrap(xf, halo)
+    nrb = xf.shape[-1]
+    if halo <= nrb:
+        left, right = ring_exchange(xf[..., :halo], xf[..., nrb - halo:], group)
+        return torch.cat([left, xf, right], dim=-1)
+    x_all = all_gather(xf, group, dim=-1)
+    first = rank_of(group) * nrb - halo
+    cols = torch.arange(first, first + nrb + 2 * halo, device=xf.device) % (world * nrb)
+    return x_all[..., cols]
 
 
 def stencil_scan_accumulate(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,

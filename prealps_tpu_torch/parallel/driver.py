@@ -1,7 +1,7 @@
-"""DistributedECG on one GPU.
+"""DistributedECG on one GPU, or over several processes, one a shard.
 
-The PyTorch counterpart of ``prealps_tpu/parallel/driver.py`` on one device
-(``nshards=1``), float32 or float64, for these paths:
+The PyTorch counterpart of ``prealps_tpu/parallel/driver.py``, float32 or
+float64. On one device (``nshards=1``, no process group) for these paths:
 
 * ``fmt="stencil"``, ``layout="tbn"`` (lane-major panels), with
   ``precond="bj2l"`` (two-level block Jacobi, the headline solve; with
@@ -69,9 +69,24 @@ plain PyTorch versions on the CPU; ``block_ell_xla``, DIA on ``nt`` and
 the DIA remainder are plain PyTorch on the card too, as they are XLA in
 the JAX driver.
 
-Not ported (NotImplementedError): ``nshards > 1`` (ROADMAP.md queue A,
-item 3). The JAX driver's Pallas tiling ``rb_per_prog`` has no counterpart
-(ROADMAP.md "Not to port").
+Over several shards (``nshards=N`` with a ``torch.distributed`` group of N
+ranks; SPMD: every rank calls ``build`` with the same host matrix and
+computes the same host layout, moves only its shard's operands to its
+device, and ``solve`` returns the full x and the same info on every rank):
+
+* ``fmt="stencil"`` on ``tbn`` with ``precond`` bj2l, bj (flat blocks: the
+  dedup falls back to them, as the JAX driver's ``nshards == 1`` condition
+  does; or bf16 "bj_lane"), chebyshev or none: contiguous rows, the ring
+  halo of ``ops/spmm.py::extend_ring`` before B1 and before the
+  double-float product, bj2l's coarse residual all-gathered;
+* ``fmt="ell"`` on ``nt`` with host block Jacobi, chebyshev or none: the
+  k-way row layout (``build_row_layout``) or the caller's, the
+  ``HaloPlan``'s all-to-all before each product;
+
+every Gram an all-reduce (``solvers/ecg.py``, ``parallel/mesh.py``). The
+other formats, layouts and ``fmt="auto"`` raise NotImplementedError over
+several shards (ROADMAP.md queue A, item 3). The JAX driver's Pallas tiling
+``rb_per_prog`` has no counterpart (ROADMAP.md "Not to port").
 """
 
 from __future__ import annotations
@@ -89,6 +104,7 @@ import torch
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import (
     RowLayout,
+    build_halo_plan,
     build_row_layout,
     contiguous_row_layout,
     layout_from_part,
@@ -108,6 +124,7 @@ from prealps_tpu_torch.direct.device_bj import (
     build_device_block_jacobi_grouped,
     csr_slab_groups,
 )
+from prealps_tpu_torch.ops.blockops import psum
 from prealps_tpu_torch.ops.doublefloat import df_add
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
@@ -130,9 +147,18 @@ from prealps_tpu_torch.ops.spmm import (
     dia_ell_spmm,
     ell_gather_spmm_df,
     ell_spmm,
-    extend_wrap,
+    extend_ring,
     stencil_flat_ext,
     stencil_scan_accumulate_df,
+)
+from prealps_tpu_torch.parallel.mesh import (
+    all_gather,
+    all_to_all,
+    backend_of,
+    check_backend_device,
+    rank_of,
+    shard_device,
+    size_of,
 )
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi, build_block_jacobi
 from prealps_tpu_torch.precond.chebyshev import Chebyshev, power_lam_max_host
@@ -182,10 +208,26 @@ class _Operands:
     """Without a double-float product (``df_ok`` False) the refinement
     residuals are host f64 and ``a_apply_df`` is never called. ``cheb``,
     set at build time, makes the preconditioner a Chebyshev polynomial in
-    the operands' own ``a_apply``."""
+    the operands' own ``a_apply``. ``group`` and ``shard``, set at build
+    time over several shards, make the operands one shard's: its rows of
+    the operator and the preconditioner, with the exchanges of the group."""
 
     df_ok = False
     cheb: Optional[Chebyshev] = None
+    group = None
+    shard = 0
+
+    def local(self, v: np.ndarray) -> np.ndarray:
+        """This shard's part of a global array in the operands' space."""
+        n = v.shape[self.node_axis] // size_of(self.group)
+        lo = self.shard * n
+        return v[..., lo:lo + n] if self.node_axis == -1 else v[lo:lo + n]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every shard's part, concatenated: the global array."""
+        if self.group is None:
+            return x
+        return all_gather(x, self.group, dim=self.node_axis)
 
     def a_apply_df(self, x: torch.Tensor):
         raise NotImplementedError(
@@ -196,6 +238,7 @@ class _LaneMajor(_Operands):
     """Lane-major ("tbn") panels: a padded vector is the (br, nrb) space."""
 
     layout = "tbn"
+    node_axis = -1
 
     def to_space(self, v_pad: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(v_pad.reshape(-1, self.br).T)
@@ -216,6 +259,7 @@ class _RowMajor(_Operands):
     """Row-major ("nt") panels: a padded vector is the (n_pad,) space."""
 
     layout = "nt"
+    node_axis = 0
 
     @staticmethod
     def to_space(v_pad: np.ndarray) -> np.ndarray:
@@ -234,8 +278,10 @@ class _RowMajor(_Operands):
         return p[:, 0]
 
     def split_assign(self, t: int, n_pad: int) -> torch.Tensor:
-        """rhs split (n_pad,): row g goes to column (g·t) // n_pad."""
-        return (torch.arange(n_pad, device=self.device) * t) // n_pad
+        """rhs split of this shard's rows: global row g goes to column
+        (g·t) // n_pad."""
+        n = n_pad // size_of(self.group)
+        return ((self.shard * n + torch.arange(n, device=self.device)) * t) // n_pad
 
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
         """Chebyshev, host-built block Jacobi, or the identity
@@ -297,8 +343,9 @@ class StencilOperands(_LaneMajor):
         return max(abs(o) for o in self.offsets)
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
-        """A·x for a lane-major panel x (t, br, nrb)."""
-        x_ext = extend_wrap(panel_to_flat_kmajor(x), self.halo)
+        """A·x for a lane-major panel x (t, br, nrb): the halo columns from
+        the ring neighbours (wrapped on one shard), then B1."""
+        x_ext = extend_ring(panel_to_flat_kmajor(x), self.halo, self.group)
         yf = stencil_flat_ext(self.blocks_flat, self.offsets, x_ext, self.halo,
                               self.br)
         return panel_from_flat_kmajor(yf, self.br)
@@ -307,8 +354,9 @@ class StencilOperands(_LaneMajor):
         """A·x in double-float for a lane-major panel: (y_hi, y_lo)."""
         blocks_t = self.blocks_flat.reshape(len(self.offsets), self.br,
                                             self.br, self.nrb)
-        return stencil_scan_accumulate_df(blocks_t, self.offsets,
-                                          extend_wrap(x, self.halo), self.halo)
+        return stencil_scan_accumulate_df(
+            blocks_t, self.offsets, extend_ring(x, self.halo, self.group),
+            self.halo)
 
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
         if self.cheb is not None:
@@ -321,13 +369,14 @@ class StencilOperands(_LaneMajor):
             return z
         if self.yq3 is None:
             return bj_apply_flat(self.inv_f, z)
-        return bj2l_apply(self.inv_f, self.yq3, self.ac_inv, z)
+        return bj2l_apply(self.inv_f, self.yq3, self.ac_inv, z, self.group)
 
     def split_assign(self, t: int, n_pad: int) -> torch.Tensor:
-        """rhs split (br, nrb): global row (r·br + k) goes to column
-        (row·t) // n_pad — a contiguous split into t chunks."""
+        """rhs split (br, nrb) of this shard's nodes: global row
+        ((s·nrb + r)·br + k) goes to column (row·t) // n_pad — a contiguous
+        split into t chunks (JAX ``make_split_assign``)."""
         dev = self.blocks_flat.device
-        r_idx = torch.arange(self.nrb, device=dev)[None, :]
+        r_idx = self.shard * self.nrb + torch.arange(self.nrb, device=dev)[None, :]
         k_idx = torch.arange(self.br, device=dev)[:, None]
         return ((r_idx * self.br + k_idx) * t) // n_pad
 
@@ -358,10 +407,14 @@ class DiaLaneOperands(StencilOperands):
 @dataclass
 class EllOperands(_RowMajor):
     """Device operands of fmt="ell": ELL matrix + host-built block Jacobi.
-    The refinement residual runs on the device in double-float."""
+    The refinement residual runs on the device in double-float. Over
+    several shards ``mat`` holds this shard's rows with columns in
+    [own rows ∥ halo buffer] coordinates and ``send_idx`` (S, h) the rows
+    each shard needs of this one (``core/layout.py::HaloPlan``)."""
 
     mat: EllMatrix
     bj: Optional[BlockJacobi]
+    send_idx: Optional[torch.Tensor] = None
 
     df_ok = True
 
@@ -369,11 +422,19 @@ class EllOperands(_RowMajor):
     def device(self) -> torch.device:
         return self.mat.vals.device
 
+    def _extended(self, x: torch.Tensor) -> torch.Tensor:
+        """[x ∥ halo buffer]: one all-to-all of the packed boundary rows
+        (prealps_tpu/parallel/driver.py:879-897)."""
+        if self.send_idx is None:
+            return x
+        recv = all_to_all(x[self.send_idx], self.group)        # (S, h, t)
+        return torch.cat([x, recv.reshape(-1, x.shape[1])])
+
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
-        return ell_spmm(self.mat, x)
+        return ell_spmm(self.mat, self._extended(x))
 
     def a_apply_df(self, x: torch.Tensor):
-        return ell_gather_spmm_df(self.mat.vals, x[self.mat.cols])
+        return ell_gather_spmm_df(self.mat.vals, self._extended(x)[self.mat.cols])
 
 
 @dataclass
@@ -456,15 +517,13 @@ LANE_FORMATS = ("stencil", "dia")
 
 def build_sharded_block_jacobi(a_pad: sp.csr_matrix, layout: RowLayout,
                                nblocks_per_shard: int = 1, dtype=None,
-                               device="cpu") -> BlockJacobi:
-    """Block Jacobi of the shard's diagonal block with local row indexing
-    (prealps_tpu/parallel/driver.py:46-70), on one shard."""
-    if layout.nshards != 1:
-        raise NotImplementedError(
-            "block Jacobi over several shards is not ported yet (ROADMAP.md "
-            "queue A, item 3)")
+                               device="cpu", shard: int = 0) -> BlockJacobi:
+    """Block Jacobi of shard ``shard``'s diagonal block with local row
+    indexing (prealps_tpu/parallel/driver.py:46-70: the JAX driver builds
+    every shard's and concatenates them; each rank here builds its own)."""
     mpl = layout.rows_per_shard
-    local = a_pad if a_pad.shape[0] == mpl else a_pad[:mpl, :mpl]
+    r0 = shard * mpl
+    local = a_pad if a_pad.shape[0] == mpl else a_pad[r0:r0 + mpl, r0:r0 + mpl]
     return build_block_jacobi(local, nblocks=nblocks_per_shard, dtype=dtype,
                               device=device)
 
@@ -493,6 +552,16 @@ def _check_options(fmt, precond, layout):
         return "chebyshev"
     raise ValueError(
         f"DistributedECG supports block_jacobi/bj2l/chebyshev/none, got {precond!r}")
+
+
+def _check_sharded(fmt, layout, nshards):
+    """Over several shards only the stencil on lane-major panels and ELL on
+    row-major panels are ported (ROADMAP.md queue A, item 3)."""
+    if nshards > 1 and (fmt, layout) not in (("stencil", "tbn"), ("ell", "nt")):
+        raise NotImplementedError(
+            f"fmt={fmt!r} on layout={layout!r} over {nshards} shards is not "
+            "ported yet: the sharded driver runs fmt='stencil' on 'tbn' and "
+            "fmt='ell' on 'nt' (ROADMAP.md queue A, item 3)")
 
 
 def _detect(a, br, opts, auto_layout, precond, device, pinned):
@@ -570,8 +639,8 @@ def _chebyshev(ops, a_pad, degree, kappa, dtype, device):
     lam_max = power_lam_max_host(a_pad) * 1.05
     inv_diag = (1.0 / np.asarray(a_pad.diagonal(), dtype=np.float64)).astype(dtype)
     lane_major = ops.layout == "tbn"
-    if lane_major:
-        inv_diag = np.ascontiguousarray(inv_diag.reshape(-1, ops.br).T)  # (br, nrb)
+    # (br, nrb) lane-major or (n_pad,): this shard's part
+    inv_diag = np.ascontiguousarray(ops.local(ops.to_space(inv_diag)))
     ops.cheb = Chebyshev(inv_diag=torch.from_numpy(inv_diag).to(device),
                          lam_min=lam_max / kappa, lam_max=lam_max,
                          degree=int(degree), a_apply=ops.a_apply,
@@ -580,12 +649,18 @@ def _chebyshev(ops, a_pad, degree, kappa, dtype, device):
 
 def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
                       stage, layout=None, dedupe=False, bj_dtype="f32",
-                      cheb=None):
+                      cheb=None, group=None):
     """Stencil path on lane-major panels: contiguous layout (or the
     caller's), flat block table, and the preconditioner: device block
-    Jacobi (+ the bj2l coarse space) or Chebyshev."""
+    Jacobi (+ the bj2l coarse space) or Chebyshev. Over several shards the
+    host build is global (every rank the same) and the device operands
+    this rank's columns: its nodes of the block table, its block inverses
+    and coarse modes (blocks never straddle a shard: rows are a multiple
+    of mbn·br) and the replicated coarse inverse."""
     device_bj = kind in ("bj2l", "bj_device")
-    mbn, dedupe = None, dedupe and kind == "bj_device"
+    nshards = size_of(group)
+    # the grouped blocks only on one shard, as in the JAX driver
+    mbn, dedupe = None, dedupe and kind == "bj_device" and nshards == 1
     if device_bj:
         mbn, dedupe = _bj_node_block(a.shape[0] // br, br, block_size, grid,
                                      dedupe)
@@ -597,10 +672,11 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
             mult = mbn * br
         elif device_bj:
             mult = math.lcm(mult, mbn * br)
-        layout = contiguous_row_layout(a.shape[0], 1, row_multiple=mult)
+        layout = contiguous_row_layout(a.shape[0], nshards, row_multiple=mult)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
+    shard = rank_of(group)
     host = stencil_blocks_host(a_pad, br=br, dtype=dtype)
     if host is None:
         raise ValueError("matrix is not stencil-structured; use fmt='ell' or "
@@ -610,27 +686,31 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
     nrb = layout.n_pad // br
     if max(abs(o) for o in offsets) > nrb:
         raise ValueError(f"stencil halo exceeds the node count {nrb}")
-    # flat (S·br², nrb) table: row s·br² + m·br + k
+    # flat (S·br², nrb) table: row s·br² + m·br + k; this shard's nodes
+    nrb_loc = layout.rows_per_shard // br
     blocks_flat = torch.from_numpy(np.ascontiguousarray(
-        blocks_host.transpose(1, 2, 3, 0).reshape(s_off * br * br, nrb)
+        blocks_host[shard * nrb_loc:(shard + 1) * nrb_loc]
+        .transpose(1, 2, 3, 0).reshape(s_off * br * br, nrb_loc)
     )).to(device)
     del blocks_host
     _sync(device)
     stage("fmt_convert")
 
     ops = StencilOperands(blocks_flat=blocks_flat, offsets=offsets, br=br)
-    blocks_t = blocks_flat.reshape(s_off, br, br, nrb)
+    ops.group, ops.shard = group, shard
+    blocks_t = blocks_flat.reshape(s_off, br, br, nrb_loc)
     if kind == "bj_device":
         _device_block_jacobi(ops, blocks_t, a_pad, mbn, dedupe, bj_dtype)
     elif kind == "bj2l":
         ops.inv_f = build_device_block_jacobi_flat(blocks_t, offsets, mbn=mbn)
-        nb = ops.inv_f.shape[0]
+        nb = ops.inv_f.shape[0]          # this shard's blocks
         mb = br * mbn
+        # the coarse space and its inverse are global (every rank the same)
         d_pad = pad_to_padded(layout, scale_d) if scale_d is not None else None
         if grid is not None:
             y5 = geometric_rbm_modes(grid, br, nrb, mbn, scale_d=d_pad, q=Q_MODES)
         else:
-            y5 = translation_modes(nb, mbn, br, d_pad)
+            y5 = translation_modes(nrb // mbn, mbn, br, d_pad)
         ac = coarse_matrix_host(a_pad, y5, br)
         # padded rows carry identity blocks; their modes can make A_c
         # ill-conditioned — regularise lightly
@@ -638,7 +718,8 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
         ac += 1e-10 * np.trace(ac) / nc * np.eye(nc)
         ac_inv = coarse_inverse_host(ac).astype(dtype)
         yq3 = np.ascontiguousarray(
-            y5.transpose(0, 3, 1, 2).reshape(nb, -1, mb)).astype(dtype)
+            y5[shard * nb:(shard + 1) * nb].transpose(0, 3, 1, 2)
+            .reshape(nb, -1, mb)).astype(dtype)
         ops.yq3 = torch.from_numpy(yq3).to(device)
         ops.ac_inv = torch.from_numpy(ac_inv).to(device)
     elif kind == "chebyshev":
@@ -685,20 +766,24 @@ def _dia_lane_operands(a, kind, block_size, grid, dtype, device, stage,
 
 
 def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
-                      bell_bk, dtype, device, stage, layout=None, cheb=None):
+                      bell_bk, dtype, device, stage, layout=None, cheb=None,
+                      group=None):
     """Row-major panels: partition layout (stencil: contiguous) or the
     caller's, ELL / block-ELL / DIA+ELL / stencil, host block Jacobi or
-    Chebyshev."""
+    Chebyshev. Over several shards (ELL only) the host build is global and
+    the device operands this rank's rows, with the halo plan's exchange."""
     bell = fmt in ("block_ell", "block_ell_xla")
     if layout is None and fmt == "stencil":
         layout = contiguous_row_layout(a.shape[0], 1,
                                        row_multiple=math.lcm(8, br))
     elif layout is None:
         # block-ELL moves whole bk = 128 column blocks: rows pad to 128
-        layout = build_row_layout(a, 1, row_multiple=128 if bell else 8)
+        layout = build_row_layout(a, size_of(group),
+                                  row_multiple=128 if bell else 8)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
+    shard = rank_of(group)
     if fmt == "stencil":
         mat = csr_to_stencil_bsr(a_pad, br=br, dtype=dtype, device=device)
         if mat is None:
@@ -710,7 +795,7 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
     elif fmt == "dia":
         mat = csr_to_dia_ell(a_pad, min_fill=0.05, dtype=dtype, device=device)
     else:
-        mat = csr_to_ell(a_pad, dtype=dtype, device=device)
+        mat, send_idx = _ell_shard(a_pad, layout, shard, dtype, device)
     _sync(device)
     stage("fmt_convert")
 
@@ -719,7 +804,7 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
         if block_size is not None:
             nblocks_per_shard = max(1, -(-layout.rows_per_shard // block_size))
         bj = build_sharded_block_jacobi(a_pad, layout, nblocks_per_shard,
-                                        dtype=dtype, device=device)
+                                        dtype=dtype, device=device, shard=shard)
     if fmt == "stencil":
         ops = StencilNtOperands(mat=mat, bj=bj)
     elif bell:
@@ -727,7 +812,8 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
     elif fmt == "dia":
         ops = DiaOperands(mat=mat, bj=bj)
     else:
-        ops = EllOperands(mat=mat, bj=bj)
+        ops = EllOperands(mat=mat, bj=bj, send_idx=send_idx)
+    ops.group, ops.shard = group, shard
     if kind == "chebyshev":
         _chebyshev(ops, a_pad, *cheb, dtype, device)
     _sync(device)
@@ -735,7 +821,24 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
     return layout, ops
 
 
-def _pinned_layout(a, parts, fmt, pre_perm, layout, row_multiple):
+def _ell_shard(a_pad, layout, shard, dtype, device):
+    """The ELL operator and, over several shards, this shard's rows with
+    columns in [own rows ∥ halo buffer] coordinates and its row of the halo
+    plan's send lists (JAX driver :405-419); (matrix, send_idx or None)."""
+    if layout.nshards == 1:
+        return csr_to_ell(a_pad, dtype=dtype, device=device), None
+    ell = csr_to_ell(a_pad, dtype=dtype, device="cpu")
+    plan = build_halo_plan(layout, ell.cols.numpy(), ell.vals.numpy())
+    mpl = layout.rows_per_shard
+    rows = slice(shard * mpl, (shard + 1) * mpl)
+    mat = EllMatrix(ell.vals[rows].contiguous().to(device),
+                    torch.from_numpy(plan.cols_local[rows]).to(device),
+                    (mpl, mpl + layout.nshards * plan.h))
+    send_idx = torch.from_numpy(plan.send_idx[shard].astype(np.int64)).to(device)
+    return mat, send_idx
+
+
+def _pinned_layout(a, parts, fmt, pre_perm, layout, row_multiple, nshards=1):
     """The row layout of a pinned partition (one part id per row), with the
     JAX driver's checks (prealps_tpu/parallel/driver.py:265-294)."""
     if fmt == "stencil":
@@ -752,10 +855,10 @@ def _pinned_layout(a, parts, fmt, pre_perm, layout, row_multiple):
     if parts.shape[0] != a.shape[0]:
         raise ValueError(f"partition has {parts.shape[0]} entries for a "
                          f"{a.shape[0]}-row matrix")
-    if parts.min() < 0 or parts.max() >= 1:
-        raise ValueError(f"part ids must lie in [0, 1); got "
+    if parts.min() < 0 or parts.max() >= nshards:
+        raise ValueError(f"part ids must lie in [0, {nshards}); got "
                          f"[{parts.min()}, {parts.max()}]")
-    return layout_from_part(a, parts, 1, row_multiple=row_multiple)
+    return layout_from_part(a, parts, nshards, row_multiple=row_multiple)
 
 
 @dataclass
@@ -773,6 +876,7 @@ class DistributedECG:
     timings: dict = field(default_factory=dict)  # build stage wall times (s)
     pre_perm: Optional[np.ndarray] = None  # fmt="auto" row permutation
     fmt_info: Optional[dict] = None        # fmt="auto" detection scores
+    group: Optional[object] = None         # process group over the shards
 
     @classmethod
     def build(
@@ -798,6 +902,7 @@ class DistributedECG:
         parts: Optional[np.ndarray] = None,
         auto_layout: bool = True,
         device="cuda",
+        group=None,
     ) -> "DistributedECG":
         """Build the solver on ``device`` (default "cuda", which raises
         when there is no card; pass device="cpu" to run on the host). The
@@ -809,13 +914,28 @@ class DistributedECG:
         format; False keeps ``opts.layout`` wherever it is valid. ``parts``
         pins the row partition (one part id per row; all zeros on one
         shard) and ``layout`` hands over a whole ``RowLayout``; neither
-        goes with the stencil format's own layout."""
-        device = resolve_device(device)
+        goes with the stencil format's own layout.
+
+        Over several shards every rank of ``group`` (a ``torch.distributed``
+        group of ``nshards`` ranks, ``parallel/mesh.py``) calls ``build``
+        with the same arguments; ``device="cuda"`` is then ``cuda:{rank}``,
+        and ranks that share a card name it and use a gloo group."""
+        world = size_of(group)
+        nshards = world if nshards is None else int(nshards)
+        if nshards != world:
+            raise ValueError(
+                f"nshards={nshards} needs a process group of {nshards} ranks; "
+                f"got {'no group' if group is None else f'{world} ranks'}")
+        if layout is not None and layout.nshards != nshards:
+            raise ValueError(f"the layout has {layout.nshards} shards; "
+                             f"nshards={nshards}")
+        if group is None:
+            device = resolve_device(device)
+        else:
+            device = shard_device(device, rank_of(group))
+            check_backend_device(backend_of(group), world, device,
+                                 rank_of(group))
         strict_fp32()
-        if nshards not in (None, 1) or (layout is not None and layout.nshards != 1):
-            raise NotImplementedError(
-                f"nshards={nshards if layout is None else layout.nshards}: the "
-                "multi-GPU driver is not ported yet (ROADMAP.md queue A, item 3)")
         a = sp.csr_matrix(a)
         tb: dict = {}
         mark = [time.perf_counter()]
@@ -828,10 +948,12 @@ class DistributedECG:
         pre_perm = fmt_info = None
         bell_bk = 128
         if fmt == "auto":
+            _check_sharded(fmt, None, nshards)
             fmt, opts, a, pre_perm, fmt_info, bell_bk = _detect(
                 a, br, opts, auto_layout, precond, device, parts is not None)
             stage("detect")
         kind = _check_options(fmt, precond, opts.layout)
+        _check_sharded(fmt, opts.layout, nshards)
 
         dtype = np.dtype(dtype) if dtype is not None else a.dtype
         if dtype not in (np.float32, np.float64):
@@ -856,12 +978,14 @@ class DistributedECG:
                 mbn, _ = _bj_node_block(a.shape[0], 1, block_size, grid,
                                         bj_dedupe and kind == "bj_device")
                 mult = math.lcm(mult, mbn)
-            layout = _pinned_layout(a, parts, fmt, pre_perm, layout, mult)
+            layout = _pinned_layout(a, parts, fmt, pre_perm, layout, mult,
+                                    nshards)
         cheb = (cheb_degree, cheb_kappa)
         if fmt == "stencil" and lane_major:
             layout, operands = _stencil_operands(
                 a, kind, br, block_size, grid, scale_d, dtype, device, stage,
-                layout=layout, dedupe=bj_dedupe, bj_dtype=bj_dtype, cheb=cheb)
+                layout=layout, dedupe=bj_dedupe, bj_dtype=bj_dtype, cheb=cheb,
+                group=group)
         elif fmt == "dia" and lane_major:
             layout, operands = _dia_lane_operands(
                 a, kind, block_size, grid, dtype, device, stage, layout=layout,
@@ -869,29 +993,41 @@ class DistributedECG:
         else:
             layout, operands = _general_operands(
                 a, fmt, kind, br, block_size, nblocks_per_shard, bell_bk,
-                dtype, device, stage, layout=layout, cheb=cheb)
+                dtype, device, stage, layout=layout, cheb=cheb, group=group)
         return cls(
             layout=layout, opts=opts, scale_d=scale_d, operands=operands,
             device=device, dtype=dtype, target_tol=target_tol,
             a_scaled=a if refine else None, timings=tb, pre_perm=pre_perm,
-            fmt_info=fmt_info,
+            fmt_info=fmt_info, group=group,
         )
 
     def _ecg(self, rhs: torch.Tensor) -> ECGResult:
         ops = self.operands
         return ecg_solve(ops.a_apply, ops.m_apply, rhs, self.opts,
                          split_assign=ops.split_assign(self.opts.t,
-                                                       self.layout.n_pad))
+                                                       self.layout.n_pad),
+                         group=self.group)
+
+    def _to_shard(self, v_pad: np.ndarray) -> torch.Tensor:
+        """This shard's part of a padded global vector, in the operands'
+        space, on the device."""
+        ops = self.operands
+        return torch.from_numpy(np.ascontiguousarray(
+            ops.local(ops.to_space(v_pad)))).to(self.device)
+
+    def _from_shards(self, x: torch.Tensor) -> np.ndarray:
+        """The padded global vector from every shard's part of x (the same
+        on every rank)."""
+        ops = self.operands
+        return ops.from_space(ops.gather(x).cpu().numpy())
 
     # --- solves ---------------------------------------------------------
 
     def _solve_scaled_once(self, b_eff: np.ndarray):
         """One device ECG solve of the scaled, padded system."""
-        ops = self.operands
         b_pad = pad_to_padded(self.layout, b_eff.astype(self.dtype))
-        rhs = torch.from_numpy(ops.to_space(b_pad)).to(self.device)
-        res = self._ecg(rhs)
-        x = unpad_from_padded(self.layout, ops.from_space(res.x.cpu().numpy()))
+        res = self._ecg(self._to_shard(b_pad))
+        x = unpad_from_padded(self.layout, self._from_shards(res.x))
         info = {
             "iters": int(res.iters),
             "res": float(res.res),
@@ -905,8 +1041,8 @@ class DistributedECG:
     def local_refine(self, b_hi: torch.Tensor, b_lo: torch.Tensor):
         """Mixed-precision iterative refinement on the device.
 
-        b = b_hi + b_lo (double-float, in the operands' space: (br, nrb)
-        lane-major or (n_pad,) row-major). Each round
+        b = b_hi + b_lo (double-float, this shard's part in the operands'
+        space: (br, nrb) lane-major or (n_pad,) row-major). Each round
         runs an f32 ECG solve on the current residual, adds the correction
         to x in double-float, and recomputes r = b − A·x with the
         compensated SpMM (A·x_hi in double-float, A·x_lo in f32). Stops
@@ -922,7 +1058,7 @@ class DistributedECG:
             return df_add((rh, rl), (-y2, torch.zeros_like(y2)))
 
         def gnorm(v):
-            return torch.sqrt(torch.sum(v * v))
+            return torch.sqrt(psum(torch.sum(v * v), self.group))
 
         normb = gnorm(b_hi)
         tol_s = torch.tensor(self.target_tol, dtype=b_hi.dtype,
@@ -960,16 +1096,14 @@ class DistributedECG:
 
     def _solve_refined_device(self, b_eff: np.ndarray):
         """Device-resident refinement, then a host f64 cross-check."""
-        ops = self.operands
-        b_pad = ops.to_space(pad_to_padded(self.layout, b_eff))  # f64
+        b_pad = pad_to_padded(self.layout, b_eff)                # f64
         b_hi = b_pad.astype(np.float32)
         b_lo = (b_pad - b_hi.astype(np.float64)).astype(np.float32)
-        xh, xl, info = self.local_refine(
-            torch.from_numpy(b_hi).to(self.device),
-            torch.from_numpy(b_lo).to(self.device))
-        x_np = (xh.cpu().numpy().astype(np.float64)
-                + xl.cpu().numpy().astype(np.float64))
-        x = unpad_from_padded(self.layout, ops.from_space(x_np))
+        xh, xl, info = self.local_refine(self._to_shard(b_hi),
+                                         self._to_shard(b_lo))
+        x_np = (self._from_shards(xh).astype(np.float64)
+                + self._from_shards(xl).astype(np.float64))
+        x = unpad_from_padded(self.layout, x_np)
         r = b_eff - self.a_scaled @ x
         info["res"] = float(np.linalg.norm(r))
         info["relres_scaled"] = float(info["res"] / np.linalg.norm(b_eff))

@@ -18,6 +18,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from prealps_tpu_torch.parallel.mesh import all_gather, rank_of
+
 
 def coarse_matrix_host(a_pad: sp.csr_matrix, y5: np.ndarray, br: int) -> np.ndarray:
     """A_c = Zᵀ A Z on the host (setup only). y5: (nb, br, mbn, q) numpy.
@@ -130,19 +132,31 @@ def translation_modes(nb: int, mbn: int, br: int,
 
 
 def bj2l_apply(inv_flat: torch.Tensor, yq3: torch.Tensor, ac_inv: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
+               z: torch.Tensor, group=None) -> torch.Tensor:
     """(M_BJ⁻¹ + Z A_c⁻¹ Zᵀ) z in lane-major, sharing one block transpose.
 
     inv_flat: (nb, mb, mb) block inverses; yq3: (nb, q, mb) per-block modes;
-    ac_inv: (nb·q, nb·q) dense coarse inverse, column index b·q + j;
-    z: (t, br, nrb) -> (t, br, nrb)."""
+    ac_inv: (nb_glob·q, nb_glob·q) dense coarse inverse, column index b·q + j;
+    z: (t, br, nrb) -> (t, br, nrb).
+
+    With a process group, inv_flat / yq3 / z hold this shard's blocks and
+    ac_inv is replicated: the coarse residual Zᵀz (t × nb·q, small) is
+    all-gathered along its columns, the coarse GEMM is replicated, and each
+    shard keeps its own columns (prealps_tpu/precond/twolevel.py:198-207)."""
     nb, mb, _ = inv_flat.shape
     q = yq3.shape[1]
     t, br, nrb = z.shape
     mbn = mb // br
     zb = z.reshape(t, br, nb, mbn).permute(2, 1, 3, 0).reshape(nb, mb, t)
     w = torch.bmm(inv_flat, zb)                       # (nb, mb, t)
-    c = torch.bmm(yq3, zb)                            # (nb, q, t)
-    c = c.permute(2, 0, 1).reshape(t, nb * q) @ ac_inv
+    c = torch.bmm(yq3, zb).reshape(nb * q, t)         # row b·q + j
+    if group is not None:
+        c = all_gather(c, group, dim=0)
+    # (t, nb·q) as a transposed view, on one rank or several: the GEMM's
+    # operand layout, and so its rounding, does not depend on the group
+    c = c.T @ ac_inv
+    if group is not None:
+        s = rank_of(group)
+        c = c[:, s * nb * q:(s + 1) * nb * q]
     w = w + torch.bmm(yq3.mT, c.reshape(t, nb, q).permute(1, 2, 0))
     return w.reshape(nb, br, mbn, t).permute(3, 1, 0, 2).reshape(t, br, nrb)

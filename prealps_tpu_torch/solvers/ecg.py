@@ -25,6 +25,11 @@ The PyTorch counterpart of ``prealps_tpu/solvers/ecg.py``. Two state forms:
 vs tol, maxiter, active block size, breakdown, stall window); evaluating
 them costs one host synchronisation per iteration. ``ecg_solve(x0=...)``
 warm-starts by solving the shifted system A·dx = b − A·x0.
+
+Sharded (``group=``, one process per shard): every reduction — the Grams,
+``normb``, the initial column norms, the adaptive reduction's pivoted
+Cholesky — is a ``psum`` over the group, as ``axis_name`` makes it in the
+JAX solver, so the t×t algebra and the stop tests are replicated.
 """
 
 from __future__ import annotations
@@ -195,26 +200,27 @@ def _rotate_reduce(ops, alpha, p, ap, z, mask, red_tol):
     return alpha, p, ap, ops.scale_dirs(z, new_mask), new_mask
 
 
-def _iter_omin(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops):
+def _iter_omin(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops,
+               group=None):
     """One orthomin iteration (prealps_tpu/solvers/ecg.py:199-242)."""
     p, ap, r, x_blk, mask = state.p, state.ap, state.r, state.x_blk, state.mask
     dtype = state.res.dtype
     # A-CholQR of P against AP
-    u_inv, breakdown = _cholqr_factor(psum(ops.gram(ap, p)), mask, dtype)
+    u_inv, breakdown = _cholqr_factor(psum(ops.gram(ap, p), group), mask, dtype)
     p = ops.mix(p, u_inv)
     ap = ops.mix(ap, u_inv)
     # alpha and update
-    alpha = psum(ops.gram(p, r))
+    alpha = psum(ops.gram(p, r), group)
     x_blk = ops.update(x_blk, p, alpha)
     r = ops.downdate(r, ap, alpha)
-    res = torch.sqrt(torch.trace(psum(ops.gram(r, r))))
+    res = torch.sqrt(torch.trace(psum(ops.gram(r, r), group)))
     # new direction: Z = M⁻¹R, A-orthogonalised against P
     z = m_apply(r)
-    beta = psum(ops.gram(ap, z))
+    beta = psum(ops.gram(ap, z), group)
     p_new = ops.downdate(z, p, beta)
     if opts.adaptive:
         # rank-revealing pivoted Cholesky of PᵀP (BF-Omin)
-        u2, piv, rank = pivoted_cholesky(psum(ops.gram(p_new, p_new)), -1.0)
+        u2, piv, rank = pivoted_cholesky(psum(ops.gram(p_new, p_new), group), -1.0)
         bs = torch.sum(mask).to(rank.dtype)
         t1 = torch.minimum(rank, bs)
         new_mask = (torch.arange(mask.shape[0], device=mask.device) < t1).to(dtype)
@@ -231,15 +237,16 @@ def _iter_omin(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops
         history=_record(state, res, opts), best_res=best_res, stall=stall)
 
 
-def _iter_odir(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops):
+def _iter_odir(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops,
+               group=None):
     """One orthodir iteration (prealps_tpu/solvers/ecg.py:245-297)."""
     p, ap, r, x_blk, mask = state.p, state.ap, state.r, state.x_blk, state.mask
     p_prev, ap_prev = state.p_prev, state.ap_prev
     dtype = state.res.dtype
-    u_inv, breakdown = _cholqr_factor(psum(ops.gram(ap, p)), mask, dtype)
+    u_inv, breakdown = _cholqr_factor(psum(ops.gram(ap, p), group), mask, dtype)
     p = ops.mix(p, u_inv)
     ap = ops.mix(ap, u_inv)
-    alpha = psum(ops.gram(p, r))
+    alpha = psum(ops.gram(p, r), group)
     if opts.adaptive:
         alpha, p, ap, _, mask = _rotate_reduce(
             ops, alpha, p, ap, torch.zeros_like(p), mask, red_tol)
@@ -249,11 +256,11 @@ def _iter_odir(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops
             ap = ops.scale_dirs(ap, mask)
     x_blk = ops.update(x_blk, p, alpha)
     r = ops.downdate(r, ap, alpha)
-    res = torch.sqrt(torch.trace(psum(ops.gram(r, r))))
+    res = torch.sqrt(torch.trace(psum(ops.gram(r, r), group)))
     # new direction: Z = M⁻¹AP, A-orthogonalised against [P, P_prev]
     z = m_apply(ap)
-    beta1 = psum(ops.gram(ap, z))
-    beta2 = psum(ops.gram(ap_prev, z))
+    beta1 = psum(ops.gram(ap, z), group)
+    beta2 = psum(ops.gram(ap_prev, z), group)
     z = ops.downdate(z, p, beta1)
     z = ops.downdate(z, p_prev, beta2)
     z = ops.scale_dirs(z, mask)
@@ -271,7 +278,7 @@ def _iter_odir(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops
 
 
 def _iter_odir_fused(state: ECGPanelState, a_apply, m_apply, opts, normb,
-                     red_tol, ops):
+                     red_tol, ops, group=None):
     """One ODIR-fused iteration with a single fused reduction of five t×t
     blocks (prealps_tpu/solvers/ecg.py:300-368): the Gram blocks are taken on
     the raw P/AP and corrected through the Cholesky factor afterwards."""
@@ -280,7 +287,7 @@ def _iter_odir_fused(state: ECGPanelState, a_apply, m_apply, opts, normb,
     dtype = state.res.dtype
     fused = psum(torch.stack([ops.gram(p, r), ops.gram(ap, z),
                               ops.gram(ap_prev, z), ops.gram(ap, p),
-                              ops.gram(r, r)]))
+                              ops.gram(r, r)]), group)
     alpha, beta1, beta2, mu, rtr = fused.unbind(0)
     res = torch.sqrt(torch.trace(rtr))
     u_inv, breakdown = _cholqr_factor(mu, mask, dtype)
@@ -321,7 +328,7 @@ _ITER_FNS = {
 
 
 def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
-                             normb, red_tol) -> ECGState:
+                             normb, red_tol, group=None) -> ECGState:
     """One stacked ODIR-fused iteration (prealps_tpu/solvers/ecg.py:413-505)."""
     w2 = state.w
     mask = state.mask
@@ -330,7 +337,7 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
     t = mask.shape[0]
 
     # --- ONE Gram: all five t×t reductions at once ---
-    g = psum(w2 @ w2.T)
+    g = psum(w2 @ w2.T, group)
     gb = g.reshape(7, t, 7, t)
     alpha_raw = gb[_SP, :, _SR, :]      # PᵀR
     beta1_raw = gb[_SAP, :, _SZ, :]     # APᵀZ
@@ -395,7 +402,7 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
 
 
 def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
-                       normb, red_tol) -> ECGState:
+                       normb, red_tol, group=None) -> ECGState:
     """One stacked orthomin iteration (prealps_tpu/solvers/ecg.py:508-593).
 
     The flat (5t, N) state is storage only: the reductions are omin's own
@@ -410,7 +417,7 @@ def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
 
     # --- reduction 1: mu = APᵀP and the entering residual's RᵀR ---
     rows = w2[_OR * t:(_OAP + 1) * t]          # contiguous [R, P, AP] rows
-    gb = psum(rows @ rows.T).reshape(3, t, 3, t)
+    gb = psum(rows @ rows.T, group).reshape(3, t, 3, t)
     res = torch.sqrt(torch.trace(gb[0, :, 0, :]))
     ui, breakdown = _cholqr_factor(gb[2, :, 1, :], mask, dtype)
     # --- A-CholQR: P̂ = P·Ui, AP̂ = AP·Ui ---
@@ -419,7 +426,7 @@ def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
 
     # --- reduction 2: alpha on the normalised panel ---
     r_rows = w2[_OR * t:(_OR + 1) * t]
-    alpha = psum(p_hat @ r_rows.T) * mask[:, None]
+    alpha = psum(p_hat @ r_rows.T, group) * mask[:, None]
     x_rows = w2[_OX * t:(_OX + 1) * t] + alpha.T @ p_hat
     r_rows = r_rows - alpha.T @ ap_hat
 
@@ -427,12 +434,12 @@ def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
     zf = m_apply(r_rows.reshape(state.panel_shape)).reshape(t, -1)
 
     # --- reduction 3: beta = AP̂ᵀZ; new direction P <- (Z − P̂β)·mask ---
-    beta = psum(ap_hat @ zf.T)
+    beta = psum(ap_hat @ zf.T, group)
     p_new = zf - beta.T @ p_hat
     if opts.adaptive:
         # BF-Omin rank test: pivoted Cholesky of PᵀP; the permutation and
         # the triangular solve compose into one t×t matrix
-        u2, piv, rank = pivoted_cholesky(psum(p_new @ p_new.T), -1.0)
+        u2, piv, rank = pivoted_cholesky(psum(p_new @ p_new.T, group), -1.0)
         t1 = torch.minimum(rank, torch.sum(mask).to(rank.dtype))
         mask = (torch.arange(t, device=w2.device) < t1).to(dtype)
         u2 = u2 + torch.diag((torch.diagonal(u2).abs() == 0).to(dtype))
@@ -451,20 +458,22 @@ def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
 
 
 def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
-             split_assign=None):
+             split_assign=None, group=None):
     """Initial state + normb (prealps_tpu/solvers/ecg.py:602-655): stacked
-    for tbn + odir_fused or when asked for, unstacked otherwise."""
+    for tbn + odir_fused or when asked for, unstacked otherwise. With a
+    process group, b is this shard's part and every reduction is summed
+    over the group."""
     stacked = _use_stacked(opts)
     ops = LAYOUTS[opts.layout]
     t = opts.t
     dtype = b.dtype
     dev = b.device
-    normb = torch.sqrt(psum(torch.sum(b * b)))
+    normb = torch.sqrt(psum(torch.sum(b * b), group))
     r0 = split_rhs(b, t, split_assign, ops)
     # exactly-zero split columns would make the first A-CholQR singular:
     # move them behind the active prefix (stable order) and start with a
     # reduced mask; the column sum in ecg_finalize is order-invariant
-    col2 = torch.diagonal(psum(ops.gram(r0, r0)))
+    col2 = torch.diagonal(psum(ops.gram(r0, r0), group))
     nz = col2 > 0
     order = torch.argsort(torch.where(nz, 0, 1), stable=True)
     r0 = ops.take_dirs(r0, order)
@@ -489,7 +498,7 @@ def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
 
 
 def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
-            max_steps: Optional[int] = None):
+            max_steps: Optional[int] = None, group=None):
     """Iterate from ``state`` until convergence, maxiter, breakdown, an
     empty active block, a stall (stall_window > 0) or, with ``max_steps``,
     that many more iterations (the chunked-execution primitive)."""
@@ -500,10 +509,12 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
     if _use_stacked(opts):
         iter_fn = (_iter_omin_stacked if opts.variant == "omin"
                    else _iter_odir_fused_stacked)
-        step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol)
+        step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol,
+                                 group)
     else:
         iter_fn, ops = _ITER_FNS[opts.variant], LAYOUTS[opts.layout]
-        step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol, ops)
+        step = lambda s: iter_fn(s, a_apply, m_apply, opts, normb, red_tol, ops,
+                                 group)
 
     it_stop = opts.maxiter if max_steps is None else min(opts.maxiter,
                                                           state.it + max_steps)
@@ -511,7 +522,9 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
         ok = (state.res > tol_abs) & (torch.sum(state.mask) > 0) & ~state.breakdown
         if opts.stall_window > 0:
             ok = ok & (state.stall < opts.stall_window)
-        if not bool(ok):            # the one host synchronisation per step
+        # the one host synchronisation per step; with a group, ok is
+        # computed from all-reduced values and so the same on every rank
+        if not bool(ok):
             break
         state = step(state)
     return state
@@ -542,13 +555,17 @@ def ecg_solve(
     opts: ECGOptions,
     split_assign: Optional[torch.Tensor] = None,
     x0: Optional[torch.Tensor] = None,
+    group=None,
 ) -> ECGResult:
     """Solve A x = b from x = 0, or from ``x0`` (b's shape): then the
     solver works on the shifted system A·dx = b − A·x0 and returns x0 + dx.
     Panels are (m, t) for layout "nt" with b (m,), and (t, *space) for
     layout "tbn" with b (*space).
 
-    a_apply / m_apply: panel -> panel operator callbacks (matrix-free)."""
+    a_apply / m_apply: panel -> panel operator callbacks (matrix-free).
+    ``group``: the process group of a sharded solve (b, the panels and x
+    are this shard's rows; ``split_assign`` gives global column ids), or
+    None on one shard."""
     if m_apply is None:
         m_apply = lambda v: v
     if x0 is not None:
@@ -557,8 +574,8 @@ def ecg_solve(
             r0 = b - a_apply(x0[:, None])[:, 0]
         else:
             r0 = b - a_apply(x0[None])[0]
-        res = ecg_solve(a_apply, m_apply, r0, opts, split_assign)
+        res = ecg_solve(a_apply, m_apply, r0, opts, split_assign, group=group)
         return res._replace(x=res.x + x0)
-    state0, normb = ecg_init(a_apply, m_apply, b, opts, split_assign)
-    final = ecg_run(a_apply, m_apply, state0, normb, opts)
+    state0, normb = ecg_init(a_apply, m_apply, b, opts, split_assign, group)
+    final = ecg_run(a_apply, m_apply, state0, normb, opts, group=group)
     return ecg_finalize(final, normb, opts.layout)

@@ -800,3 +800,104 @@ def test_presc_and_bf16_store_solves_on_card(cuda_device, case):
             assert np.linalg.norm(b - a @ x) < 1e-5 * np.linalg.norm(b)
         assert abs(info_g["iters"] - info_c["iters"]) <= max(2, 0.1 * info_c["iters"]), (
             extra, info_g["iters"], info_c["iters"])
+
+
+# --- the sharded driver on the card: ranks that share cuda:0 through gloo ---
+
+
+def _spawn_on_card(fn, world, args, tmp_path):
+    """``world`` ranks of ``fn`` (a ``torch_shard_workers`` function) in one
+    gloo group, their rendezvous a FileStore under ``tmp_path``."""
+    from prealps_tpu_torch.parallel import mesh
+
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    return mesh.spawn(fn, world, args=args, init_method=f"file://{tmp_path}/store",
+                      timeout=300, threads=2)
+
+
+def test_extend_ring_on_card_matches_global_wrap(cuda_device, tmp_path):
+    """2 gloo ranks on one card (both neighbours the same peer): the ring
+    halo, and the all-gather branch of a shard thinner than its halo,
+    bitwise the wrap of the global panel, and on the card."""
+    import torch_shard_workers as w
+
+    out = _spawn_on_card(w.card_ring, 2, (100, (1, 37, 100, 150)), tmp_path)
+    for r in out:
+        assert r == {h: ("cuda", True) for h in (1, 37, 100, 150)}
+
+
+def test_b1_at_the_sharded_headline_shape_matches_plain(cuda_device):
+    """B1 at a 4-rank headline shard's shape: 27 offsets of the 37 × 37
+    node planes (halo 1,407), 12,400 nodes a shard, t 12 (the table of
+    elasticity3d(36,36,9), zero-padded to the shard's nodes)."""
+    st = tfmt.csr_to_stencil_bsr_t(elasticity3d(36, 36, 9), br=3,
+                                   dtype=np.float32, device=cuda_device)
+    halo = max(abs(o) for o in st.offsets)
+    assert halo == 1407 and len(st.offsets) == 27
+    bf = torch.nn.functional.pad(tfmt.stencil_blocks_flat(st.blocks_t),
+                                 (0, 12400 - st.blocks_t.shape[-1])).contiguous()
+    x = np.random.default_rng(8).standard_normal((36, 12400 + 2 * halo))
+    x_ext = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    y = tspmm.stencil_flat_ext(bf, st.offsets, x_ext, halo, 3)
+    ref = tspmm.stencil_flat_ext_ref(bf, st.offsets, x_ext, halo, 3)
+    scale = tspmm.stencil_flat_ext_ref(bf.abs(), st.offsets, x_ext.abs(), halo, 3)
+    assert y.shape == (36, 12400)
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
+
+
+def test_sharded_solve_on_card_matches_cpu(cuda_device, tmp_path):
+    """The stencil bj2l path at 2 ranks sharing the card (f32, device
+    double-float rounds to 1e-7) and the same 2-rank solve on the CPU
+    (plain SpMM): both converge, every rank has the same x, B1 launched at
+    least once an iteration on every rank of the card, and the iteration
+    totals within 25 %, as the one-shard card test holds them."""
+    import torch_shard_workers as w
+
+    a = elasticity3d(6, 6, 6, heterogeneous=False)
+    b = np.random.default_rng(1).standard_normal(a.shape[0])
+    case = dict(fmt="stencil", br=3, precond="bj2l", block_size=24,
+                grid=(7, 7, 6), dtype=np.float32,
+                opts=dict(t=4, tol=1e-7, maxiter=2000, layout="tbn"))
+    card = _spawn_on_card(w.card_solve, 2, (a, b, case, "cuda:0"), tmp_path / "g")
+    cpu = _spawn_on_card(w.card_solve, 2, (a, b, case, "cpu"), tmp_path / "c")
+    for out in (card, cpu):
+        np.testing.assert_array_equal(out[1][0], out[0][0])
+        assert np.linalg.norm(b - a @ out[0][0]) < 1e-7 * np.linalg.norm(b)
+    iters_g, iters_c = card[0][1]["iters"], cpu[0][1]["iters"]
+    assert all(r[2] >= iters_g for r in card)
+    assert abs(iters_g - iters_c) <= 0.25 * iters_c
+
+
+def test_concurrent_kernel_builds(cuda_device, tmp_path):
+    """Two processes that start from one empty build directory at once
+    both load all three kernels; each source is compiled by one of them
+    (the other waits on the lock and finds it built)."""
+    import torch_shard_workers as w
+
+    from prealps_tpu_torch.ops import _kernels
+
+    out = _spawn_on_card(w.card_build, 2, (str(tmp_path / "build"),), tmp_path)
+    for libs, _ in out:
+        assert libs == sorted(_kernels.SOURCES)
+    for src in _kernels.SOURCES:
+        assert sum(src not in cached for _, cached in out) == 1
+
+
+@pytest.mark.parametrize("t", [12, 1])
+def test_b1_offsets_wider_than_the_shard(cuda_device, t):
+    """A shard thinner than the stencil halo (8 ranks of elasticity3d(8³):
+    88 nodes against offsets up to 91) on its extended panel: the kernel
+    takes offsets wider than its node count (only |off| <= halo matters
+    on an extended panel) and matches its plain version."""
+    st = tfmt.csr_to_stencil_bsr_t(elasticity3d(8, 8, 8), br=3,
+                                   dtype=np.float32, device=cuda_device)
+    halo = max(abs(o) for o in st.offsets)
+    nrb = 88
+    assert halo == 91 > nrb
+    bf = tfmt.stencil_blocks_flat(st.blocks_t)[:, 88:176].contiguous()
+    x = np.random.default_rng(t).standard_normal((3 * t, nrb + 2 * halo))
+    x_ext = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    y = tspmm.stencil_flat_ext(bf, st.offsets, x_ext, halo, 3)
+    ref = tspmm.stencil_flat_ext_ref(bf, st.offsets, x_ext, halo, 3)
+    scale = tspmm.stencil_flat_ext_ref(bf.abs(), st.offsets, x_ext.abs(), halo, 3)
+    assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())

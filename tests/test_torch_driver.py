@@ -146,8 +146,9 @@ def _jax_kind(sj):
                                 dict(fmt="auto", precond="cheby"),
                                 dict(precond="bj", bj_dedupe=False, bj_dtype="bf16")])
 def test_unported_options_raise(problem, kw):
-    """The cases of the former refusal test. Several shards are still not
-    ported (ROADMAP.md queue A, item 3) and raise. The others build and
+    """The cases of the former refusal test. Several shards need a process
+    group of as many ranks (tests/test_torch_sharded_*.py run them), so
+    without one they raise ValueError. The others build and
     solve as the JAX driver does: the same preconditioner kind (with
     grid=, precond="block_jacobi" dedupes the x-line blocks, on DIA too;
     without it bj2l takes translation modes; Chebyshev on the stencil and
@@ -159,7 +160,7 @@ def test_unported_options_raise(problem, kw):
     args = dict(BUILD, nshards=1)
     args.update(kw)
     if args["nshards"] != 1:
-        with pytest.raises(NotImplementedError, match="queue A, item 3"):
+        with pytest.raises(ValueError, match="process group of"):
             DistributedECG.build(a, opts=_opts(ECGOptions, 1e-6), device="cpu",
                                  **args)
         return

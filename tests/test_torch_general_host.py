@@ -105,9 +105,17 @@ def test_layout_from_part_equal():
         np.testing.assert_array_equal(getattr(lt, f), getattr(lj, f))
 
 
-def test_row_layout_refuses_several_shards():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlay.build_row_layout(_scaled("poisson"), 2)
+def test_row_layout_refuses_several_shards(monkeypatch):
+    """Several shards were refused before the k-way partition was ported;
+    now the layout is the JAX package's Python one, bitwise (its native
+    partitioner gives other parts, so it is switched off)."""
+    monkeypatch.setenv("PREALPS_TPU_NO_NATIVE", "1")
+    a = _scaled("poisson")
+    lt = tlay.build_row_layout(a, 2)
+    lj = jlay.build_row_layout(a, 2)
+    assert (lt.n_pad, lt.rows_per_shard, lt.deps) == (lj.n_pad, lj.rows_per_shard, lj.deps)
+    for f in ("perm", "inv_perm", "offsets"):
+        np.testing.assert_array_equal(getattr(lt, f), getattr(lj, f))
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

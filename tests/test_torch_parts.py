@@ -10,7 +10,8 @@ in the driver, against the JAX driver (prealps_tpu/parallel/driver.py:
   relative in f64; ``layout=`` gives the default build's x exactly;
 * fmt="auto" with ``parts=`` considers neither the stencil nor a
   reordering, in both packages;
-* a layout over several shards is not ported (ROADMAP.md queue A, item 3).
+* a layout over several shards needs as many shards (and a process group
+  of as many ranks: tests/test_torch_sharded_*.py).
 """
 
 import dataclasses
@@ -117,7 +118,7 @@ def test_caller_layout_is_the_layout(problem):
     assert abs(info["iters"] - info_j["iters"]) <= 1
     assert np.linalg.norm(x - x_j) <= 1e-8 * np.linalg.norm(x_j)
     wide = dataclasses.replace(contiguous_row_layout(a.shape[0], 2), nshards=2)
-    with pytest.raises(NotImplementedError, match="queue A, item 3"):
+    with pytest.raises(ValueError, match="layout has 2 shards"):
         DistributedECG.build(a, nshards=1, opts=_opts(ECGOptions), layout=wide, **kw)
 
 

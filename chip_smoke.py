@@ -142,7 +142,33 @@ Phases (any failure exits nonzero before a result is printed):
     all-gather branch): f32 (the stencil kernel's type), and ell+bj also in
     f64; stencil+bj2l (f32) and ell+bj (f64) within 10 % of the JAX
     driver's count at the same nshards, the f32 stencil+cheb and ell+bj
-    counts logged beside JAX's (DRYRUN_ANCHOR_ITERS).
+    counts logged beside JAX's (DRYRUN_ANCHOR_ITERS);
+32. ``[dlorasc_large]`` the distributed LORASC driver
+    (``parallel/lorasc_driver.py::DistributedLorascECG``) at full width
+    over 8 ranks spawned on this card (a gloo group, one spawn shared with
+    phase 33): ``examples/demo_large_separator.py``'s configuration,
+    heterogeneous elasticity3d 32³ (n = 104,544), 8 groups, f64, ECG t = 4
+    odir_fused to 1e-5, the build's defaults otherwise (scaled, Lanczos
+    deflation, σ correction, banded separator), b = default_rng(0): the
+    groups, ng_max, the separator's padded rows, whether it is banded, the
+    deflated pairs, rank 0's build stages and each rank's peak device
+    memory; a solve with the collective counts zeroed just before and
+    read just after (host f64 relres < 1e-5, no breakdown, every rank the
+    same x, iterations within 5 % of DLORASC_LARGE_ANCHOR_ITERS, the JAX
+    driver on a CPU with the Python partition; the JAX record's 377,
+    which came from the native partition, printed beside it), its TTS,
+    then the first PROFILE_ITERS iterations of a second solve, rank 0's
+    under torch.profiler (device-busy share,
+    chiprun_out/profile_dlorasc.txt), and each rank's wall time by step;
+33. ``[dlorasc_dryrun]`` ``dryrun_multichip``'s three LORASC paths (het 8³,
+    RAC-scaled, f32, t 2, tol 1e-6) over the same 8 ranks: "lorasc" (the
+    exact Schur complement chosen automatically), "lorasc 2-level mesh"
+    (mesh (4, 2), max_deflation 16) and "lorasc deflation" (omin,
+    exact_schur=False, correction="deflate", max_deflation 64): each to
+    relres < 1e-4 (the dry run's 100 × tol), every rank the same x, the
+    counts within ANCHOR_BAND of the JAX driver's on a CPU at the same
+    mesh (DLORASC_DRY_ANCHORS), at least one pair on the deflation path;
+    MULTICHIP_r05.json's 5, 5 and 88 (19 pairs) printed beside them.
 
 Beside the headline B1 checks, ``[kernel]`` lines hold B3 at t = 12 / 8 / 1
 and B4 (planar) at t = 12 on the headline operator against their plain
@@ -242,6 +268,21 @@ DRYRUN_ANCHOR_ITERS = {("dry_stencil_cheb", "f32", 4): 1662,
                        ("dry_ell_bj", "f64", 4): 192}
 DRYRUN_HELD = {("dry_stencil_bj2l", "f32"), ("dry_ell_bj", "f64")}
 MULTICHIP_R05 = {"dry_stencil_cheb": 1312, "dry_ell_bj": 957, "dry_stencil_bj2l": 559}
+# the distributed LORASC phases (the JAX DistributedLorascECG on a CPU,
+# Python block-arrow partition: python -m tests.test_torch_anchors --path P
+# --nshards 8 | --mesh 4,2). [dlorasc_large]: demo_large_separator.py's
+# configuration at 8 groups (f64); its JAX record, 377 iterations
+# (docs/PERFORMANCE.md, "Large-separator distributed LORASC"), came from
+# the native partition (18,152 padded separator rows).
+DLORASC_LARGE_ANCHOR_ITERS = 425
+DLORASC_LARGE_RECORD_ITERS = 377
+# [dlorasc_dryrun]: dryrun_multichip's LORASC paths (het 8³, f32, t 2, tol
+# 1e-6); (iterations, deflated pairs) of the JAX driver on a CPU at the
+# same mesh, and MULTICHIP_r05.json's (native partition) beside them
+DLORASC_DRY_ANCHORS = {"dry_lorasc": (4, 828), "dry_lorasc_2level": (4, 594),
+                       "dry_lorasc_deflation": (61, 21)}
+DLORASC_DRY_R05 = {"dry_lorasc": "5", "dry_lorasc_2level": "5",
+                   "dry_lorasc_deflation": "88 (19 pairs)"}
 SHARDED_TIMEOUT = 420      # seconds a spawn of ranks may take before they are killed
 # yardsticks: one H100 SXM's HBM3 rate and f32 rate outside the tensor cores
 # (NVIDIA's data sheet, at the 700 W limit)
@@ -1499,7 +1540,7 @@ def _dryrun_rank(rank, group, runs, device):
     return out
 
 
-def _spawn_ranks(fn, world, args):
+def _spawn_ranks(fn, world, args, timeout=SHARDED_TIMEOUT, threads=2):
     """``world`` ranks of ``fn`` on the card through one gloo group (a
     FileStore in a fresh directory); a failing or hung rank fails the run."""
     import shutil
@@ -1510,7 +1551,7 @@ def _spawn_ranks(fn, world, args):
     store = tempfile.mkdtemp(prefix="prealps_store_")
     try:
         return mesh.spawn(fn, world, args=args, init_method=f"file://{store}/store",
-                          backend="gloo", timeout=SHARDED_TIMEOUT, threads=2)
+                          backend="gloo", timeout=timeout, threads=threads)
     except (RuntimeError, TimeoutError) as e:
         fail(f"{fn.__name__} over {world} ranks: {e}")
     finally:
@@ -1672,6 +1713,196 @@ def sharded_dryrun_phase(device="cuda:0"):
                 launches=[r[key]["launches"] for r in ranks])
         log(f"[sharded_dryrun] {world} ranks: spawn and solves {wall_s:.1f} s")
     return out
+
+
+DLORASC_DRY = {   # dryrun_multichip's LORASC builds: keywords and ECG variant
+    "dry_lorasc": (dict(nshards=8), "odir_fused"),
+    "dry_lorasc_2level": (dict(mesh_shape=(4, 2), max_deflation=16), "odir_fused"),
+    "dry_lorasc_deflation": (dict(nshards=8, exact_schur=False, correction="deflate",
+                                  max_deflation=64), "omin"),
+}
+DLORASC_TIMEOUT = 900      # seconds the distributed LORASC spawn may take
+PROFILE_ITERS = 40         # iterations of [dlorasc_large]'s profiled window
+
+
+def _dlorasc_rank(rank, group, device):
+    """One rank of [dlorasc_large] and [dlorasc_dryrun]: the 32³ build and
+    solve over the group (collective counts zeroed just before the solve
+    and read just after, then a solve of rank 0 under torch.profiler), then
+    the three dry-run LORASC paths."""
+    import hashlib
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.parallel.lorasc_driver import DistributedLorascECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)       # the allocator's stats exist once it has run
+    torch.cuda.reset_peak_memory_stats(dev)
+    wall = {}
+    t0 = time.perf_counter()
+    a = elasticity3d(32, 32, 32)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    wall["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s = DistributedLorascECG.build(
+        a, nshards=8, dtype=np.float64, device=device, group=group,
+        opts=ECGOptions(t=4, tol=1e-5, maxiter=2000, variant="odir_fused"))
+    wall["build"] = build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    for f in (mesh.all_reduce, mesh.all_gather, mesh.broadcast):
+        f.calls = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    x, info = s.solve(b)
+    _sync(dev)
+    wall["solve"] = solve_s = time.perf_counter() - t0
+    calls = {f.__name__: f.calls for f in (mesh.all_reduce, mesh.all_gather,
+                                            mesh.broadcast)}
+    large = {"iters": int(info["iters"]), "breakdown": bool(info["breakdown"]),
+             "deflated": int(info["deflated"]), "solve_s": solve_s,
+             "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+             "calls": calls, "build_s": build_s, "timings": s.timings,
+             "ngroups": s.ngroups, "ng_max": s.ng_max, "ni_max": s.ni_max,
+             "sep_padded_rows": s.ng_max * s.ngroups, "n": s.n,
+             "n_pad": int(s.row_of.shape[0]), "ng_tot": s.geo["ng_tot"],
+             "banded": bool(s.geo["agg_banded"]),
+             "band": [s.geo["nblk"], s.geo["bs"]],
+             "sep_band": [s.geo["nblk_a"], s.geo["bs_a"]],
+             "peak_build_bytes": build_peak,
+             "peak_bytes": torch.cuda.max_memory_allocated(dev),
+             "x_sha": hashlib.sha256(x.tobytes()).hexdigest(),
+             "x_ok": bool(x.shape == (a.shape[0],) and np.all(np.isfinite(x)))}
+    # the busy share: rank 0's device time over a window of the first
+    # PROFILE_ITERS iterations of a second solve (a window keeps the
+    # profiler's event count, and its own cost, small)
+    t0 = time.perf_counter()
+    s.opts = replace(s.opts, maxiter=PROFILE_ITERS)
+    if rank == 0:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            _, pinfo = s.solve(b)
+            _sync(dev)
+            wall_ms = 1e3 * (time.perf_counter() - tp)
+        large.update(profile_device_ms=device_busy_ms(prof), profile_wall_ms=wall_ms,
+                     profile_iters=int(pinfo["iters"]),
+                     profile_table=prof.key_averages().table(
+                         sort_by="self_cpu_time_total", row_limit=30))
+    else:
+        s.solve(b)
+    wall["profile"] = time.perf_counter() - t0
+    del s, a, x
+    torch.cuda.empty_cache()
+
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+
+    a, _ = sym_rac_scaling(elasticity3d(8, 8, 8))
+    a = a.astype(np.float32)
+    b = np.random.default_rng(0).standard_normal(a.shape[0]).astype(np.float32)
+    dry = {}
+    t0 = time.perf_counter()
+    for path, (kw, variant) in DLORASC_DRY.items():
+        t0 = time.perf_counter()
+        s = DistributedLorascECG.build(
+            a, dtype=np.float32, device=device, group=group, **kw,
+            opts=ECGOptions(t=2, tol=1e-6, maxiter=6000, variant=variant))
+        x, info = s.solve(b)
+        dry[path] = {"iters": int(info["iters"]), "deflated": int(info["deflated"]),
+                     "refine_rounds": info["refine_rounds"],
+                     "breakdown": bool(info["breakdown"]),
+                     "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+                     "mesh": [s.ngroups, s.nlocal], "ng_max": s.ng_max,
+                     "secs": time.perf_counter() - t0,
+                     "x_sha": hashlib.sha256(x.tobytes()).hexdigest()}
+    wall["dryrun"] = time.perf_counter() - t0
+    large["wall_s"] = wall
+    return {"rank": rank, "large": large, "dry": dry}
+
+
+def dlorasc_phase(device="cuda:0"):
+    """[dlorasc_large] and [dlorasc_dryrun]: the distributed LORASC driver
+    over 8 ranks sharing the card (one spawn)."""
+    world = 8
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_dlorasc_rank, world, (device,),
+                         timeout=DLORASC_TIMEOUT, threads=1)
+    wall_s = time.perf_counter() - t0
+    r0 = ranks[0]["large"]
+    for r in ranks:
+        lg = r["large"]
+        if lg["x_sha"] != r0["x_sha"] or lg["iters"] != r0["iters"]:
+            fail(f"[dlorasc_large] rank {r['rank']} returned another x or count "
+                 "than rank 0")
+        for path, rec in r["dry"].items():
+            if rec["x_sha"] != ranks[0]["dry"][path]["x_sha"]:
+                fail(f"[dlorasc_dryrun] {path}: rank {r['rank']} returned another x")
+    st = r0["timings"]
+    log(f"[dlorasc_large] elasticity3d(32³) n={r0['n']} over {world} ranks sharing "
+        f"one card (gloo): ngroups={r0['ngroups']} ng_max={r0['ng_max']} separator "
+        f"{r0['ng_tot']} rows, {r0['sep_padded_rows']} padded, banded={r0['banded']} "
+        f"(nblk, bs) {r0['sep_band']}; interiors ni_max={r0['ni_max']} (nblk, bs) "
+        f"{r0['band']}; n_pad={r0['n_pad']}; deflated={r0['deflated']}")
+    log(f"[dlorasc_large] rank 0 build {r0['build_s']:.2f} s, stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in st.items()})
+        + "; peak device memory per rank (GB, build / all): "
+        + str([(round(r["large"]["peak_build_bytes"] / 1e9, 3),
+                round(r["large"]["peak_bytes"] / 1e9, 3)) for r in ranks]))
+    log(f"[dlorasc_large] solve: iters={r0['iters']} relres={r0['relres']:.3e} "
+        f"breakdown={r0['breakdown']} TTS {r0['solve_s']:.3f} s (rank 0; 8 ranks "
+        f"share one card: not a scaling number); collectives per solve "
+        f"{r0['calls']}; JAX driver on a CPU, Python partition: "
+        f"{DLORASC_LARGE_ANCHOR_ITERS}; the JAX record (native partition): "
+        f"{DLORASC_LARGE_RECORD_ITERS}; spawn {wall_s:.1f} s")
+    if not r0["x_ok"] or r0["breakdown"] or not r0["relres"] < 1e-5:
+        fail(f"[dlorasc_large] breakdown {r0['breakdown']}, relres "
+             f"{r0['relres']:.3e}, finite x of the right shape {r0['x_ok']}")
+    if not within(r0["iters"], DLORASC_LARGE_ANCHOR_ITERS):
+        fail(f"[dlorasc_large] {r0['iters']} iterations, outside "
+             f"{DLORASC_LARGE_ANCHOR_ITERS} ± {100 * ANCHOR_BAND:.0f} %")
+    busy = r0["profile_device_ms"] / r0["profile_wall_ms"]
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "profile_dlorasc.txt"), "w") as f:
+        f.write(r0["profile_table"])
+    log(f"[profile] rank 0 of [dlorasc_large], the first {r0['profile_iters']} "
+        f"iterations of a second solve: device {r0['profile_device_ms']:.1f} ms of "
+        f"{r0['profile_wall_ms']:.1f} ms wall, busy {100 * busy:.1f} % (8 ranks "
+        f"share the card); each rank's wall times (s): "
+        + str([{k: round(v, 2) for k, v in r["large"]["wall_s"].items()}
+               for r in ranks]))
+    for line in r0["profile_table"].splitlines()[:15]:
+        log("[profile] " + line)
+    dry = {}
+    for path, rec in ranks[0]["dry"].items():
+        anchor, pairs = DLORASC_DRY_ANCHORS[path]
+        log(f"[dlorasc_dryrun] {path} mesh {rec['mesh']}: iters={rec['iters']} "
+            f"rounds={rec['refine_rounds']} deflated={rec['deflated']} relres="
+            f"{rec['relres']:.3e} in {rec['secs']:.2f} s (rank 0); JAX on a CPU at "
+            f"the same mesh: {anchor} iterations, {pairs} pairs; "
+            f"MULTICHIP_r05.json: {DLORASC_DRY_R05[path]}")
+        if rec["breakdown"] or not rec["relres"] < 1e-4:
+            fail(f"[dlorasc_dryrun] {path}: breakdown {rec['breakdown']}, relres "
+                 f"{rec['relres']:.3e}")
+        if not within(rec["iters"], anchor):
+            fail(f"[dlorasc_dryrun] {path}: {rec['iters']} iterations, outside "
+                 f"{anchor} ± {100 * ANCHOR_BAND:.0f} %")
+        if path == "dry_lorasc_deflation" and rec["deflated"] < 1:
+            fail("[dlorasc_dryrun] the deflation path deflated no pair")
+        dry[path] = dict(rec, anchor_iters=anchor, anchor_pairs=pairs)
+    large = {k: v for k, v in r0.items() if k not in ("profile_table", "x_sha")}
+    large.update(anchor_iters=DLORASC_LARGE_ANCHOR_ITERS,
+                 record_iters=DLORASC_LARGE_RECORD_ITERS, busy_share=busy,
+                 peak_bytes_per_rank=[r["large"]["peak_bytes"] for r in ranks],
+                 spawn_s=wall_s)
+    return {"dlorasc_large": large, "dlorasc_dryrun": dry}
 
 
 def main() -> int:
@@ -1973,6 +2204,8 @@ def main() -> int:
     # --- 30-31. over spawned ranks sharing the card through gloo ---
     sharded4 = sharded4_phase(nel, x_main)
     dryrun = sharded_dryrun_phase()
+    # --- 32-33. the distributed LORASC driver over 8 spawned ranks ---
+    dlorasc = dlorasc_phase()
 
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
@@ -1983,6 +2216,7 @@ def main() -> int:
         "lorasc_path": lorasc_path, **presc_paths, "dia_path": dia_path,
         "auto_path": auto_path, "spmm_sweep": spmm_recs, **a1_paths,
         "sharded_nccl1": nccl1, "sharded4": sharded4, "sharded_dryrun": dryrun,
+        **dlorasc,
         "total_s": time.perf_counter() - t_start}))
 
     def entry(name, source, replaces, launches_, recs):

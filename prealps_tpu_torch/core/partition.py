@@ -4,15 +4,21 @@ Copies of the pieces of ``prealps_tpu/core/partition.py`` that the driver
 needs: the even split of a row range into blocks, the k-way partition of
 the multi-GPU row layout (recursive BFS bisection with boundary
 refinement: the JAX package's Python algorithm), the row grouping of a
-partition, the reverse Cuthill-McKee ordering, and the BFS
-pseudo-coordinates and Morton order of ``fmt="auto"``'s block clustering.
-``tests/test_torch_general_host.py``, ``tests/test_torch_dia_host.py`` and
-``tests/test_torch_partition_kway.py`` hold them bitwise equal to the
-originals (the k-way partition to the JAX Python version: the JAX package's
-native C++ partitioner, which it prefers where built, gives other parts).
+partition, the block-arrow structure of the distributed LORASC (the k-way
+partition plus a greedy vertex separator), the reverse Cuthill-McKee
+ordering, and the BFS pseudo-coordinates and Morton order of
+``fmt="auto"``'s block clustering. ``tests/test_torch_general_host.py``,
+``tests/test_torch_dia_host.py``, ``tests/test_torch_partition_kway.py``
+and ``tests/test_torch_arrow_host.py`` hold them bitwise equal to the
+originals (the k-way partition and the separator to the JAX Python
+versions: the JAX package's native C++ code, which it prefers where built,
+gives other parts).
 """
 
 from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
@@ -246,3 +252,100 @@ def partition_to_perm(part: np.ndarray, k: int):
     offsets = np.concatenate([[0], np.cumsum(counts)])
     perm = np.argsort(part, kind="stable").astype(np.int64)
     return perm, offsets
+
+
+@dataclass(frozen=True)
+class BlockArrowStruct:
+    """Leaves-first / separator-last permutation of an SPD matrix.
+
+    perm: new -> old row index (A_arrow = A[perm][:, perm]);
+    interior_offsets: the k + 1 row offsets of the parts' interior blocks;
+    sep_start: the first separator row (interior_offsets[-1]); n: the size;
+    part: the part id of each original row, -1 on the separator."""
+
+    perm: np.ndarray
+    interior_offsets: np.ndarray
+    sep_start: int
+    n: int
+    part: np.ndarray
+
+    @property
+    def nparts(self) -> int:
+        return len(self.interior_offsets) - 1
+
+    @property
+    def sep_size(self) -> int:
+        return self.n - self.sep_start
+
+
+def block_arrow_structure(a: sp.spmatrix, k: int,
+                          refine_passes: int = 8) -> BlockArrowStruct:
+    """Block-arrow (bordered block-diagonal) structure of A: the k-way
+    partition of its graph, then a vertex separator covering every cut
+    edge, then the interiors of parts 0..k-1 followed by the separator.
+
+    The separator is the JAX package's greedy cover: repeatedly take the
+    vertex with the most uncovered cut edges, the lowest index among ties.
+    The JAX loop finds it with an argsort of every degree per pick; here a
+    lazy max-heap keyed on (-degree, index) does (degrees only fall, so an
+    entry whose degree is stale is skipped), which picks the same vertex
+    each time."""
+    adj = _adjacency(a)
+    n = adj.shape[0]
+    part = kway_partition(a, k, refine_passes)
+    coo = sp.triu(adj, k=1).tocoo()
+    cut = part[coo.row] != part[coo.col]
+    cu, cv = coo.row[cut].astype(np.int64), coo.col[cut].astype(np.int64)
+    in_sep = np.zeros(n, dtype=bool)
+    if cu.size:
+        deg = np.bincount(cu, minlength=n) + np.bincount(cv, minlength=n)
+        # cut edges by endpoint: edge ids incident to each vertex
+        ends = np.concatenate([cu, cv])
+        eids = np.concatenate([np.arange(cu.size), np.arange(cu.size)])
+        order = np.argsort(ends, kind="stable")
+        inc_ptr = np.concatenate([[0], np.cumsum(np.bincount(ends, minlength=n))])
+        inc = eids[order]
+        alive = np.ones(cu.size, dtype=bool)
+        heap = [(-int(deg[v]), int(v)) for v in np.flatnonzero(deg)]
+        heapq.heapify(heap)
+        while heap:
+            d, v = heapq.heappop(heap)
+            if -d != deg[v] or deg[v] == 0:
+                continue
+            in_sep[v] = True
+            hit = inc[inc_ptr[v]:inc_ptr[v + 1]]
+            hit = hit[alive[hit]]
+            alive[hit] = False
+            for w in np.where(cu[hit] == v, cv[hit], cu[hit]).tolist():
+                deg[w] -= 1
+                if deg[w]:
+                    heapq.heappush(heap, (-int(deg[w]), w))
+            deg[v] = 0
+    return _finish_block_arrow(part, in_sep, k)
+
+
+def _finish_block_arrow(part: np.ndarray, in_sep: np.ndarray,
+                        k: int) -> BlockArrowStruct:
+    """The leaves-first / separator-last permutation of a partition and a
+    separator marking."""
+    n = part.shape[0]
+    part_out = part.copy()
+    part_out[in_sep] = -1
+    interiors = np.flatnonzero(~in_sep)
+    sep = np.flatnonzero(in_sep)
+    perm_int = interiors[np.argsort(part[interiors], kind="stable")]
+    perm = np.concatenate([perm_int, sep])
+    counts = np.bincount(part[interiors], minlength=k)
+    interior_offsets = np.concatenate([[0], np.cumsum(counts)])
+    return BlockArrowStruct(
+        perm=perm.astype(np.int64),
+        interior_offsets=interior_offsets.astype(np.int64),
+        sep_start=int(interiors.size), n=n, part=part_out)
+
+
+def permute(a: sp.spmatrix, perm: np.ndarray) -> sp.csr_matrix:
+    """Symmetric permutation A[perm][:, perm] as CSR with sorted indices."""
+    a = sp.csr_matrix(a)
+    out = a[perm][:, perm].tocsr()
+    out.sort_indices()
+    return out

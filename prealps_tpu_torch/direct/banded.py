@@ -1,7 +1,9 @@
 """Batched block-banded Cholesky: the subdomain direct solver of LORASC.
 
-The PyTorch counterpart of ``prealps_tpu/direct/banded.py:152-295``. After a
-bandwidth-reducing ordering each subdomain matrix is block-tridiagonal with
+The PyTorch counterpart of ``prealps_tpu/direct/banded.py:49-419``. After a
+bandwidth-reducing ordering (``plan_block_banded``: per-part RCM and a
+uniform block size, host numpy, with ``assemble_host`` and
+``to_band``/``from_band``) each subdomain matrix is block-tridiagonal with
 bs×bs blocks (D_i diagonal, E_i subdiagonal), factored batched over the P
 subdomains, block by block:
 
@@ -17,8 +19,14 @@ batched ``torch.matmul`` (the JAX package leaves these einsums to XLA).
 ``cholesky(symmetrize_input=True)`` becomes a symmetrisation and
 ``torch.linalg.cholesky_ex``; a failed factor (or a non-finite inverse) in
 any subdomain zeroes that block's inverses and sets ``failed``, as the JAX
-version's NaN mapping does. The two-level (row-sharded) solve and the Schur
-routines are not ported (ROADMAP.md queue A, items 6-7).
+version's NaN mapping does.
+
+The two-level solve (``prepare_two_level``, ``block_banded_solve_two_level``)
+shares each step's GEMMs between the L ranks of a process group, each
+holding bs/L rows of every factor block: one all-gather in the group per
+block step, forward and backward (the distributed LORASC's interior
+solves). ``block_banded_schur`` (PRESC on general matrices) is not ported
+(ROADMAP.md queue A, item 7).
 
 The factors may be stored in bf16 (LORASC's ``factor_store="bf16"``) while
 the vectors stay f32. The solves then compute what the JAX package's mixed
@@ -32,7 +40,124 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+import scipy.sparse as sp
 import torch
+
+from prealps_tpu_torch.core.partition import rcm_order
+from prealps_tpu_torch.parallel.mesh import all_gather, size_of
+
+
+# --- host planning (numpy copies, bitwise the JAX package's) ---------------
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """A batched block-banded system: nparts subdomains, each padded to
+    nblk·bs rows. ``perm[p]`` maps band position -> part-local row (-1 on
+    padding), ``inv_perm[p]`` part-local row -> band position (the padding
+    tail maps to itself); ``bandwidth`` is the largest half-bandwidth after
+    ordering (≤ bs)."""
+
+    nparts: int
+    nblk: int
+    bs: int
+    bandwidth: int
+    perm: np.ndarray
+    inv_perm: np.ndarray
+    sizes: np.ndarray
+
+    @property
+    def rows_padded(self) -> int:
+        return self.nblk * self.bs
+
+
+def plan_block_banded(blocks: list, bs: int | None = None, order: str = "rcm",
+                      bs_multiple: int = 8) -> BandPlan:
+    """Per block a bandwidth-reducing ordering (RCM, or "natural"), and one
+    block size for all: the largest bandwidth rounded up to
+    ``bs_multiple`` unless ``bs`` is given."""
+    nparts = len(blocks)
+    perms = []
+    bandwidth = 1
+    sizes = np.array([b.shape[0] for b in blocks], dtype=np.int64)
+    for b in blocks:
+        b = sp.csr_matrix(b)
+        m = b.shape[0]
+        p = rcm_order(b) if (order == "rcm" and m > 2) else np.arange(m)
+        coo = b[p][:, p].tocoo()
+        if coo.nnz:
+            bandwidth = max(bandwidth, int(np.abs(coo.row - coo.col).max()))
+        perms.append(p)
+    if bs is None:
+        bs = -(-max(bandwidth, 1) // bs_multiple) * bs_multiple
+    bs = max(bs, bs_multiple)
+    if bandwidth > bs:
+        raise ValueError(f"bandwidth {bandwidth} exceeds block size {bs}")
+    nblk = max(1, -(-int(sizes.max()) // bs))
+    rows = nblk * bs
+    perm = np.full((nparts, rows), -1, dtype=np.int64)
+    inv_perm = np.zeros((nparts, rows), dtype=np.int64)
+    for i, p in enumerate(perms):
+        m = p.shape[0]
+        perm[i, :m] = p
+        inv = np.empty(m, dtype=np.int64)
+        inv[p] = np.arange(m)
+        inv_perm[i, :m] = inv
+        inv_perm[i, m:] = np.arange(m, rows)
+    return BandPlan(nparts=nparts, nblk=nblk, bs=bs, bandwidth=bandwidth,
+                    perm=perm, inv_perm=inv_perm, sizes=sizes)
+
+
+def assemble_host(plan: BandPlan, blocks: list, dtype=np.float64, parts=None):
+    """(D, E) numpy arrays of the subdomain matrices, (P, nblk, bs, bs)
+    each: the full symmetric diagonal blocks and the subdiagonal blocks
+    (E[:, 0] = 0), the padding rows an identity diagonal. ``parts`` picks
+    the subdomains to assemble (default all), in that order: a rank
+    assembles only its own."""
+    parts = range(plan.nparts) if parts is None else list(parts)
+    nblk, bs = plan.nblk, plan.bs
+    d = np.zeros((len(parts), nblk, bs, bs), dtype=dtype)
+    e = np.zeros((len(parts), nblk, bs, bs), dtype=dtype)
+    for k, i in enumerate(parts):
+        b = blocks[i]
+        m = b.shape[0]
+        p = plan.perm[i, :m]
+        coo = sp.csr_matrix(b)[p][:, p].tocoo()
+        rb, cb = coo.row // bs, coo.col // bs
+        rl, cl = coo.row % bs, coo.col % bs
+        same = rb == cb
+        np.add.at(d[k], (rb[same], rl[same], cl[same]), coo.data[same])
+        sub = rb == cb + 1
+        np.add.at(e[k], (rb[sub], rl[sub], cl[sub]), coo.data[sub])
+        pad = np.arange(m, plan.rows_padded)
+        d[k, pad // bs, pad % bs, pad % bs] = 1.0
+    return d, e
+
+
+def to_band(plan: BandPlan, parts: list) -> np.ndarray:
+    """Per-part vectors or panels -> the (P, nblk, bs, t) band layout."""
+    t = parts[0].shape[1] if parts[0].ndim > 1 else 1
+    out = np.zeros((plan.nparts, plan.rows_padded, t))
+    for i, v in enumerate(parts):
+        v2 = v.reshape(v.shape[0], -1)
+        out[i, : v2.shape[0]] = v2[plan.perm[i, : v2.shape[0]]]
+    return out.reshape(plan.nparts, plan.nblk, plan.bs, t)
+
+
+def from_band(plan: BandPlan, w) -> list:
+    """(P, nblk, bs, t) -> per-part (m, t) panels in the caller's order."""
+    w = np.asarray(w).reshape(plan.nparts, plan.rows_padded, -1)
+    outs = []
+    for i in range(plan.nparts):
+        m = int(plan.sizes[i])
+        out = np.empty((m, w.shape[2]))
+        out[plan.perm[i, :m]] = w[i, :m]
+        outs.append(out)
+    return outs
+
+
+# --- device: factorization and solves --------------------------------------
 
 
 @dataclass
@@ -117,3 +242,65 @@ def block_banded_matvec(d: torch.Tensor, e: torch.Tensor, v: torch.Tensor) -> to
     y[:, 1:] += e[:, 1:] @ v[:, :-1]
     y[:, :-1] += e[:, 1:].mT @ v[:, 1:]
     return y
+
+
+# --- two-level: the solve's rows shared by the ranks of a group ------------
+
+
+@dataclass
+class BlockBandedCholesky2L:
+    """Block-banded factors folded for the row-shared solve: each step
+    needs one all-gather in the group,
+
+      forward:  y_i = L_i⁻¹ v_i − (L_i⁻¹ M_i) y_{i−1}
+      backward: w_i = L_i⁻ᵀ y_i − (L_i⁻ᵀ M_{i+1}ᵀ) w_{i+1}
+
+    Each array is (P, nblk, bs, bs), or (P, nblk, bs/L, bs) on a rank that
+    holds its rows of a group of L (``rows``)."""
+
+    l_inv: torch.Tensor    # L_i⁻¹
+    w_fwd: torch.Tensor    # L_i⁻¹ M_i
+    l_inv_t: torch.Tensor  # L_i⁻ᵀ
+    w_bwd: torch.Tensor    # L_i⁻ᵀ M_{i+1}ᵀ
+
+    def rows(self, lo: int, hi: int) -> "BlockBandedCholesky2L":
+        """The factor rows [lo, hi) of every block, contiguous copies."""
+        return BlockBandedCholesky2L(
+            *(f[:, :, lo:hi].contiguous() for f in
+              (self.l_inv, self.w_fwd, self.l_inv_t, self.w_bwd)))
+
+
+def prepare_two_level(fac: BlockBandedCholesky) -> BlockBandedCholesky2L:
+    """Fold the factors for the row-shared solve (build time)."""
+    l_inv, m_off = fac.l_inv, fac.m_off
+    m_next = torch.cat([m_off[:, 1:], torch.zeros_like(m_off[:, :1])], dim=1)
+    l_inv_t = l_inv.mT
+    return BlockBandedCholesky2L(l_inv=l_inv, w_fwd=l_inv @ m_off,
+                                 l_inv_t=l_inv_t.contiguous(),
+                                 w_bwd=l_inv_t @ m_next.mT)
+
+
+def block_banded_solve_two_level(fac2: BlockBandedCholesky2L, v: torch.Tensor,
+                                 group=None) -> torch.Tensor:
+    """Solve with the factors' rows shared over ``group`` (None: one rank,
+    all rows). fac2's arrays hold this rank's bs/L rows, (P, nblk, bs/L,
+    bs); v is the whole (P, nblk, bs, t), the same on every rank of the
+    group; returns the whole solution on every rank, after one all-gather
+    in the group per block step."""
+    nblk = v.shape[1]
+    shared = size_of(group) > 1
+
+    def gather(chunk):
+        return all_gather(chunk, group, dim=1) if shared else chunk
+
+    prev = torch.zeros_like(v[:, 0])
+    y = [None] * nblk
+    for i in range(nblk):
+        prev = gather(fac2.l_inv[:, i] @ v[:, i] - fac2.w_fwd[:, i] @ prev)
+        y[i] = prev
+    w = [None] * nblk
+    nxt = torch.zeros_like(v[:, 0])
+    for i in reversed(range(nblk)):
+        nxt = gather(fac2.l_inv_t[:, i] @ y[i] - fac2.w_bwd[:, i] @ nxt)
+        w[i] = nxt
+    return torch.stack(w, dim=1)

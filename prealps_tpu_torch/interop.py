@@ -3,7 +3,8 @@
 ``solver_from_reference`` builds a port ``DistributedECG`` directly on the
 operands another build produced (the JAX ``DistributedECG``'s, handed over
 as numpy arrays), skipping the port's own build; ``lorasc_from_reference``
-does the same for a JAX ``ScalableLorasc``. Both packages can then solve on
+does the same for a JAX ``ScalableLorasc`` and
+``distributed_lorasc_from_reference`` for a JAX ``DistributedLorascECG``. Both packages can then solve on
 identical operands (for LORASC: identical deflation pairs, which an f32
 Lanczos does not reproduce across implementations), which separates solver
 parity from build parity in the tests.
@@ -17,6 +18,7 @@ import torch
 
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import RowLayout
+from prealps_tpu_torch.direct.banded import BlockBandedCholesky, BlockBandedCholesky2L
 from prealps_tpu_torch.direct.device_bj import block_groups
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
@@ -32,7 +34,13 @@ from prealps_tpu_torch.parallel.driver import (
     EllOperands,
     StencilOperands,
 )
-from prealps_tpu_torch.parallel.mesh import rank_of, shard_device, size_of
+from prealps_tpu_torch.parallel.lorasc_driver import (
+    FACTORS,
+    INDEX,
+    DistributedLorascECG,
+    rank_slice,
+)
+from prealps_tpu_torch.parallel.mesh import mesh_groups, rank_of, shard_device, size_of
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi
 from prealps_tpu_torch.precond.chebyshev import Chebyshev
 from prealps_tpu_torch.precond.lorasc_scale import ArrowBandPlan, ScalableLorasc
@@ -247,3 +255,76 @@ def lorasc_from_reference(plan_fields: dict, operands_np: dict, meta: dict,
             ops[name] = t.to(device)
     return ScalableLorasc(plan=ArrowBandPlan(**plan_fields), operands=ops,
                           deflated=int(meta["deflated"]))
+
+
+def distributed_lorasc_from_reference(arrays: dict, meta: dict, device="cuda",
+                                      group=None) -> DistributedLorascECG:
+    """Port ``DistributedLorascECG`` on a JAX build's operands.
+
+    Every rank of ``group`` (G·L ranks for a build over a (G, L) mesh)
+    passes the whole arrays and keeps its slice, by the JAX build's
+    shardings (``lorasc_driver.rank_slice``): its rows of the operator and
+    of the lift basis, its group's band maps, its share of its group's Agi
+    / Aig rows and interior factor rows; the separator operands, the Ritz
+    basis ``e_mat`` and ``sigma`` and the lift's ``aw_sep`` and
+    ``coarse_linv`` are replicated. Both packages then apply the same
+    preconditioner, whatever their Lanczos rounding.
+
+    arrays — numpy, the JAX build's ``_operands[0]`` entries by name
+      (``ell_vals``, ``ell_cols``, ``band_perm``, ``band_inv``,
+      ``int_mask``, ``sep_slice_mask``, ``agi_vals``, ``agi_cols``,
+      ``aig_vals``, ``aig_cols``, ``agg_ell_v``, ``agg_ell_c``, ``e_mat``,
+      ``sigma``; ``agg_inv``, or ``aband_perm``, ``aband_inv``,
+      ``sep_real_mask``; ``w_lift``, ``aw_sep``, ``coarse_linv`` where the
+      build lifted), its two-level interior factors ``l_inv``, ``w_fwd``,
+      ``l_inv_t``, ``w_bwd`` (G, nblk, bs, bs), the banded separator's
+      factors ``agg_l_inv``, ``agg_m_off``, and ``scale_d`` (or None),
+      ``arrow_perm``, ``row_of``, ``a_scaled`` (or None: no refinement);
+    meta — ``ngroups``, ``nlocal``, ``ni_max``, ``ng_max``, ``n``,
+      ``deflated``, ``target_tol`` and ``opts`` (dict of ECGOptions fields
+      as the reference holds them after build).
+    """
+    g_n, l_n = int(meta["ngroups"]), int(meta["nlocal"])
+    if g_n * l_n != size_of(group):
+        raise ValueError(f"a build over a {g_n}x{l_n} mesh needs a group of "
+                         f"{g_n * l_n} ranks; got {size_of(group)}")
+    device = shard_device(device, rank_of(group))
+    strict_fp32()
+    g_idx, l_idx, local = mesh_groups(group, (g_n, l_n))
+    ni_max, ng_max = int(meta["ni_max"]), int(meta["ng_max"])
+    smask = np.asarray(arrays["sep_slice_mask"])
+    nblk, bs = np.asarray(arrays["l_inv"]).shape[1:3]
+    geo = dict(g_n=g_n, l_n=l_n, n=int(meta["n"]), ni_max=ni_max, ng_max=ng_max,
+               ng_pad=ng_max * g_n, rows_per_group=ni_max + ng_max,
+               n_pad=(ni_max + ng_max) * g_n, nblk=int(nblk), bs=int(bs),
+               ng_tot=int(smask.sum()), agg_banded="agg_l_inv" in arrays,
+               exact_schur=False)
+
+    def dev(name, arr=None):
+        arr = rank_slice(name, np.asarray(arrays[name] if arr is None else arr),
+                         geo, g_idx, l_idx)
+        return _tensor(arr, np.int64 if name in INDEX else None).to(device)
+
+    skip = (*FACTORS, "agg_l_inv", "agg_m_off", "scale_d", "arrow_perm",
+            "row_of", "a_scaled")
+    ops = {name: dev(name) for name, arr in arrays.items()
+           if name not in skip and arr is not None}
+    ops["sep_mask"] = _tensor(smask.reshape(-1)).to(device)
+    ops["fac"] = BlockBandedCholesky2L(*(dev(name) for name in FACTORS))
+    if geo["agg_banded"]:
+        a_l = np.asarray(arrays["agg_l_inv"])
+        geo.update(nblk_a=int(a_l.shape[1]), bs_a=int(a_l.shape[2]))
+        ops["agg_fac"] = BlockBandedCholesky(
+            l_inv=_tensor(a_l).to(device),
+            m_off=_tensor(arrays["agg_m_off"]).to(device),
+            failed=torch.zeros((), dtype=torch.bool, device=device))
+    a_scaled = arrays.get("a_scaled")
+    scale_d = arrays.get("scale_d")
+    return DistributedLorascECG(
+        ngroups=g_n, nlocal=l_n, ni_max=ni_max, ng_max=ng_max, n=geo["n"],
+        scale_d=None if scale_d is None else np.asarray(scale_d),
+        arrow_perm=np.asarray(arrays["arrow_perm"]),
+        row_of=np.asarray(arrays["row_of"]), opts=ECGOptions(**meta["opts"]),
+        deflated=int(meta["deflated"]), geo=geo, ops=ops, device=device,
+        group=group, local=local, target_tol=float(meta["target_tol"]),
+        a_scaled=None if a_scaled is None else sp.csr_matrix(a_scaled))

@@ -8,6 +8,8 @@ Python loop, and the small projected eigenproblems go to
 ``torch.linalg.eigh`` in the working dtype, where the JAX code calls
 ``jnp.linalg.eigh``. ``jnp.linalg.cholesky`` returns NaN on a failed
 factor; ``_chol_nan`` keeps that contract on top of ``cholesky_ex``.
+Each solver runs on ``device`` (default "cuda", which raises without a
+card; pass device="cpu" to run on the host), where its start vector goes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from prealps_tpu_torch.config import resolve_device
+
 
 class LanczosResult(NamedTuple):
     eigvalues: torch.Tensor   # (ncv,) Ritz values, ascending
@@ -27,10 +31,11 @@ class LanczosResult(NamedTuple):
 
 
 def _start(v0, n, dtype, device):
+    device = resolve_device(device)
     if v0 is None:
         # deterministic start, the reference's fixed resid = 1e-2
         return torch.full((n,), 1e-2, dtype=dtype, device=device)
-    return v0.to(dtype)
+    return v0.to(device=device, dtype=dtype)
 
 
 def _chol_nan(g: torch.Tensor) -> torch.Tensor:
@@ -46,7 +51,7 @@ def lanczos_gen(
     ncv: int,
     dtype=torch.float64,
     v0: torch.Tensor | None = None,
-    device="cpu",
+    device="cuda",
 ) -> LanczosResult:
     """Run ncv Lanczos steps with full two-pass B-reorthogonalisation;
     returns all ncv Ritz pairs (ascending)."""
@@ -94,7 +99,7 @@ def lanczos_thick_restart(
     restarts: int = 4,
     dtype=torch.float64,
     v0: torch.Tensor | None = None,
-    device="cpu",
+    device="cuda",
 ) -> LanczosResult:
     """Thick-restart Lanczos (Wu & Simon) in the B-inner product: each cycle
     extends the basis to ``ncv`` vectors, Rayleigh-Ritz-es the projected
@@ -187,7 +192,7 @@ def block_lanczos_thick_restart(
     restarts: int = 4,
     dtype=torch.float64,
     v0: torch.Tensor | None = None,
-    device="cpu",
+    device="cuda",
 ) -> LanczosResult:
     """Block thick-restart Lanczos in the B-inner product: the scalar
     iteration with bt-wide panels. Each step B-orthonormalises the new panel

@@ -13,11 +13,21 @@ device mesh; here one process runs each shard (SPMD), joined by a
   one card before it joins. Nothing here picks a backend or a device.
 * ``spawn`` starts ``nprocs`` ranks (the ``spawn`` start method), joins them
   into a group, and returns their results; when a rank fails, or the time
-  runs out, it kills every rank and raises.
+  runs out, it kills every rank and raises. Ranks started by ``torchrun``
+  join with ``init_group(backend, init_method="env://")``: rank, size and
+  the coordinator's address then come from its environment.
+* ``mesh_groups`` lays a (G, L) mesh over a group, the JAX ``Mesh``
+  reshape of the distributed LORASC: rank r is (g, l) = (r // L, r % L),
+  and the L ranks of each g form a local group. The JAX package's
+  ``parallel/multihost.py`` (per-process host arrays made global) has no
+  counterpart: each process already holds its own shard, and the host copy
+  of x is the all-gather every solve ends with.
 * The collectives, each the counterpart of one JAX collective:
   ``all_reduce`` (``psum``), ``all_gather`` (``all_gather(tiled=True)``),
   ``ring_exchange`` (the two ``ppermute`` of the stencil's ring halo) and
-  ``all_to_all`` (the ELL halo plan's exchange). Every transport decision
+  ``all_to_all`` (the ELL halo plan's exchange), and ``broadcast`` of a
+  host value from rank 0 (values that come from host LAPACK, which two
+  processes need not round alike). Every transport decision
   is made here: a ``gloo`` group moves a CUDA tensor through one host copy
   (its point-to-point operations take CPU tensors), an NCCL group moves
   device tensors as they are. Each collective counts its calls
@@ -77,13 +87,21 @@ def check_backend_device(backend: str, world: int, device, rank: int) -> None:
             "card(s)); ranks that share a card use backend='gloo'")
 
 
-def init_group(backend: str, rank: int, world: int, init_method: str,
-               timeout: float = 600.0, device=None):
+def init_group(backend: str, rank: int | None = None, world: int | None = None,
+               init_method: str = "env://", timeout: float = 600.0, device=None):
     """Join this process to a ``world``-rank group as ``rank`` and return
     the group. ``init_method`` names the rendezvous (``tcp://localhost:<port>``
-    or ``file://<path>``); ``timeout`` (seconds) bounds every collective.
-    With ``device`` given, an NCCL group that would put two ranks on one
-    card raises before joining."""
+    or ``file://<path>``; ``env://``, the default, reads ``RANK``,
+    ``WORLD_SIZE`` and the coordinator's ``MASTER_ADDR``/``MASTER_PORT``
+    from the environment, as ``torchrun`` sets them, where rank and world
+    are not given); ``timeout`` (seconds) bounds every collective. With
+    ``device`` given, an NCCL group that would put two ranks on one card
+    raises before joining."""
+    if init_method == "env://":
+        import os
+
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world = int(os.environ["WORLD_SIZE"]) if world is None else world
     if device is not None:
         check_backend_device(backend, world, device, rank)
     dist.init_process_group(backend=backend, init_method=init_method,
@@ -102,6 +120,28 @@ def size_of(group) -> int:
 
 def backend_of(group) -> str:
     return str(dist.get_backend(group))
+
+
+def mesh_groups(group, shape: tuple):
+    """A (G, L) mesh over ``group`` (G·L ranks): returns (g, l, local),
+    this rank's coordinates (r // L, r % L) and the process group of the L
+    ranks that share its g (None when L == 1). Every rank of the default
+    group must call this, with the same shape: ``dist.new_group`` is
+    collective over it, and every rank creates every local group, in
+    order."""
+    g_n, l_n = (int(v) for v in shape)
+    if g_n * l_n != size_of(group):
+        raise ValueError(f"a {g_n}x{l_n} mesh needs a group of {g_n * l_n} "
+                         f"ranks; got {size_of(group)}")
+    rank = rank_of(group)
+    local = None
+    if l_n > 1:
+        for g in range(g_n):
+            ranks = [dist.get_global_rank(group, g * l_n + l) for l in range(l_n)]
+            sub = dist.new_group(ranks, backend=backend_of(group))
+            if g == rank // l_n:
+                local = sub
+    return rank // l_n, rank % l_n, local
 
 
 def _rank_main(fn, rank, world, args, backend, init_method, timeout,
@@ -234,6 +274,19 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out.to(x.device)
 
 
-for _fn in (all_reduce, all_gather, ring_exchange, all_to_all):
+def broadcast(value, group, src: int = 0):
+    """Rank ``src``'s value (any picklable host object: numpy arrays,
+    scalars, tuples, a CPU tensor) on every rank of the group; the value
+    the other ranks pass is ignored. Without a group, the value itself."""
+    if group is None or size_of(group) == 1:
+        return value
+    box = [value if rank_of(group) == src else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
+                               group=group)
+    broadcast.calls += 1
+    return box[0]
+
+
+for _fn in (all_reduce, all_gather, ring_exchange, all_to_all, broadcast):
     _fn.calls = 0
 del _fn

@@ -28,8 +28,8 @@ Vectors are lane-major (t, br, nrb) panels; node-major intermediates are
 flat (nrb + 1, br·t) with a trailing zero node that padding indices point
 at. Scatters use ``index_add_`` with int64 indices.
 
-Not ported (ROADMAP.md queue A, item 7): the generic block-arrow partition
-behind ``grid=None``, which raises NotImplementedError.
+Without ``grid=`` or a pinned partition the parts come from the generic
+block-arrow structure of the node graph (``core/partition.py``).
 ``factor_store="auto"`` picks f32, as the JAX rule does on every backend but
 the TPU.
 """
@@ -44,7 +44,8 @@ import scipy.sparse as sp
 import torch
 
 from prealps_tpu_torch.core.gridpart import collapse_to_nodes, grid_box_partition
-from prealps_tpu_torch.core.partition import rcm_order
+from prealps_tpu_torch.config import resolve_device
+from prealps_tpu_torch.core.partition import block_arrow_structure, rcm_order
 from prealps_tpu_torch.direct.banded import (
     BlockBandedCholesky,
     block_banded_cholesky,
@@ -664,13 +665,14 @@ def build_scalable_lorasc(
     in_sep: np.ndarray | None = None,
     lanczos_block: int | None = None,
     factor_store: str = "auto",
-    device="cpu",
+    device="cuda",
 ) -> ScalableLorasc:
     """Build the scalable LORASC for a stencil-structured operator ``a``
     (already scaled as the solver uses it; original ordering) on ``device``.
 
-    grid: (gx, gy, gz) node-grid dims for the geometric box partition, or a
-    pinned partition through node_part / in_sep. a_stencil: an existing
+    grid: (gx, gy, gz) node-grid dims for the geometric box partition, a
+    pinned partition through node_part / in_sep, or neither: the generic
+    block-arrow partition of the node graph (``core/partition.py``). a_stencil: an existing
     lane-major StencilBsrTMatrix of ``a`` on ``device`` (shared with the
     solver). pencil: "agg" (S u = λ Agg u), or the PRESC pencils "sloc"
     (S u = λ Sloc u, exact local Schur complements) and "saloc" (S u =
@@ -679,8 +681,10 @@ def build_scalable_lorasc(
     block Lanczos (None = env PREALPS_LANCZOS_BLOCK, default 8).
     factor_store: storage type of the banded factors the apply streams,
     "f32", "bf16" or "auto" (auto is f32 off a TPU, the JAX rule).
+    device: default "cuda", which raises without a card; "cpu" runs on the
+    host.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if pencil not in ("agg", "sloc", "saloc"):
         raise ValueError(f"unknown pencil {pencil!r} (agg | sloc | saloc)")
     if correction not in ("sigma", "deflate"):
@@ -688,10 +692,6 @@ def build_scalable_lorasc(
     if factor_store not in ("auto", "f32", "bf16"):
         raise ValueError(
             f"unknown factor_store {factor_store!r} (f32 | bf16 | auto)")
-    if grid is None and node_part is None:
-        raise NotImplementedError(
-            "grid=None needs the generic block-arrow partition, which is not "
-            "ported yet (ROADMAP.md queue A, item 7); pass grid= or node_part=")
     tdt = _torch_dtype(dtype)
     f32 = tdt == torch.float32
     timings: dict = {}
@@ -732,10 +732,14 @@ def build_scalable_lorasc(
             raise ValueError(
                 "pinned partition is not block-arrow: interior nodes of "
                 "different parts are coupled outside the separator")
-    else:
+    elif grid is not None:
         gx, gy, gz = grid
         assert gx * gy * gz == nrb, (grid, nrb)
         node_part, in_sep = grid_box_partition(gx, gy, gz, nparts)
+    else:
+        arrow = block_arrow_structure(node_graph, nparts)
+        node_part = np.maximum(arrow.part, 0)
+        in_sep = arrow.part < 0
 
     plan = plan_arrow_bands(node_graph, node_part, in_sep, nparts, br)
     _mark("plan")
@@ -818,17 +822,19 @@ def build_scalable_lorasc(
     if lanczos_block > 1 and restarts > 0:
         lancz = block_lanczos_thick_restart(
             op_apply_panel, b_apply_panel, ng_pad, nblocks=lanczos_nblocks,
-            nev=nev, bt=lanczos_block, restarts=restarts, dtype=tdt, v0=v0)
+            nev=nev, bt=lanczos_block, restarts=restarts, dtype=tdt, v0=v0,
+            device=device)
     elif restarts > 0:
         lancz = lanczos_thick_restart(
             lambda v: op_apply_panel(v[:, None])[:, 0],
             lambda v: b_apply_panel(v[:, None])[:, 0],
-            ng_pad, ncv_eff, nev=nev, restarts=restarts, dtype=tdt, v0=v0)
+            ng_pad, ncv_eff, nev=nev, restarts=restarts, dtype=tdt, v0=v0,
+            device=device)
     else:
         lancz = lanczos_gen(
             lambda v: op_apply_panel(v[:, None])[:, 0],
             lambda v: b_apply_panel(v[:, None])[:, 0],
-            ng_pad, ncv_eff, dtype=tdt, v0=v0)
+            ng_pad, ncv_eff, dtype=tdt, v0=v0, device=device)
     # subspace Rayleigh-Ritz + true residuals: drops thick-restart
     # duplicates and under-reported residuals of locked directions
     vecs = lancz.eigvectors[:, :nev]

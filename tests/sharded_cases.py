@@ -13,6 +13,7 @@ from prealps_tpu.solvers.ecg import ECGOptions as JaxOptions
 from prealps_tpu_torch.parallel import mesh
 
 SPAWN_TIMEOUT = 120        # seconds a spawn may take before its ranks are killed
+LORASC_SPAWN_TIMEOUT = 300  # the distributed LORASC's builds (8 ranks on 8 cores)
 X_RTOL = 1e-8              # f64: ‖x_port − x_jax‖ / ‖x_jax‖
 ITERS = 1                  # iteration counts within ±1
 
@@ -32,12 +33,56 @@ def jax_solve(a, b, nshards, case, **extra):
     return s, x, info
 
 
-def spawn_jobs(world, jobs, tmp_path_factory):
+def spawn_jobs(world, jobs, tmp_path_factory, timeout=SPAWN_TIMEOUT):
     """Run ``torch_shard_workers.several(jobs)`` on ``world`` gloo ranks;
     returns the per-rank lists of job results."""
     store = tmp_path_factory.mktemp(f"store{world}") / "store"
     return mesh.spawn(torch_shard_workers.several, world, args=(jobs,),
-                      init_method=f"file://{store}", timeout=SPAWN_TIMEOUT)
+                      init_method=f"file://{store}", timeout=timeout)
+
+
+def lorasc_reference(s):
+    """A JAX DistributedLorascECG's operands and sizes as
+    ``interop.distributed_lorasc_from_reference`` takes them: (arrays,
+    meta), numpy."""
+    import dataclasses
+
+    ops = s._operands[0]
+    arrays = {k: np.asarray(v) for k, v in ops.items() if k not in ("fac", "agg_fac")}
+    for name in ("l_inv", "w_fwd", "l_inv_t", "w_bwd"):
+        arrays[name] = np.asarray(getattr(ops["fac"], name))
+    if "agg_fac" in ops:
+        arrays["agg_l_inv"] = np.asarray(ops["agg_fac"].l_inv)
+        arrays["agg_m_off"] = np.asarray(ops["agg_fac"].m_off)
+    arrays.update(scale_d=s.scale_d, arrow_perm=s.arrow_perm, row_of=s.row_of,
+                  a_scaled=s.a_scaled)
+    meta = dict(ngroups=s.ngroups, nlocal=s.nlocal, ni_max=s.ni_max,
+                ng_max=s.ng_max, n=s.n, deflated=s.deflated,
+                target_tol=s.target_tol, opts=dataclasses.asdict(s.opts))
+    return arrays, meta
+
+
+def jax_lorasc_applies(s, vectors):
+    """The JAX build's preconditioner on each vector (original ordering,
+    scaled space): its solve with ``ecg_solve`` replaced, while the solve
+    is traced, by one that returns M·b. ``s`` must not have solved yet."""
+    import jax.numpy as jnp
+
+    from prealps_tpu.parallel import lorasc_driver
+    from prealps_tpu.solvers.ecg import ECGResult
+
+    def apply_only(a_apply, m_apply, b_loc, opts, axis_name=None, split_assign=None):
+        z = jnp.zeros((), b_loc.dtype)
+        return ECGResult(x=m_apply(b_loc[:, None])[:, 0], iters=jnp.int32(0), res=z,
+                         normb=z, bs=jnp.int32(0), breakdown=jnp.bool_(False),
+                         history=jnp.zeros((1,), b_loc.dtype))
+
+    real = lorasc_driver.ecg_solve
+    lorasc_driver.ecg_solve = apply_only
+    try:
+        return [s._solve_scaled_once(v)[0] for v in vectors]
+    finally:
+        lorasc_driver.ecg_solve = real
 
 
 def same_on_every_rank(results, name):

@@ -25,6 +25,17 @@ DistributedECG solves (nel 8, heterogeneous, RAC-scaled before the build,
 t 2, tol 1e-6, f32 here as on the card; ``[sharded_dryrun]``). The k-way
 partition of ``dry_ell_bj`` runs the JAX package's Python algorithm
 (``PREALPS_TPU_NO_NATIVE=1``), the one the port copies.
+
+The distributed LORASC phases (``[dlorasc_large]``, ``[dlorasc_dryrun]``)
+take theirs from the JAX ``DistributedLorascECG`` over ``--nshards`` groups
+or a ``--mesh G,L``, with the Python block-arrow partition:
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dlorasc_large --nshards 8
+    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dry_lorasc_2level --mesh 4,2
+
+``dlorasc_large`` is ``examples/demo_large_separator.py``'s configuration
+(heterogeneous elasticity3d 32³, f64, t 4 odir_fused, tol 1e-5); the
+``dry_lorasc*`` paths are dryrun_multichip's three LORASC builds.
 """
 
 import argparse
@@ -32,6 +43,7 @@ import json
 import time
 
 import numpy as np
+import pytest
 import torch
 
 from prealps_tpu.core.generators import elasticity3d
@@ -77,7 +89,17 @@ DRYRUN = {
                               grid=(9, 9, 8)), "tbn"),
 }
 DRYRUN_NEL = 8
-PATHS = ("dia", "cheb", "dedup", "bj2l_nogrid", "sharded4", *DRYRUN)
+# dryrun_multichip's DistributedLorascECG builds (t 2, tol 1e-6, maxiter
+# 6000, dtype the problem's; "lorasc_2level" on a (G, 2) mesh)
+DRYRUN_LORASC = {
+    "dry_lorasc": (dict(), "odir_fused"),
+    "dry_lorasc_2level": (dict(max_deflation=16), "odir_fused"),
+    "dry_lorasc_deflation": (dict(exact_schur=False, correction="deflate",
+                                  max_deflation=64), "omin"),
+}
+LARGE_NEL = 32
+PATHS = ("dia", "cheb", "dedup", "bj2l_nogrid", "sharded4", *DRYRUN,
+         "dlorasc_large", *DRYRUN_LORASC)
 
 
 def dryrun_problem(elasticity3d, sym_rac_scaling, nel=DRYRUN_NEL, dtype=np.float32):
@@ -149,6 +171,50 @@ def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> d
             "solve_s": time.perf_counter() - t0}
 
 
+def lorasc_case(path: str, mesh: tuple, dtype=np.float32):
+    """(problem (a, b), build keywords with ``opts`` a dict of ECGOptions
+    fields) of a distributed LORASC path over ``mesh`` = (G, L): L == 1 is
+    ``nshards=G``, else ``mesh_shape=(G, L)``."""
+    from prealps_tpu.core.scaling import sym_rac_scaling
+
+    g_n, l_n = mesh
+    where = dict(nshards=g_n) if l_n == 1 else dict(mesh_shape=(g_n, l_n))
+    if path == "dlorasc_large":
+        a = elasticity3d(LARGE_NEL, LARGE_NEL, LARGE_NEL)
+        b = np.random.default_rng(0).standard_normal(a.shape[0])
+        return (a, b), dict(where, dtype=np.float64, opts=dict(
+            t=4, tol=1e-5, maxiter=2000, variant="odir_fused"))
+    kw, variant = DRYRUN_LORASC[path]
+    a, b = dryrun_problem(elasticity3d, sym_rac_scaling, dtype=dtype)
+    return (a, b), dict(kw, **where, dtype=dtype, opts=dict(
+        t=2, tol=1e-6, maxiter=6000, variant=variant))
+
+
+def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32) -> dict:
+    """The JAX DistributedLorascECG's build and solve of a distributed
+    LORASC path over ``mesh`` CPU devices (Python block-arrow partition)."""
+    import os
+
+    from prealps_tpu.parallel.lorasc_driver import DistributedLorascECG as JaxLorasc
+
+    os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
+    (a, b), kw = lorasc_case(path, mesh, dtype)
+    opts = JaxOptions(**kw.pop("opts"))
+    t0 = time.perf_counter()
+    s = JaxLorasc.build(a, opts=opts, **kw)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = s.solve(b)
+    return {"path": path, "mesh": list(mesh), "dtype": np.dtype(kw["dtype"]).name,
+            "n": a.shape[0], "ng_max": int(s.ng_max),
+            "sep_padded_rows": int(s.ng_max * s.ngroups),
+            "deflated": int(s.deflated), "iters": int(info["iters"]),
+            "refine_rounds": int(info.get("refine_rounds", 0)),
+            "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+            "breakdown": bool(info["breakdown"]), "build_s": build_s,
+            "solve_s": time.perf_counter() - t0}
+
+
 def jax_dia_anchor(nel: int) -> dict:
     """The JAX driver's DIA solve at chip_smoke's configuration."""
     return jax_anchor("dia", nel)
@@ -210,6 +276,28 @@ def test_dryrun_problem_is_the_graft_entry_problem():
     np.testing.assert_array_equal(b_t, b_j)
 
 
+@pytest.mark.parametrize("path,mesh", [("dry_lorasc", (8, 1)),
+                                       ("dry_lorasc_2level", (4, 2)),
+                                       ("dry_lorasc_deflation", (8, 1))])
+def test_lorasc_anchor_cases_are_the_dryrun_builds(path, mesh):
+    """The distributed LORASC anchors' cases: ``__graft_entry__``'s nel-8
+    problem in f32, t 2 to 1e-6, omin on the deflation path, the mesh as
+    ``nshards`` or ``mesh_shape``, and chip_smoke's builds the same."""
+    import chip_smoke
+    from __graft_entry__ import _problem as graft_problem
+
+    (a, b), kw = lorasc_case(path, mesh)
+    a_j, b_j = graft_problem(nel=DRYRUN_NEL, dtype=np.float32)
+    assert (a != a_j).nnz == 0
+    np.testing.assert_array_equal(b, b_j)
+    opts = kw.pop("opts")
+    assert opts == dict(t=2, tol=1e-6, maxiter=6000,
+                        variant="omin" if path == "dry_lorasc_deflation" else "odir_fused")
+    assert kw.pop("dtype") == np.float32
+    smoke_kw, variant = chip_smoke.DLORASC_DRY[path]
+    assert kw == smoke_kw and variant == opts["variant"]
+
+
 if __name__ == "__main__":
     import jax
 
@@ -222,11 +310,18 @@ if __name__ == "__main__":
                     help="CPU devices of the sharded paths (sharded4, dry_*)")
     ap.add_argument("--dtype", choices=("f32", "f64"), default="f32",
                     help="the dry_* paths' type (the card runs f32 on the stencil)")
+    ap.add_argument("--mesh", default=None,
+                    help="G,L: the distributed LORASC paths' (groups, local) mesh")
     args = ap.parse_args()
+    mesh = (tuple(int(v) for v in args.mesh.split(",")) if args.mesh
+            else (args.nshards, 1))
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_num_cpu_devices", max(8, args.nshards))
+    jax.config.update("jax_num_cpu_devices", max(8, mesh[0] * mesh[1]))
     jax.config.update("jax_enable_x64", True)
-    if args.path == "sharded4" or args.path in DRYRUN:
+    if args.path == "dlorasc_large" or args.path in DRYRUN_LORASC:
+        dtype = np.float32 if args.dtype == "f32" else np.float64
+        print(json.dumps(jax_lorasc_anchor(args.path, mesh, dtype)))
+    elif args.path == "sharded4" or args.path in DRYRUN:
         dtype = np.float32 if args.dtype == "f32" else np.float64
         print(json.dumps(jax_sharded_anchor(args.path, args.nel, args.nshards, dtype)))
     else:

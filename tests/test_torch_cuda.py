@@ -901,3 +901,50 @@ def test_b1_offsets_wider_than_the_shard(cuda_device, t):
     ref = tspmm.stencil_flat_ext_ref(bf, st.offsets, x_ext, halo, 3)
     scale = tspmm.stencil_flat_ext_ref(bf.abs(), st.offsets, x_ext.abs(), halo, 3)
     assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
+
+
+# --- the distributed LORASC on the card: ranks that share cuda:0 ---------
+
+
+def test_two_level_banded_solve_on_card_matches_cpu(cuda_device, tmp_path):
+    """The two-level banded solve (f64), each of 2 ranks on the card
+    holding half the rows of every factor block, against the same 2-rank
+    solve on the CPU: 1e-12 relative, the same bits on both ranks."""
+    import torch_shard_workers as w
+
+    rng = np.random.default_rng(0)
+    e = 0.3 * rng.standard_normal((2, 5, 12, 12))
+    e[:, 0] = 0.0
+    g = rng.standard_normal((2, 5, 12, 12))
+    d = np.einsum("pnij,pnkj->pnik", g, g) / 12 + 4.0 * np.eye(12)
+    v = rng.standard_normal((2, 5, 12, 3))
+    card = _spawn_on_card(w.banded_two_level, 2, (d, e, v, "cuda:0"), tmp_path / "g")
+    cpu = _spawn_on_card(w.banded_two_level, 2, (d, e, v, "cpu"), tmp_path / "c")
+    np.testing.assert_array_equal(card[1][0], card[0][0])
+    want = cpu[0][0]
+    assert np.abs(card[0][0] - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_distributed_lorasc_on_card_matches_cpu(cuda_device, tmp_path):
+    """DistributedLorascECG over 4 ranks sharing the card (gloo), f64
+    elasticity3d(6,5,5) with Lanczos deflation and the balancing lift,
+    against the same 4-rank build and solve on the CPU: iterations ±1, the
+    same deflated pairs, x within 1e-8 relative and bitwise the same on
+    every rank."""
+    import torch_shard_workers as w
+
+    a = elasticity3d(6, 5, 5)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    case = dict(nshards=4, dtype=np.float64, exact_schur=False, correction="deflate",
+                opts=dict(t=4, tol=1e-8, maxiter=600, variant="omin"))
+    card = _spawn_on_card(w.card_lorasc_solve, 4, (a, b, case, "cuda:0"), tmp_path / "g")
+    cpu = _spawn_on_card(w.card_lorasc_solve, 4, (a, b, case, "cpu"), tmp_path / "c")
+    for out, kind in ((card, "cuda"), (cpu, "cpu")):
+        for r in out:
+            np.testing.assert_array_equal(r[0], out[0][0])
+            assert r[2] == kind
+    (x_g, info_g, _), (x_c, info_c, _) = card[0], cpu[0]
+    assert info_g["deflated"] == info_c["deflated"] > 0
+    assert not info_g["breakdown"]
+    assert abs(info_g["iters"] - info_c["iters"]) <= 1
+    assert np.linalg.norm(x_g - x_c) <= 1e-8 * np.linalg.norm(x_c)

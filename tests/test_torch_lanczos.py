@@ -63,7 +63,8 @@ def _check(res_t, res_j, ref, k):
 
 def test_lanczos_gen_matches_jax_and_scipy(pencil):
     ref = pencil[3]
-    res_t = tl.lanczos_gen(*_closures(pencil, "torch"), N, 40, dtype=torch.float64)
+    res_t = tl.lanczos_gen(*_closures(pencil, "torch"), N, 40, dtype=torch.float64,
+                           device="cpu")
     res_j = jl.lanczos_gen(*_closures(pencil, "jax"), N, 40, dtype=jnp.float64)
     _check(res_t, res_j, ref, k=8)
 
@@ -71,7 +72,7 @@ def test_lanczos_gen_matches_jax_and_scipy(pencil):
 def test_thick_restart_matches_jax_and_scipy(pencil):
     ref = pencil[3]
     res_t = tl.lanczos_thick_restart(*_closures(pencil, "torch"), N, 20, nev=6,
-                                     restarts=4, dtype=torch.float64)
+                                     restarts=4, dtype=torch.float64, device="cpu")
     res_j = jl.lanczos_thick_restart(*_closures(pencil, "jax"), N, 20, nev=6,
                                      restarts=4, dtype=jnp.float64)
     _check(res_t, res_j, ref, k=6)
@@ -82,7 +83,8 @@ def test_block_thick_restart_matches_jax_and_scipy(pencil):
     op_t, b_t = _closures(pencil, "torch")
     op_j, b_j = _closures(pencil, "jax")
     res_t = tl.block_lanczos_thick_restart(op_t, b_t, N, nblocks=6, nev=6, bt=4,
-                                           restarts=8, dtype=torch.float64)
+                                           restarts=8, dtype=torch.float64,
+                                           device="cpu")
     res_j = jl.block_lanczos_thick_restart(op_j, b_j, N, nblocks=6, nev=6, bt=4,
                                            restarts=8, dtype=jnp.float64)
     assert res_t.eigvectors.shape == (N, 24)
@@ -92,7 +94,7 @@ def test_block_thick_restart_matches_jax_and_scipy(pencil):
 def test_block_thick_restart_needs_three_blocks(pencil):
     with pytest.raises(ValueError, match="nblocks"):
         tl.block_lanczos_thick_restart(*_closures(pencil, "torch"), N, nblocks=2,
-                                       nev=2, bt=4, dtype=torch.float64)
+                                       nev=2, bt=4, dtype=torch.float64, device="cpu")
 
 
 @pytest.mark.parametrize("restarts,ncv,ndim,blk", [

@@ -274,12 +274,12 @@ def test_port_solve_matches_jax_iterations(problem, ref, correction):
 @pytest.mark.parametrize("kw", [dict(pencil="sloc"), dict(pencil="saloc"),
                                 dict(factor_store="bf16"), dict(grid=None),
                                 dict(a_store="bf16"), dict(a_store="bf16_all")])
-def test_unported_options_raise(problem, kw):
-    """The cases of the former refusal test. grid=None (the generic
-    block-arrow partition) is still not ported (ROADMAP.md queue A, item 7)
-    and raises. The others build and solve as the JAX driver does, with the
-    balancing correction: the PRESC pencils in f64 (the same deflated
-    count, iterations within ±1), the bf16 stores in f32 with refinement
+def test_unported_options_raise(problem, kw, monkeypatch):
+    """The cases of the former refusal test. Each builds and solves as the
+    JAX driver does, with the balancing correction: the PRESC pencils and
+    grid=None (the generic block-arrow partition, the JAX package's Python
+    algorithm) in f64 (the same deflated count, iterations within ±1), the
+    bf16 stores in f32 with refinement
     (relres < 1e-5 and iterations within 10 % of the JAX driver's, since
     the two f32 solves round in another order; bf16_all reproduces the JAX
     package's pinned failure in both packages). The f32
@@ -287,13 +287,10 @@ def test_unported_options_raise(problem, kw):
     f32 omin solve of this 882-dof operator breaks down in both packages
     whatever the stores."""
     a, b, _ = problem
+    monkeypatch.setenv("PREALPS_TPU_NO_NATIVE", "1")
     build = dict(BUILD, correction="deflate", **kw)
-    if "grid" in kw:
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            tstl.StencilLorascECG.build(a, opts=_opts(ECGOptions), device="cpu", **build)
-        return
     t = 12
-    if "pencil" not in kw:
+    if "pencil" not in kw and "grid" not in kw:
         build["dtype"], t = np.float32, 4
     sj = jstl.StencilLorascECG.build(a, opts=dataclasses.replace(_opts(JaxOptions), t=t),
                                      **build)
@@ -310,8 +307,33 @@ def test_unported_options_raise(problem, kw):
         return
     assert s.precond.deflated == sj.precond.deflated > 0
     assert not info["breakdown"] and rel < 1e-5
-    band = 1 if "pencil" in kw else 0.1 * info_j["iters"]
+    band = 1 if ("pencil" in kw or "grid" in kw) else 0.1 * info_j["iters"]
     assert abs(info["iters"] - info_j["iters"]) <= band, (info["iters"], info_j["iters"])
+
+
+def test_generic_partition_matches_jax(monkeypatch):
+    """grid=None on het 8³ with 4 parts: the node partition of the generic
+    block-arrow structure bitwise the JAX Python version's, the same
+    deflated pairs, and the f64 solve's iterations within ±1."""
+    from prealps_tpu.core.partition import block_arrow_structure as j_arrow
+    from prealps_tpu_torch.core.gridpart import collapse_to_nodes
+    from prealps_tpu_torch.core.partition import block_arrow_structure as t_arrow
+
+    monkeypatch.setenv("PREALPS_TPU_NO_NATIVE", "1")
+    a = elasticity3d(8, 8, 8, heterogeneous=True)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    graph = collapse_to_nodes(sym_rac_scaling(a)[0], 3)
+    np.testing.assert_array_equal(t_arrow(graph, 4).part, j_arrow(graph, 4).part)
+    build = dict(BUILD, nparts=4, grid=None, correction="deflate")
+    sj = jstl.StencilLorascECG.build(a, opts=_opts(JaxOptions), **build)
+    s = tstl.StencilLorascECG.build(a, opts=_opts(ECGOptions), device="cpu", **build)
+    np.testing.assert_array_equal(s.precond.plan.part_arr, sj.precond.plan.part_arr)
+    assert s.precond.deflated == sj.precond.deflated > 0
+    _, info_j = sj.solve(b)
+    x, info = s.solve(b)
+    assert abs(info["iters"] - info_j["iters"]) <= 1, (info["iters"], info_j["iters"])
+    assert not info["breakdown"]
+    assert np.linalg.norm(b - a @ x) < 1e-5 * np.linalg.norm(b)
 
 
 def test_build_refuses_an_absent_card(problem, monkeypatch):

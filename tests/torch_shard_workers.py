@@ -15,7 +15,10 @@ import scipy.sparse as sp
 import torch
 
 from prealps_tpu_torch.core.layout import build_row_layout, permute_and_pad_matrix
-from prealps_tpu_torch.interop import solver_from_reference
+from prealps_tpu_torch.interop import (
+    distributed_lorasc_from_reference,
+    solver_from_reference,
+)
 from prealps_tpu_torch.ops.blockops import psum
 from prealps_tpu_torch.ops import spmm
 from prealps_tpu_torch.ops.spmm import extend_ring, extend_wrap
@@ -121,6 +124,92 @@ def reference_solves(rank, group, b, refs):
     return out
 
 
+def lorasc_solves(rank, group, a, b, cases):
+    """``DistributedLorascECG.build(group=group, device="cpu")`` and
+    ``solve(b)`` for each case (name -> build keywords, ``opts`` a dict of
+    ECGOptions fields, ``mesh_shape`` or ``nshards``); returns name -> (x,
+    info, ng_max, ni_max)."""
+    from prealps_tpu_torch.parallel.lorasc_driver import DistributedLorascECG
+
+    out = {}
+    for name, kw in cases.items():
+        kw = dict(kw)
+        opts = ECGOptions(**kw.pop("opts"))
+        s = DistributedLorascECG.build(a, opts=opts, device="cpu", group=group, **kw)
+        x, info = s.solve(b)
+        out[name] = (x, info, s.ng_max, s.ni_max)
+    return out
+
+
+def lorasc_refusals(rank, group, a, cases):
+    """The build of each case (name -> build keywords) over the group;
+    returns name -> (exception type name, message), or None if it built."""
+    from prealps_tpu_torch.parallel.lorasc_driver import DistributedLorascECG
+
+    out = {}
+    for name, kw in cases.items():
+        try:
+            DistributedLorascECG.build(a, device="cpu", group=group, **kw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def _apply_only(a_apply, m_apply, b, opts, split_assign=None, group=None):
+    """An ``ecg_solve`` stand-in that returns M·b as its x."""
+    from prealps_tpu_torch.solvers.ecg import ECGResult
+
+    z = torch.zeros((), dtype=b.dtype)
+    return ECGResult(x=m_apply(b[:, None])[:, 0], iters=0, res=z, normb=z, bs=0,
+                     breakdown=False, history=z[None])
+
+
+def lorasc_reference_applies(rank, group, refs, b, vectors):
+    """``distributed_lorasc_from_reference`` on each JAX build's operands
+    (name -> (arrays, meta)): the preconditioner on each of ``vectors``
+    (original ordering, scaled space; through ``_solve_scaled_once`` with
+    ``ecg_solve`` replaced by M·b, as ``sharded_cases.jax_lorasc_applies``
+    does on the JAX side), then ``solve(b)``; returns name -> (the M·v, x,
+    info)."""
+    from prealps_tpu_torch.parallel import lorasc_driver
+
+    out = {}
+    for name, (arrays, meta) in refs.items():
+        s = distributed_lorasc_from_reference(arrays, meta, device="cpu", group=group)
+        real = lorasc_driver.ecg_solve
+        lorasc_driver.ecg_solve = _apply_only
+        try:
+            ys = [s._solve_scaled_once(v)[0] for v in vectors]
+        finally:
+            lorasc_driver.ecg_solve = real
+        x, info = s.solve(b)
+        out[name] = (ys, x, info)
+    return out
+
+
+def banded_two_level(rank, group, d, e, v, device="cpu"):
+    """The two-level solve of the factored (d, e) over the group on
+    ``device``: every rank its bs/L rows of the folded factors, the whole
+    v; returns the solution and ``prepare_two_level``'s arrays (whole), on
+    the host."""
+    from prealps_tpu_torch.direct.banded import (
+        block_banded_cholesky,
+        block_banded_solve_two_level,
+        prepare_two_level,
+    )
+
+    world = mesh.size_of(group)
+    dev = torch.device(device)
+    fac2 = prepare_two_level(block_banded_cholesky(torch.from_numpy(d).to(dev),
+                                                   torch.from_numpy(e).to(dev)))
+    rows = d.shape[2] // world
+    mine = fac2.rows(rank * rows, (rank + 1) * rows)
+    w = block_banded_solve_two_level(mine, torch.from_numpy(v).to(dev), group)
+    return w.cpu().numpy(), {k: getattr(fac2, k).cpu().numpy() for k in
+                             ("l_inv", "w_fwd", "l_inv_t", "w_bwd")}
+
+
 def fails(rank, group):
     """Rank 1 raises; rank 0 waits for it in an all-reduce."""
     if rank == 1:
@@ -167,6 +256,19 @@ def card_solve(rank, group, a, b, case, device):
     x, info = s.solve(b)
     info.pop("history")
     return x, info, spmm.stencil_flat_ext.launches - before
+
+
+def card_lorasc_solve(rank, group, a, b, case, device):
+    """A DistributedLorascECG build over the group on ``device`` (cuda:0,
+    shared by the ranks, or the CPU) and its solve; returns (x, info, the
+    device type of the operands)."""
+    from prealps_tpu_torch.parallel.lorasc_driver import DistributedLorascECG
+
+    kw = dict(case)
+    opts = ECGOptions(**kw.pop("opts"))
+    s = DistributedLorascECG.build(a, opts=opts, device=device, group=group, **kw)
+    x, info = s.solve(b)
+    return x, info, s.ops["ell_vals"].device.type
 
 
 def card_build(rank, group, build_dir):

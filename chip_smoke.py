@@ -168,7 +168,37 @@ Phases (any failure exits nonzero before a result is printed):
     relres < 1e-4 (the dry run's 100 × tol), every rank the same x, the
     counts within ANCHOR_BAND of the JAX driver's on a CPU at the same
     mesh (DLORASC_DRY_ANCHORS), at least one pair on the deflation path;
-    MULTICHIP_r05.json's 5, 5 and 88 (19 pairs) printed beside them.
+    MULTICHIP_r05.json's 5, 5 and 88 (19 pairs) printed beside them;
+34. ``[sharded_general4]`` the general path ([general]: elasticity3d 36³,
+    fmt="block_ell", host block Jacobi with 240-row blocks, t 12 on nt, f32
+    with host-f64 rounds) at full width over 4 ranks spawned on this card
+    (gloo): the k-way layout in 128-row blocks, each rank B5 on its
+    [own ∥ halo] block space after the block halo plan's all-to-all. Every
+    rank the same x, host f64 relres < 1e-5, no breakdown, B5 launched >=
+    iterations on every rank (counts zeroed just before each rank's
+    solve), iterations within 5 % of SHARDED_GENERAL4_ANCHOR_ITERS (the JAX
+    driver's ``block_ell_xla`` at nshards 4 on a CPU); each rank's build
+    stages, warm and timed solve, collectives and peak device memory; a
+    window of PROFILE_ITERS iterations of rank 0 under torch.profiler (its
+    device-busy share; by host time: chiprun_out/profile_sharded_general4.txt);
+    then ``[kernel]`` B5 at rank 0's shard shape (its row blocks, s_max and
+    extended columns; t 12 and t 1) against its plain version, with its
+    device time (``timing.py::device_ms``), bound and ``torch.sparse.mm``
+    of the shard's rows of its extended operator;
+35. ``[sharded_dia4]`` [dia] over 4 ranks (SHARDED_DIA4_NEL³, tbn, bj,
+    f32): each rank's promoted diagonals of the k-way layout as a br = 1
+    table through B1 on the ring-extended panel, the remainder through its
+    halo plan's all-to-all; the checks and the profiled window of phase 34
+    with B1 and SHARDED_DIA4_ANCHOR_ITERS
+    (chiprun_out/profile_sharded_dia4.txt), and ``[kernel]`` B1 at rank
+    0's shard shape (D, halo, its nodes; t 12 and t 1);
+36. ``[sharded_formats]`` the JAX tests' small sharded paths in f64 (the
+    plain products; SHARDED_FORMATS): the stencil on nt (with ELL on its
+    layout: the same count), block-ELL (``block_ell_xla``) and
+    ``fmt="auto"`` on a shuffled band (which must choose ``dia_rcm``) over
+    4 ranks, DIA on nt over 8: each within ANCHOR_BAND of the JAX driver's
+    count at the same nshards (SHARDED_FORMATS_ANCHOR_ITERS), relres < 20 ×
+    its tolerance, every rank the same x.
 
 Beside the headline B1 checks, ``[kernel]`` lines hold B3 at t = 12 / 8 / 1
 and B4 (planar) at t = 12 on the headline operator against their plain
@@ -190,8 +220,9 @@ limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
 ``shapes``, at every shape checked, B2a's and B2b's with their
 ``blocks_dtype``; ``max_abs_err`` over its shapes, ``launches`` from its
 path's run — for B4 and B6, which no path runs, chip_smoke's own calls;
-B1's, B2a's and B2b's entries also list their count on every path's solve
-under ``path_launches`` (B1's also each sharded rank's), B2a's that of its bf16 instance under
+B1's, B2a's, B2b's and B5's entries also list their count on every path's
+solve under ``path_launches`` (B1's and B5's also each sharded rank's),
+B2a's that of its bf16 instance under
 ``bf16_launches``), and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -283,11 +314,63 @@ DLORASC_DRY_ANCHORS = {"dry_lorasc": (4, 828), "dry_lorasc_2level": (4, 594),
                        "dry_lorasc_deflation": (61, 21)}
 DLORASC_DRY_R05 = {"dry_lorasc": "5", "dry_lorasc_2level": "5",
                    "dry_lorasc_deflation": "88 (19 pairs)"}
+# the sharded driver's other formats (the JAX driver over nshards CPU
+# devices, the Python k-way partition: python -m tests.test_torch_anchors
+# --path sharded_general4|sharded_dia4 --nel N --nshards 4 and --path
+# sharded_formats). [sharded_general4]: [general] over 4 ranks, the JAX
+# driver's fmt="block_ell_xla" (its Pallas block-ELL is too slow in
+# interpret mode at this size, and sums in f32 anyway): n_pad 155,648, 193
+# iterations in 2 host refinement rounds, relres 3.1e-8.
+SHARDED_GENERAL4_ANCHOR_ITERS = 193
+# [sharded_dia4]: [dia] over 4 ranks, at SHARDED_DIA4_NEL: n_pad 155,648,
+# 189 iterations in 2 rounds, relres 3.5e-8.
+SHARDED_DIA4_ANCHOR_ITERS = 189
+SHARDED_DIA4_NEL = 36
+# [sharded_formats]: (ranks, problem, build keywords, ECGOptions fields) of
+# the JAX tests' sharded paths (tests/test_distributed.py:98-108, :79-83 and
+# :440-456, tests/test_spmm.py:541-560), f64; ``auto`` keeps the row-major
+# layout the JAX driver picks off a TPU (on a card auto_layout would take
+# tbn, whose kernel is f32). The JAX driver's counts at the same nshards:
+SHARDED_FORMATS = {
+    "stencil_nt": (4, "ela", dict(fmt="stencil", br=3, precond="block_jacobi"),
+                   dict(t=4, tol=1e-6, maxiter=2000, variant="odir_fused",
+                        layout="nt")),
+    "block_ell_xla": (4, "ela", dict(fmt="block_ell_xla", precond="block_jacobi"),
+                      dict(t=4, tol=1e-8, maxiter=2000, variant="odir_fused",
+                           layout="nt")),
+    "auto": (4, "band", dict(fmt="auto", precond="block_jacobi", auto_layout=False),
+             dict(t=2, tol=1e-10, maxiter=400, layout="nt")),
+    "dia_nt": (8, "ela_b5", dict(fmt="dia", precond="block_jacobi"),
+               dict(t=4, tol=1e-8, maxiter=2000, layout="nt")),
+}
+SHARDED_FORMATS_ANCHOR_ITERS = {"stencil_nt": 55, "block_ell_xla": 51, "auto": 11,
+                                "dia_nt": 63}
 SHARDED_TIMEOUT = 420      # seconds a spawn of ranks may take before they are killed
 # yardsticks: one H100 SXM's HBM3 rate and f32 rate outside the tensor cores
 # (NVIDIA's data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+
+
+def sharded_formats_problem(name, elasticity3d):
+    """The (a, b) of a [sharded_formats] problem, from either package's
+    generator (they are bitwise equal): het elasticity3d(6,5,5) with b
+    from default_rng(42) ("ela") or default_rng(5) ("ela_b5"), or the
+    5-diagonal band of n 2,400 under default_rng(42)'s permutation, b from
+    the same generator ("band")."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    if name == "band":
+        n = 2400
+        rng = np.random.default_rng(42)
+        band = sp.diags([np.ones(n - 3), np.ones(n - 1), 5.0 * np.ones(n),
+                         np.ones(n - 1), np.ones(n - 3)], [-3, -1, 0, 1, 3]).tocsr()
+        pm = rng.permutation(n)
+        return sp.csr_matrix(band[pm][:, pm]), rng.standard_normal(n)
+    a = elasticity3d(6, 5, 5)
+    seed = 5 if name == "ela_b5" else 42
+    return a, np.random.default_rng(seed).standard_normal(a.shape[0])
 
 
 def log(msg: str) -> None:
@@ -398,6 +481,22 @@ def scipy_csr(a, dev):
         torch.from_numpy(a.data.astype(np.float32)), a.shape).to(dev)
 
 
+def block_ell_csr(mat):
+    """A block-ELL operator (blocks (nrb, S, 8, bk), block columns in its
+    own column space, e.g. a shard's [own ∥ halo] blocks) as an f32 torch
+    CSR matrix on its device, its zero entries dropped: the library
+    yardstick's operand."""
+    import torch
+
+    nrb, _, bm, bk = mat.blocks.shape
+    rb, slot, m, k = mat.blocks.nonzero(as_tuple=True)
+    rows = rb * bm + m
+    cols = mat.blkcols.long()[rb, slot] * bk + k
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), mat.blocks[rb, slot, m, k],
+                                  tuple(mat.shape)).coalesce()
+    return coo.to_sparse_csr()
+
+
 def library_ms(csr, t, seed):
     """CUDA-event time of one torch.sparse.mm of the operator on an (n, t)
     panel: the library call that computes the kernel's function."""
@@ -410,9 +509,11 @@ def library_ms(csr, t, seed):
     return ms
 
 
-def check_kernel(name, blocks_flat, offsets, halo, br, t, seed, csr=None):
+def check_kernel(name, blocks_flat, offsets, halo, br, t, seed, csr=None,
+                 device_time=False):
     """Kernel vs plain version on the card for one shape; returns a record
-    (with the cuSPARSE yardstick where ``csr`` is given)."""
+    (with the cuSPARSE yardstick where ``csr`` is given, and with
+    ``device_time`` the kernel's device time by ``timing.py::device_ms``)."""
     import numpy as np
     import torch
 
@@ -446,13 +547,26 @@ def check_kernel(name, blocks_flat, offsets, halo, br, t, seed, csr=None):
                       nbytes),
            **bound(nbytes, 2 * len(offsets) * br * br * t * nrb),
            "library_ms": None if csr is None else library_ms(csr, t, seed)}
+    if device_time:
+        rec["device_ms"] = kernel_device_ms(
+            lambda: stencil_flat_ext(blocks_flat, offsets, x_ext, halo, br))
     log_kernel(name, f"br={br} t={t} S={len(offsets)} nrb={nrb}", rec)
     return rec
+
+
+def kernel_device_ms(fn) -> float:
+    """Device time of one call by ``prealps_tpu_torch/timing.py::device_ms``
+    (the calls enqueued behind a spin kernel)."""
+    from prealps_tpu_torch.timing import device_ms
+
+    return device_ms(fn)[0]
 
 
 def log_kernel(name, shape, rec):
     lib = ("" if rec.get("library_ms") is None
            else f" library {rec['library_ms']:.4f} ms")
+    if "device_ms" in rec:
+        lib += f"; device time {rec['device_ms']:.4f} ms"
     log(f"[kernel] {name}: {shape} max_abs_err={rec['max_abs_err']:.3e} (bound "
         f"{rec['err_bound']:.3e}) kernel {rec['ms']:.4f} ms ({rec['GBps']:.0f} "
         f"GB/s, {rec['reckoned_MB']:.1f} MB) plain {rec['plain_ms']:.4f} ms "
@@ -586,8 +700,10 @@ def device_busy_ms(prof) -> float:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
-def check_block_ell(name, mat, t, seed, csr=None):
-    """B5 against block_ell_spmm on the card for one shape; returns a record."""
+def check_block_ell(name, mat, t, seed, csr=None, device_time=False):
+    """B5 against block_ell_spmm on the card for one shape; returns a record
+    (with ``device_time`` also the kernel's device time by
+    ``timing.py::device_ms``)."""
     import numpy as np
     import torch
 
@@ -618,7 +734,10 @@ def check_block_ell(name, mat, t, seed, csr=None):
                       lambda: block_ell_spmm(mat, x), nbytes, reps=10),
            **bound(nbytes, 2 * nrb * s_max * bm * bk * t),
            "library_ms": None if csr is None else library_ms(csr, t, seed)}
-    log_kernel(name, f"nrb={nrb} S={s_max} bm={bm} bk={bk} t={t}", rec)
+    if device_time:
+        rec["device_ms"] = kernel_device_ms(lambda: block_ell_spmm_pallas(mat, x))
+    log_kernel(name, f"nrb={nrb} S={s_max} bm={bm} bk={bk} ncols={mat.shape[1]} t={t}",
+               rec)
     return rec
 
 
@@ -1715,6 +1834,271 @@ def sharded_dryrun_phase(device="cuda:0"):
     return out
 
 
+PROFILE_ITERS = 40   # iterations of a profiled window ([sharded_general4],
+                     # [sharded_dia4], [dlorasc_large]): a window keeps the
+                     # profiler's event count, and its own cost, small
+SHARDED_FULL = {   # the full-width sharded phases: build keywords, layout, kernel
+    "sharded_general4": (dict(fmt="block_ell", precond="bj", block_size=240),
+                         "nt", "block_ell_spmm_pallas"),
+    "sharded_dia4": (dict(fmt="dia", precond="bj", grid=None), "tbn",
+                     "stencil_flat_ext"),
+}
+
+
+def _sharded_full_rank(rank, group, path, nel, device):
+    """One rank of [sharded_general4] or [sharded_dia4]: the path's f32
+    build of elasticity3d(nel³) over the group on the shared card
+    (``device``; t 12 odir_fused, tol 1e-5, host-f64 rounds), a solve with
+    the path kernel's count zeroed just before and read just after, one
+    timed solve (this rank's host clock), a window of PROFILE_ITERS
+    iterations (one round) on every rank, rank 0's under torch.profiler,
+    then on rank 0, while the others wait, the kernel against its plain
+    version at this shard's shape (t 12 and t 1, device time, bound,
+    torch.sparse.mm on the shard's rows of its extended operator)."""
+    import hashlib
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.ops import spmm
+    from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    kw, layout, kernel = SHARDED_FULL[path]
+    counter = getattr(spmm, kernel)
+    a = elasticity3d(nel, nel, nel, heterogeneous=False)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    t0 = time.perf_counter()
+    solver = DistributedECG.build(
+        a, nshards=mesh.size_of(group), dtype=np.float32, device=device,
+        group=group, opts=ECGOptions(t=12, tol=SOLVE_TOL, maxiter=3000,
+                                     variant="odir_fused", layout=layout), **kw)
+    build_s = time.perf_counter() - t0
+    ops = solver.operands
+    before = _collective_calls()
+    counter.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    x, info = solver.solve(b)
+    _sync(device)
+    warm_s = time.perf_counter() - t0
+    launches = counter.launches
+    calls = {k: v - before[k] for k, v in _collective_calls().items()}
+    _sync(device)
+    t0 = time.perf_counter()
+    solver.solve(b)
+    _sync(device)
+    timed_s = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    # the busy share: the first PROFILE_ITERS iterations of a third solve
+    # on every rank (the collectives must pair up), rank 0's profiled
+    solver.opts = replace(solver.opts, maxiter=PROFILE_ITERS)
+    prof_rec = {}
+    if rank == 0 and on_card:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, pinfo = solver.solve(b, max_refine_rounds=1)
+            _sync(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof_rec = {"profile_device_ms": device_busy_ms(prof),
+                    "profile_wall_ms": wall_ms, "profile_iters": int(pinfo["iters"]),
+                    "profile_table": prof.key_averages().table(
+                        sort_by="self_cpu_time_total", row_limit=30)}
+    else:
+        solver.solve(b, max_refine_rounds=1)
+    if path == "sharded_general4":
+        shard = {"nrb": int(ops.mat.blocks.shape[0]), "s_max": int(ops.mat.blocks.shape[1]),
+                 "ext_rows": int(ops.mat.shape[1]), "hb": int(ops.send_idx.shape[1]),
+                 "blocks_MB": ops.mat.blocks.numel() * ops.mat.blocks.element_size() / 1e6}
+    else:
+        shard = {"D": len(ops.offsets), "halo": ops.halo, "nrb": ops.nrb,
+                 "rem_width": None if ops.rem_vals is None else int(ops.rem_vals.shape[1]),
+                 "rem_halo_rows": (None if ops.rem_send_idx is None
+                                   else int(ops.rem_send_idx.numel()))}
+    checks = []
+    if rank == 0 and on_card:
+        if path == "sharded_general4":
+            csr = block_ell_csr(ops.mat)
+            checks = [check_block_ell(f"[{path}] rank 0's shard (bk128,t{t})", ops.mat, t,
+                                      seed=90 + t, csr=csr, device_time=True)
+                      for t in (12, 1)]
+        else:
+            flat = ops.blocks_flat
+            csr = stencil_csr_ext(flat[:, None, None, :], ops.offsets, ops.halo)
+            checks = [check_kernel(f"[{path}] rank 0's shard, B1 (br1,D{len(ops.offsets)},"
+                                   f"t{t})", flat, ops.offsets, ops.halo, 1, t,
+                                   seed=94 + t, csr=csr, device_time=True)
+                      for t in (12, 1)]
+        del csr
+    mesh.all_reduce(torch.zeros(1), group)     # the others wait for rank 0's checks
+    return {"rank": rank, "iters": int(info["iters"]), **prof_rec,
+            "refine_rounds": info["refine_rounds"], "breakdown": bool(info["breakdown"]),
+            "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+            "launches": launches, "calls": calls, "build_s": build_s,
+            "build_stages_s": solver.timings, "warm_s": warm_s, "timed_s": timed_s,
+            "n_pad": solver.layout.n_pad, "rows_per_shard": solver.layout.rows_per_shard,
+            "shard": shard, "checks": checks,
+            "peak_MB": torch.cuda.max_memory_allocated(device) / 1e6 if on_card else None,
+            "x_sha": hashlib.sha256(x.tobytes()).hexdigest(),
+            "x": x if rank == 0 else None}
+
+
+def sharded_full_phase(path, anchor, nel, device="cuda:0"):
+    """[sharded_general4] or [sharded_dia4]: the path at nel³ over 4
+    spawned ranks sharing the card through a gloo group. Every rank the
+    same x, host f64 relres < 1e-5, no breakdown, the path's kernel
+    launched >= iterations on every rank, iterations within ANCHOR_BAND of
+    the JAX driver's at nshards 4 on a CPU. Returns (record, the kernel
+    checks of rank 0's shard)."""
+    import numpy as np
+
+    world = 4
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_sharded_full_rank, world, (path, nel, device))
+    wall_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    kernel = SHARDED_FULL[path][2]
+    for r in ranks:
+        log(f"[{path}] rank {r['rank']}: build {r['build_s']:.2f} s (stages "
+            + json.dumps({k: round(v, 3) for k, v in r["build_stages_s"].items()})
+            + f"), warm solve {r['warm_s']:.3f} s, timed solve {r['timed_s']:.3f} s, "
+            f"iters={r['iters']} rounds={r['refine_rounds']} relres={r['relres']:.3e} "
+            f"{kernel} launches={r['launches']}, collectives {r['calls']}, peak "
+            f"device memory {r['peak_MB']} MB; shard {r['shard']}")
+        if r["x_sha"] != r0["x_sha"] or r["iters"] != r0["iters"]:
+            fail(f"[{path}] rank {r['rank']} returned another x or count than rank 0")
+        if r["breakdown"] or not r["relres"] < SOLVE_TOL:
+            fail(f"[{path}] rank {r['rank']}: breakdown {r['breakdown']}, host f64 "
+                 f"relres {r['relres']:.3e}")
+        if r["launches"] < r["iters"]:
+            fail(f"[{path}] rank {r['rank']}: {kernel} launched {r['launches']} times "
+                 f"for {r['iters']} iterations")
+    iters = r0["iters"]
+    if r0["x"].shape != (3 * (nel + 1) * (nel + 1) * nel,) or not np.all(
+            np.isfinite(r0["x"])):
+        fail(f"[{path}] solution not finite or of the wrong shape")
+    log(f"[{path}] {world} ranks sharing one card (gloo, host copies): n_pad "
+        f"{r0['n_pad']}, {r0['rows_per_shard']} rows a shard; iters={iters} (JAX "
+        f"package on a CPU at nshards 4: {anchor}); rank 0's timed solve "
+        f"{r0['timed_s']:.3f} s ({1e3 * r0['timed_s'] / iters:.3f} ms/iteration; 4 "
+        f"ranks share one card: not a scaling number); spawn {wall_s:.1f} s")
+    if not within(iters, anchor):
+        fail(f"[{path}] {iters} iterations, outside {anchor} ± "
+             f"{100 * ANCHOR_BAND:.0f} %")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", f"profile_{path}.txt"), "w") as f:
+        f.write(r0["profile_table"])
+    log(f"[profile] rank 0 of [{path}], a window of {r0['profile_iters']} "
+        f"iterations by host time (device {r0['profile_device_ms']:.1f} ms of "
+        f"{r0['profile_wall_ms']:.1f} ms wall, busy "
+        f"{100 * r0['profile_device_ms'] / r0['profile_wall_ms']:.1f} %; 4 ranks "
+        "share the card):")
+    for line in r0["profile_table"].splitlines()[:15]:
+        log("[profile] " + line)
+    rec = {k: r0[k] for k in ("iters", "refine_rounds", "relres", "n_pad",
+                              "rows_per_shard", "shard", "build_stages_s", "calls",
+                              "profile_device_ms", "profile_wall_ms",
+                              "profile_iters")}
+    rec.update(world=world, nel=nel, anchor_iters=anchor, spawn_s=wall_s,
+               launches=[r["launches"] for r in ranks],
+               build_s=[r["build_s"] for r in ranks],
+               warm_s=[r["warm_s"] for r in ranks],
+               timed_s=[r["timed_s"] for r in ranks],
+               peak_MB=[r["peak_MB"] for r in ranks],
+               ms_per_iter=1e3 * r0["timed_s"] / iters)
+    return rec, r0["checks"]
+
+
+def _formats_rank(rank, group, names, device):
+    """One rank of [sharded_formats]: each path of ``names`` built over the
+    group (f64) and solved; the stencil on nt also as ELL on its layout."""
+    import hashlib
+
+    import numpy as np
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    out = {}
+    for name in names:
+        _, problem, kw, opts = SHARDED_FORMATS[name]
+        a, b = sharded_formats_problem(problem, elasticity3d)
+
+        def run(**extra):
+            s = DistributedECG.build(a, nshards=mesh.size_of(group), dtype=np.float64,
+                                     device=device, group=group,
+                                     opts=ECGOptions(**opts), **{**kw, **extra})
+            _sync(device)
+            t0 = time.perf_counter()
+            x, info = s.solve(b)
+            _sync(device)
+            return s, x, info, time.perf_counter() - t0
+
+        s, x, info, secs = run()
+        rec = {"iters": int(info["iters"]), "breakdown": bool(info["breakdown"]),
+               "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+               "tol": opts["tol"], "solve_s": secs, "n_pad": s.layout.n_pad,
+               "chosen": (s.fmt_info or {}).get("chosen"),
+               "operands": type(s.operands).__name__, "layout": s.operands.layout,
+               "x_sha": hashlib.sha256(x.tobytes()).hexdigest()}
+        if name == "stencil_nt":
+            _, x_e, info_e, _ = run(fmt="ell", layout=s.layout)
+            rec.update(ell_iters=int(info_e["iters"]),
+                       ell_dx=float(np.linalg.norm(x - x_e) / np.linalg.norm(x_e)))
+        out[name] = rec
+    return out
+
+
+def sharded_formats_phase(device="cuda:0"):
+    """[sharded_formats]: the JAX tests' small sharded paths on the card, f64
+    (the plain products): the stencil on nt (the iterations of ELL on its
+    layout), block-ELL through its block halo, fmt="auto" choosing DIA
+    under RCM over 4 ranks, DIA on nt over 8; each within ANCHOR_BAND of the
+    JAX driver's count at the same nshards, relres < 20 × its tolerance,
+    every rank the same x."""
+    out = {}
+    for world in sorted({v[0] for v in SHARDED_FORMATS.values()}):
+        names = [k for k, v in SHARDED_FORMATS.items() if v[0] == world]
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_formats_rank, world, (names, device))
+        wall_s = time.perf_counter() - t0
+        for name in names:
+            rec = ranks[0][name]
+            anchor = SHARDED_FORMATS_ANCHOR_ITERS[name]
+            log(f"[sharded_formats] {name} over {world} ranks: {rec['operands']} on "
+                f"{rec['layout']}" + (f" (chose {rec['chosen']})" if rec["chosen"] else "")
+                + f", n_pad {rec['n_pad']}, iters={rec['iters']} relres="
+                f"{rec['relres']:.3e} in {rec['solve_s']:.2f} s (rank 0); JAX on a CPU "
+                f"at nshards {world}: {anchor}"
+                + (f"; ELL on its layout {rec['ell_iters']} iterations, |dx|/|x| "
+                   f"{rec['ell_dx']:.2e}" if name == "stencil_nt" else ""))
+            if any(r[name]["x_sha"] != rec["x_sha"] or r[name]["iters"] != rec["iters"]
+                   for r in ranks):
+                fail(f"[sharded_formats] {name}: ranks disagree")
+            if rec["breakdown"] or not rec["relres"] < 20 * rec["tol"]:
+                fail(f"[sharded_formats] {name}: breakdown {rec['breakdown']}, "
+                     f"relres {rec['relres']:.3e}")
+            if not within(rec["iters"], anchor):
+                fail(f"[sharded_formats] {name}: {rec['iters']} iterations, outside "
+                     f"{anchor} ± {100 * ANCHOR_BAND:.0f} %")
+            if name == "stencil_nt" and rec["ell_iters"] != rec["iters"]:
+                fail(f"[sharded_formats] the stencil on nt took {rec['iters']} "
+                     f"iterations, ELL on its layout {rec['ell_iters']}")
+            if name == "auto" and rec["chosen"] != "dia_rcm":
+                fail(f"[sharded_formats] auto chose {rec['chosen']}, not dia_rcm")
+            out[name] = dict(rec, world=world, anchor_iters=anchor)
+        log(f"[sharded_formats] {world} ranks: spawn and solves {wall_s:.1f} s")
+    return out
+
+
 DLORASC_DRY = {   # dryrun_multichip's LORASC builds: keywords and ECG variant
     "dry_lorasc": (dict(nshards=8), "odir_fused"),
     "dry_lorasc_2level": (dict(mesh_shape=(4, 2), max_deflation=16), "odir_fused"),
@@ -1722,7 +2106,6 @@ DLORASC_DRY = {   # dryrun_multichip's LORASC builds: keywords and ECG variant
                                   max_deflation=64), "omin"),
 }
 DLORASC_TIMEOUT = 900      # seconds the distributed LORASC spawn may take
-PROFILE_ITERS = 40         # iterations of [dlorasc_large]'s profiled window
 
 
 def _dlorasc_rank(rank, group, device):
@@ -2206,6 +2589,14 @@ def main() -> int:
     dryrun = sharded_dryrun_phase()
     # --- 32-33. the distributed LORASC driver over 8 spawned ranks ---
     dlorasc = dlorasc_phase()
+    # --- 34-36. the sharded driver's other formats over spawned ranks ---
+    sharded_general4, b5_shard = sharded_full_phase(
+        "sharded_general4", SHARDED_GENERAL4_ANCHOR_ITERS, nel)
+    b5_checks += b5_shard
+    sharded_dia4, b1_shard = sharded_full_phase(
+        "sharded_dia4", SHARDED_DIA4_ANCHOR_ITERS, SHARDED_DIA4_NEL)
+    checks += b1_shard
+    sharded_formats = sharded_formats_phase()
 
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
@@ -2216,7 +2607,8 @@ def main() -> int:
         "lorasc_path": lorasc_path, **presc_paths, "dia_path": dia_path,
         "auto_path": auto_path, "spmm_sweep": spmm_recs, **a1_paths,
         "sharded_nccl1": nccl1, "sharded4": sharded4, "sharded_dryrun": dryrun,
-        **dlorasc,
+        **dlorasc, "sharded_general4": sharded_general4, "sharded_dia4": sharded_dia4,
+        "sharded_formats": sharded_formats,
         "total_s": time.perf_counter() - t_start}))
 
     def entry(name, source, replaces, launches_, recs):
@@ -2244,6 +2636,7 @@ def main() -> int:
                               for k, v in a1_paths.items()},
                            "sharded_nccl1": nccl1["launches"],
                            "sharded4": sharded4["launches"],
+                           "sharded_dia4": sharded_dia4["launches"],
                            **{f"sharded_dryrun_{k}": v["launches"]
                               for k, v in dryrun.items() if "stencil" in k}}
     # B2a's and B2b's counts on each LORASC-family path's solve, and of the
@@ -2259,10 +2652,14 @@ def main() -> int:
                     b2b + b2b_bf16 + b2b_dia)
     b2b_rec["path_launches"] = {k: v["b2b_launches"] for k, v in lorasc_family.items()
                                 if "b2b_launches" in v}
+    # B5's count on each path's solve: [general]'s, and each sharded rank's
+    b5 = entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:97", glaunches,
+               b5_checks)
+    b5["path_launches"] = {"general": glaunches,
+                           "sharded_general4": sharded_general4["launches"]}
     kernels = {"kernels": [
         b1,
-        entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:97", glaunches,
-              b5_checks),
+        b5,
         entry("bj_apply_pallas", "bj_apply.cu", "direct/device_bj.py:165",
               b6_launches, b6),
         b2a_rec,

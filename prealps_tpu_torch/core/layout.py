@@ -12,7 +12,9 @@ Two constructors: ``contiguous_row_layout`` (stencil formats: no
 permutation, all padding at the global tail) and ``build_row_layout`` /
 ``layout_from_part`` (general formats: rows grouped by the k-way
 partition, each shard padded at its own tail). ``build_halo_plan`` derives
-the ELL SpMM's neighbour exchange over several shards.
+the ELL SpMM's neighbour exchange over several shards, and
+``build_block_halo_plan`` the block-ELL SpMM's, at column-block
+granularity.
 """
 
 from __future__ import annotations
@@ -208,3 +210,81 @@ def build_halo_plan(layout: RowLayout, ell_cols: np.ndarray,
         cols_local[rows] = out.astype(np.int32)
     return HaloPlan(h=h, send_idx=send_idx, cols_local=cols_local,
                     comm_rows=comm_rows)
+
+
+@dataclass(frozen=True)
+class BlockHaloPlan:
+    """Static neighbour-exchange schedule of the block-ELL SpMM over several
+    shards (``prealps_tpu/core/layout.py::BlockHaloPlan``): ``HaloPlan`` at
+    the granularity of bk-row X blocks. Each shard packs the blocks its
+    neighbours reference (``send_idx``), one all-to-all moves the packs, and
+    the shard's block columns are remapped into [own blocks ∥ halo buffer]
+    block coordinates (``blkcols_local``)."""
+
+    hb: int                     # blocks per (src, dst) slot (max over pairs)
+    send_idx: np.ndarray        # (S, S, hb) int32: local blocks s packs for d
+    blkcols_local: np.ndarray   # (nrb, s_max) int32 in local+halo block space
+    comm_blocks: int            # true (unpadded) total blocks exchanged
+
+
+def build_block_halo_plan(layout: RowLayout, blkcols: np.ndarray,
+                          blocks: np.ndarray, bk: int) -> BlockHaloPlan:
+    """The exchange schedule of the padded block-ELL structure: ``blkcols``
+    (nrb, s_max) global bk-column-block ids and ``blocks`` their value
+    blocks (all-zero blocks mark padding slots, left out of the scan).
+    Raises unless rows_per_shard is a multiple of bk, so that no X block
+    straddles two shards."""
+    s_n = layout.nshards
+    mpl = layout.rows_per_shard
+    if mpl % bk:
+        raise ValueError(f"rows_per_shard={mpl} not a multiple of bk={bk}")
+    nblk_loc = mpl // bk
+    nrb_tot, s_max = blkcols.shape
+    nrb_loc = nrb_tot // s_n
+    used = np.asarray(blocks).reshape(nrb_tot, s_max, -1).any(axis=2)
+    owner_of = blkcols // nblk_loc
+
+    needed = [[None] * s_n for _ in range(s_n)]  # needed[s][q]: global blocks
+    hb = 1
+    comm_blocks = 0
+    for s in range(s_n):
+        rows = slice(s * nrb_loc, (s + 1) * nrb_loc)
+        cb_s = blkcols[rows][used[rows]]
+        own = owner_of[rows][used[rows]]
+        for q in range(s_n):
+            if q == s:
+                continue
+            cq = np.unique(cb_s[own == q])
+            needed[s][q] = cq
+            hb = max(hb, cq.size)
+            comm_blocks += cq.size
+
+    send_idx = np.zeros((s_n, s_n, hb), dtype=np.int32)
+    for q in range(s_n):
+        for s in range(s_n):
+            if q == s:
+                continue
+            cq = needed[s][q]
+            send_idx[q, s, : cq.size] = (cq - q * nblk_loc).astype(np.int32)
+
+    blkcols_local = np.zeros_like(blkcols, dtype=np.int32)
+    for s in range(s_n):
+        rows = slice(s * nrb_loc, (s + 1) * nrb_loc)
+        c = blkcols[rows]
+        o = c // nblk_loc
+        out = np.where(o == s, c - s * nblk_loc, 0).astype(np.int64)
+        for q in range(s_n):
+            if q == s:
+                continue
+            cq = needed[s][q]
+            sel = o == q
+            if cq.size and np.any(sel):
+                # padding (all-zero) slots may name off-shard blocks absent
+                # from cq: clamp them into the buffer (values zero)
+                pos = np.minimum(np.searchsorted(cq, c[sel]), cq.size - 1)
+                out[sel] = nblk_loc + q * hb + pos
+            elif np.any(sel):
+                out[sel] = 0
+        blkcols_local[rows] = out.astype(np.int32)
+    return BlockHaloPlan(hb=hb, send_idx=send_idx, blkcols_local=blkcols_local,
+                         comm_blocks=comm_blocks)

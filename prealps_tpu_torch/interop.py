@@ -33,6 +33,7 @@ from prealps_tpu_torch.parallel.driver import (
     DistributedECG,
     EllOperands,
     StencilOperands,
+    halo_send_row,
 )
 from prealps_tpu_torch.parallel.lorasc_driver import (
     FACTORS,
@@ -71,11 +72,15 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda",
         ``ell_cols`` in [own rows ∥ halo buffer] coordinates and
         ``ell_send_idx`` (S, S, h) (the JAX build's halo plan operands);
       * "block_ell" / "block_ell_xla": ``bell_blocks`` (nrb, S, 8, bk),
-        ``bell_blkcols`` (nrb, S);
+        ``bell_blkcols`` (nrb, S); over several shards ``bell_blkcols`` in
+        [own blocks ∥ halo buffer] coordinates and ``bell_send_idx``
+        (S, S, hb) (the JAX build's block halo plan operands);
       * "dia": ``dia_diags`` (D, n_pad) promoted diagonals (or the JAX
         lane-major build's (D, 1, 1, n_pad)), ``dia_rem_vals``,
         ``dia_rem_cols`` (n_pad, L) ELL remainder (the JAX driver keeps an
-        all-zero slot where there is none); on ``meta["layout"] == "tbn"``
+        all-zero slot where there is none); over several shards
+        ``dia_rem_cols`` in [own rows ∥ halo buffer] coordinates and
+        ``dia_send_idx`` (S, S, h); on ``meta["layout"] == "tbn"``
         ``inv_f`` (nb, mb, mb) device block inverses, or none;
       * row-major formats also ``bj_factors`` (nb, mb, mb), ``bj_gather_idx``
         (nb·mb,), ``bj_inv_perm`` (n_pad,) of the host block Jacobi (none
@@ -122,6 +127,13 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda",
         return torch.from_numpy(np.array(arr, dtype=dtype, order="C")).to(device)
 
     n_pad = int(meta["n_pad"])
+    mpl = n_pad // nshards
+
+    def send_row(name):
+        if nshards == 1:
+            return None
+        return halo_send_row(np.asarray(arrays[name]), shard, device)
+
     if fmt == "stencil":
         br = int(meta["br"])
         offsets = tuple(int(o) for o in meta["stencil_offsets"])
@@ -141,11 +153,12 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda",
         dtype = diags.dtype
         operands = DiaLaneOperands(
             blocks_flat=torch.from_numpy(np.array(
-                diags.reshape(len(offsets), n_pad), order="C")).to(device),
+                part(diags.reshape(len(offsets), n_pad), 1), order="C")).to(device),
             offsets=offsets, br=1,
             inv_f=dev("inv_f", dtype) if arrays.get("inv_f") is not None else None,
             rem_vals=dev("dia_rem_vals", dtype),
-            rem_cols=dev("dia_rem_cols", np.int64))
+            rem_cols=dev("dia_rem_cols", np.int64),
+            rem_send_idx=send_row("dia_send_idx"))
     else:
         bj = None
         if arrays.get("bj_factors") is not None:
@@ -154,9 +167,7 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda",
                              inv_perm=dev("bj_inv_perm", np.int64),
                              mode=meta["bj_mode"])
         if fmt == "ell":
-            mpl = n_pad // nshards
-            send_idx = (None if nshards == 1 else torch.from_numpy(
-                part(arrays["ell_send_idx"]).astype(np.int64)[0]).to(device))
+            send_idx = send_row("ell_send_idx")
             width = mpl if send_idx is None else mpl + send_idx.numel()
             operands = EllOperands(
                 mat=EllMatrix(dev("ell_vals"), dev("ell_cols", np.int32),
@@ -164,19 +175,25 @@ def solver_from_reference(arrays: dict, meta: dict, device="cuda",
                 bj=bj, send_idx=send_idx)
             dtype = np.asarray(arrays["ell_vals"]).dtype
         elif fmt in ("block_ell", "block_ell_xla"):
+            send_idx = send_row("bell_send_idx")
+            blocks = dev("bell_blocks")
+            width = (int(meta["ncols_pad"]) if send_idx is None
+                     else mpl + send_idx.numel() * blocks.shape[-1])
             operands = BlockEllOperands(
-                mat=BlockEllMatrix(dev("bell_blocks"), dev("bell_blkcols", np.int32),
-                                   (n_pad, int(meta["ncols_pad"]))),
-                bj=bj, kernel=fmt == "block_ell")
+                mat=BlockEllMatrix(blocks, dev("bell_blkcols", np.int32),
+                                   (mpl, width)),
+                bj=bj, kernel=fmt == "block_ell", send_idx=send_idx)
             dtype = np.asarray(arrays["bell_blocks"]).dtype
         elif fmt == "dia":
+            send_idx = send_row("dia_send_idx")
+            width = mpl if send_idx is None else mpl + send_idx.numel()
             rem = EllMatrix(dev("dia_rem_vals"), dev("dia_rem_cols", np.int32),
-                            (n_pad, n_pad))
+                            (mpl, width))
             operands = DiaOperands(
                 mat=DiaEllMatrix(offsets=tuple(int(o) for o in meta["dia_offsets"]),
-                                 diags=dev("dia_diags"), rem=rem,
-                                 shape=(n_pad, n_pad)),
-                bj=bj)
+                                 diags=dev("dia_diags", axis=1), rem=rem,
+                                 shape=(mpl, mpl)),
+                bj=bj, send_idx=send_idx)
             dtype = np.asarray(arrays["dia_diags"]).dtype
         else:
             raise ValueError(f"unknown fmt {fmt!r}")

@@ -14,8 +14,10 @@ General formats, row-major (n, t) panels:
   the hand-written kernel (``csrc/block_ell.cu``), CPU tensors run
   ``block_ell_spmm``; anything else raises.
 * ``dia_ell_spmm`` — hybrid DIA+ELL: one shifted FMA per promoted
-  diagonal plus the ELL remainder (XLA in the JAX package, plain PyTorch
-  here); the operator of ``fmt="dia"`` on row-major panels.
+  diagonal (``dia_window_spmm``) plus the ELL remainder (XLA in the JAX
+  package, plain PyTorch here). The driver's ``fmt="dia"`` on row-major
+  panels calls ``dia_window_spmm`` on its ring window, on one shard or
+  many.
 
 Stencil formats. Every stencil kernel below launches the one hand-written
 kernel of ``csrc/stencil.cu`` with its own index maps (panel rows, columns,
@@ -76,18 +78,27 @@ def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nl,nlt->nt", a.vals, x[a.cols])
 
 
+def dia_window_spmm(diags: torch.Tensor, offsets, x_ext: torch.Tensor,
+                    halo: int) -> torch.Tensor:
+    """Σ_d diags[d][:, None] · x_ext[halo + off_d : halo + off_d + m]: the
+    promoted diagonals (D, m) on a (m + 2·halo, t) panel extended by
+    ``halo`` >= max|offset| rows each side, one broadcast FMA per diagonal
+    in offset order."""
+    m = diags.shape[1]
+    y = torch.zeros((m, x_ext.shape[1]), dtype=x_ext.dtype, device=x_ext.device)
+    for d, off in enumerate(offsets):
+        y = y + diags[d][:, None] * x_ext[halo + off:halo + off + m]
+    return y
+
+
 def dia_ell_spmm(a: DiaEllMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for hybrid DIA+ELL. x: (n, t) -> y: (n, t).
 
-    One broadcast FMA per promoted diagonal over a shifted row window of
-    the zero-padded panel; only the remainder gathers."""
-    n = a.shape[0]
-    lo = max(-min(a.offsets), 0)
-    hi = max(max(a.offsets), 0)
-    x_pad = torch.nn.functional.pad(x, (0, 0, lo, hi))
-    y = torch.zeros_like(x[:n])
-    for d, off in enumerate(a.offsets):
-        y = y + a.diags[d][:, None] * x_pad[lo + off:lo + off + n]
+    ``dia_window_spmm`` on the zero-padded panel; only the remainder
+    gathers."""
+    halo = max(abs(o) for o in a.offsets)
+    x_pad = torch.nn.functional.pad(x, (0, 0, halo, halo))
+    y = dia_window_spmm(a.diags, a.offsets, x_pad, halo)
     if a.rem is not None:
         y = y + ell_spmm(a.rem, x)
     return y

@@ -19,7 +19,8 @@ float64. On one device (``nshards=1``, no process group) for these paths:
   br = 1 stencil through B1 (``stencil_flat_ext``), the remainder one
   transposed ELL gather, and ``precond="bj"`` the device block Jacobi
   assembled from the diagonals at br = 1; on ``layout="nt"`` the plain
-  ``dia_ell_spmm`` with host block Jacobi;
+  product (``dia_window_spmm`` on the wrap-extended panel, the ELL
+  remainder) with host block Jacobi;
 * ``fmt="ell"``, ``"block_ell"`` or ``"block_ell_xla"``, ``layout="nt"``
   (row-major panels), with ``precond="bj"`` (block Jacobi built on the
   host: RCM-ordered blocks, f64 factors) or ``"none"`` — the
@@ -82,11 +83,23 @@ device, and ``solve`` returns the full x and the same info on every rank):
 * ``fmt="ell"`` on ``nt`` with host block Jacobi, chebyshev or none: the
   k-way row layout (``build_row_layout``) or the caller's, the
   ``HaloPlan``'s all-to-all before each product;
+* ``fmt="block_ell"`` (B5) and ``"block_ell_xla"`` on ``nt``: the k-way
+  layout in whole 128-row blocks, bk 128, the ``BlockHaloPlan``'s
+  all-to-all of X blocks before each product on [own ∥ halo] blocks;
+* ``fmt="dia"`` on ``tbn``: the k-way layout, the shard's diagonals as a
+  br = 1 table through B1 on the ring-extended panel, the remainder's
+  ``HaloPlan`` all-to-all, the device block Jacobi from the shard's
+  diagonals (no dedup, as in the JAX driver), Chebyshev or none; on
+  ``nt``: the diagonals on a ring window (or for thin shards the periodic
+  window of the gathered panel), the remainder likewise, host block Jacobi;
+* ``fmt="stencil"`` on ``nt``: contiguous rows, an all-gather of x before
+  each product;
+* ``fmt="auto"``: ``detect_format`` with the shard count (no Morton probe;
+  block-ELL scored and built at bk 128), then the chosen format above;
 
 every Gram an all-reduce (``solvers/ecg.py``, ``parallel/mesh.py``). The
-other formats, layouts and ``fmt="auto"`` raise NotImplementedError over
-several shards (ROADMAP.md queue A, item 3). The JAX driver's Pallas tiling
-``rb_per_prog`` has no counterpart (ROADMAP.md "Not to port").
+JAX driver's Pallas tiling ``rb_per_prog`` has no counterpart (ROADMAP.md
+"Not to port").
 """
 
 from __future__ import annotations
@@ -104,6 +117,7 @@ import torch
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import (
     RowLayout,
+    build_block_halo_plan,
     build_halo_plan,
     build_row_layout,
     contiguous_row_layout,
@@ -132,9 +146,7 @@ from prealps_tpu_torch.ops.formats import (
     EllMatrix,
     StencilBsrMatrix,
     csr_to_block_ell,
-    csr_to_dia_ell,
     csr_to_ell,
-    csr_to_stencil_bsr,
     detect_format,
     dia_ell_host,
     panel_from_flat_kmajor,
@@ -144,7 +156,7 @@ from prealps_tpu_torch.ops.formats import (
 from prealps_tpu_torch.ops.spmm import (
     block_ell_spmm,
     block_ell_spmm_pallas,
-    dia_ell_spmm,
+    dia_window_spmm,
     ell_gather_spmm_df,
     ell_spmm,
     extend_ring,
@@ -390,14 +402,18 @@ class DiaLaneOperands(StencilOperands):
 
     rem_vals: Optional[torch.Tensor] = None   # (n_pad, L) remainder ELL
     rem_cols: Optional[torch.Tensor] = None
+    rem_send_idx: Optional[torch.Tensor] = None   # (S, h) over several shards
 
     df_ok = False
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """B1 on the ring-extended diagonals, then the remainder on the
+        transposed panel: over several shards its halo plan's all-to-all
+        first (prealps_tpu/parallel/driver.py:807-824)."""
         y = super().a_apply(x)
         if self.rem_vals is None:
             return y
-        x_nt = x[:, 0, :].T                                 # (n_pad, t)
+        x_nt = halo_extended(x[:, 0, :].T, self.rem_send_idx, self.group)
         y_rem = torch.einsum("ml,mlt->mt", self.rem_vals, x_nt[self.rem_cols])
         return y + y_rem.T[:, None, :]
 
@@ -422,19 +438,12 @@ class EllOperands(_RowMajor):
     def device(self) -> torch.device:
         return self.mat.vals.device
 
-    def _extended(self, x: torch.Tensor) -> torch.Tensor:
-        """[x ∥ halo buffer]: one all-to-all of the packed boundary rows
-        (prealps_tpu/parallel/driver.py:879-897)."""
-        if self.send_idx is None:
-            return x
-        recv = all_to_all(x[self.send_idx], self.group)        # (S, h, t)
-        return torch.cat([x, recv.reshape(-1, x.shape[1])])
-
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
-        return ell_spmm(self.mat, self._extended(x))
+        return ell_spmm(self.mat, halo_extended(x, self.send_idx, self.group))
 
     def a_apply_df(self, x: torch.Tensor):
-        return ell_gather_spmm_df(self.mat.vals, self._extended(x)[self.mat.cols])
+        x = halo_extended(x, self.send_idx, self.group)
+        return ell_gather_spmm_df(self.mat.vals, x[self.mat.cols])
 
 
 @dataclass
@@ -442,17 +451,28 @@ class BlockEllOperands(_RowMajor):
     """Device operands of fmt="block_ell" (the block-ELL kernel,
     ``block_ell_spmm_pallas``) and fmt="block_ell_xla" (its plain version,
     ``block_ell_spmm``), with host-built block Jacobi. There is no
-    double-float block-ELL product: refinement residuals are host f64."""
+    double-float block-ELL product: refinement residuals are host f64.
+    Over several shards ``mat`` holds this shard's row blocks with block
+    columns in [own blocks ∥ halo buffer] coordinates and ``send_idx``
+    (S, hb) the bk-row X blocks each shard needs of this one
+    (``core/layout.py::BlockHaloPlan``)."""
 
     mat: BlockEllMatrix
     bj: Optional[BlockJacobi]
     kernel: bool = True
+    send_idx: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.mat.blocks.device
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
+        if self.send_idx is not None:
+            # x as (blocks, bk, t), one all-to-all of the packed blocks, the
+            # product on [own ∥ halo] (prealps_tpu/parallel/driver.py:899-924)
+            t = x.shape[1]
+            xb = x.reshape(-1, self.mat.bk, t)
+            x = halo_extended(xb, self.send_idx, self.group).reshape(-1, t)
         pad = self.mat.shape[1] - x.shape[0]
         if pad:
             x = torch.cat([x, torch.zeros((pad, x.shape[1]), dtype=x.dtype,
@@ -465,19 +485,34 @@ class BlockEllOperands(_RowMajor):
 @dataclass
 class DiaOperands(_RowMajor):
     """Device operands of fmt="dia" on row-major panels: hybrid DIA+ELL
-    (``dia_ell_spmm``, plain PyTorch as in the JAX driver) with host-built
-    block Jacobi. No double-float product: refinement residuals are host
-    f64."""
+    (plain PyTorch, as it is XLA in the JAX driver) with host-built block
+    Jacobi. No double-float product: refinement residuals are host f64.
+    ``mat`` holds this shard's columns of the diagonals and rows of the
+    remainder (all of them on one shard); over several shards the
+    remainder's columns are in [own rows ∥ halo buffer] coordinates and
+    ``send_idx`` (S, h) is its halo plan."""
 
     mat: DiaEllMatrix
     bj: Optional[BlockJacobi]
+    send_idx: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.mat.diags.device
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
-        return dia_ell_spmm(self.mat, x)
+        # the diagonals on a window of max|offset| rows each side: the ring
+        # (one shard: the wrap), or for thin shards the periodic window of
+        # the gathered panel (prealps_tpu/parallel/driver.py:826-858;
+        # wrapped rows meet zero diagonal entries), then the remainder,
+        # over several shards through its halo plan
+        halo = max(abs(o) for o in self.mat.offsets)
+        x_ext = extend_ring(x.T, halo, self.group).T if halo else x
+        y = dia_window_spmm(self.mat.diags, self.mat.offsets, x_ext, halo)
+        if self.mat.rem is not None:
+            y = y + ell_spmm(self.mat.rem,
+                             halo_extended(x, self.send_idx, self.group))
+        return y
 
 
 @dataclass
@@ -486,7 +521,9 @@ class StencilNtOperands(_RowMajor):
     (nrb, S, br, br) blocks, applied as the JAX driver's nt product does
     (a roll of the (nrb, br, t) panel and one block einsum per offset;
     plain PyTorch, as it is XLA there), with host-built block Jacobi. No
-    double-float product: refinement residuals are host f64."""
+    double-float product: refinement residuals are host f64. Over several
+    shards ``mat`` holds this shard's nodes, and each product all-gathers
+    x and takes this shard's nodes of every roll (JAX driver :925-945)."""
 
     mat: StencilBsrMatrix
     bj: Optional[BlockJacobi]
@@ -497,10 +534,11 @@ class StencilNtOperands(_RowMajor):
 
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         nrb, _, br, _ = self.mat.blocks.shape
-        x3 = x.reshape(nrb, br, x.shape[1])
-        y = torch.zeros_like(x3)
+        x3 = self.gather(x).reshape(-1, br, x.shape[1])   # every shard's nodes
+        nodes = self.shard * nrb + torch.arange(nrb, device=x.device)
+        y = torch.zeros((nrb, br, x.shape[1]), dtype=x.dtype, device=x.device)
         for s, off in enumerate(self.mat.offsets):
-            xs = torch.roll(x3, -off, dims=0) if off else x3
+            xs = x3[(nodes + off) % x3.shape[0]]     # the roll by −off, sliced
             y = y + torch.einsum("rmk,rkt->rmt", self.mat.blocks[:, s], xs)
         return y.reshape(x.shape)
 
@@ -513,6 +551,18 @@ def _sync(device: torch.device) -> None:
 Operands = Union[StencilOperands, DiaLaneOperands, EllOperands,
                  BlockEllOperands, DiaOperands, StencilNtOperands]
 LANE_FORMATS = ("stencil", "dia")
+
+
+def halo_extended(x: torch.Tensor, send_idx: Optional[torch.Tensor],
+                  group) -> torch.Tensor:
+    """[x ∥ halo buffer] along axis 0: the rows (or X blocks) of x that each
+    shard needs of this one, packed by ``send_idx`` (S, h), moved by one
+    all-to-all and appended in source order (prealps_tpu/parallel/driver.py:
+    879-897). x itself where there is no halo plan (one shard)."""
+    if send_idx is None:
+        return x
+    recv = all_to_all(x[send_idx], group)             # (S, h, ...)
+    return torch.cat([x, recv.reshape(-1, *x.shape[1:])])
 
 
 def build_sharded_block_jacobi(a_pad: sp.csr_matrix, layout: RowLayout,
@@ -554,33 +604,25 @@ def _check_options(fmt, precond, layout):
         f"DistributedECG supports block_jacobi/bj2l/chebyshev/none, got {precond!r}")
 
 
-def _check_sharded(fmt, layout, nshards):
-    """Over several shards only the stencil on lane-major panels and ELL on
-    row-major panels are ported (ROADMAP.md queue A, item 3)."""
-    if nshards > 1 and (fmt, layout) not in (("stencil", "tbn"), ("ell", "nt")):
-        raise NotImplementedError(
-            f"fmt={fmt!r} on layout={layout!r} over {nshards} shards is not "
-            "ported yet: the sharded driver runs fmt='stencil' on 'tbn' and "
-            "fmt='ell' on 'nt' (ROADMAP.md queue A, item 3)")
-
-
-def _detect(a, br, opts, auto_layout, precond, device, pinned):
-    """fmt="auto": pick the format with ``detect_format`` and the layout
+def _detect(a, br, opts, auto_layout, precond, device, pinned, nshards):
+    """fmt="auto": pick the format with ``detect_format`` (over several
+    shards no Morton probe, block fill scored at bk 128) and the layout
     (the JAX driver's rule with the card in the TPU's place: tbn for
     stencil/dia on a CUDA device or for bj2l, nt otherwise, unless
     auto_layout=False keeps a valid caller's layout). A pinned partition
     fixes the row order: no stencil and no reordering. Returns (fmt, opts,
     a, pre_perm, fmt_info, bell_bk): a is the permuted matrix where the
     choice permutes rows."""
-    fmt, info = detect_format(a, br=br, nshards=1, allow_stencil=not pinned,
+    fmt, info = detect_format(a, br=br, nshards=nshards, allow_stencil=not pinned,
                               allow_reorder=not pinned)
     tag, pre_perm, bell_bk = fmt, None, 128
     if fmt in ("block_ell_morton", "dia_rcm"):
         pre_perm = info.pop("perm")
         a = info.pop("permuted")
     if fmt in ("block_ell_morton", "block_ell_natural"):
-        # the plain gather product at 8×8 blocks, as in the JAX driver
-        fmt, bell_bk = "block_ell_xla", 8
+        # the plain gather product, at 8×8 blocks on one shard, as in the
+        # JAX driver (bk 128 over several: the halo moves 128-row blocks)
+        fmt, bell_bk = "block_ell_xla", 8 if nshards == 1 else 128
     elif fmt == "dia_rcm":
         fmt = "dia"
     if auto_layout:
@@ -730,34 +772,40 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
 
 
 def _dia_lane_operands(a, kind, block_size, grid, dtype, device, stage,
-                       layout=None, dedupe=False, bj_dtype="f32", cheb=None):
-    """fmt="dia" on lane-major panels: one-shard partition layout (natural
-    order) or the caller's, the promoted diagonals as a br = 1 flat block
-    table, the ELL remainder, and device block Jacobi assembled from the
-    diagonals or Chebyshev."""
-    mbn, dedupe = None, dedupe and kind == "bj_device"
+                       layout=None, dedupe=False, bj_dtype="f32", cheb=None,
+                       group=None):
+    """fmt="dia" on lane-major panels: partition layout (natural order on
+    one shard, k-way over several) or the caller's, the promoted diagonals
+    as a br = 1 flat block table, the ELL remainder, and device block
+    Jacobi assembled from the diagonals or Chebyshev. Over several shards
+    the host build is global and the device operands this rank's columns
+    of the table and rows of the remainder, with its halo plan."""
+    nshards = size_of(group)
+    # the grouped blocks only on one shard, as in the JAX driver
+    mbn, dedupe = None, dedupe and kind == "bj_device" and nshards == 1
     if kind == "bj_device":
         mbn, dedupe = _bj_node_block(a.shape[0], 1, block_size, grid, dedupe)
     if layout is None:
         mult = math.lcm(8, mbn) if mbn is not None else 8
-        layout = build_row_layout(a, 1, row_multiple=mult)
+        layout = build_row_layout(a, nshards, row_multiple=mult)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
-    offsets, diags, rem = dia_ell_host(a_pad, min_fill=0.05, dtype=dtype)
-    ops = DiaLaneOperands(blocks_flat=torch.from_numpy(diags).to(device),
-                          offsets=offsets, br=1)
-    if rem is not None:
-        ell = csr_to_ell(rem, dtype=dtype, device=device)
-        ops.rem_vals, ops.rem_cols = ell.vals, ell.cols
+    shard = rank_of(group)
+    mat, send_idx = _dia_shard(a_pad, layout, shard, dtype, device)
+    ops = DiaLaneOperands(blocks_flat=mat.diags, offsets=mat.offsets, br=1,
+                          rem_send_idx=send_idx)
+    if mat.rem is not None:
+        ops.rem_vals, ops.rem_cols = mat.rem.vals, mat.rem.cols
+    ops.group, ops.shard = group, shard
     _sync(device)
     stage("fmt_convert")
 
     if kind == "bj_device":
         # from the promoted diagonals only: remainder entries inside a block
         # are left out of the preconditioner, as in the JAX driver
-        _device_block_jacobi(ops, ops.blocks_flat.reshape(len(offsets), 1, 1, -1),
-                             a_pad, mbn, dedupe, bj_dtype)
+        diags_t = ops.blocks_flat.reshape(len(ops.offsets), 1, 1, -1)
+        _device_block_jacobi(ops, diags_t, a_pad, mbn, dedupe, bj_dtype)
     elif kind == "chebyshev":
         _chebyshev(ops, a_pad, *cheb, dtype, device)
     _sync(device)
@@ -770,30 +818,30 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
                       group=None):
     """Row-major panels: partition layout (stencil: contiguous) or the
     caller's, ELL / block-ELL / DIA+ELL / stencil, host block Jacobi or
-    Chebyshev. Over several shards (ELL only) the host build is global and
-    the device operands this rank's rows, with the halo plan's exchange."""
+    Chebyshev. Over several shards the host build is global and the device
+    operands this rank's rows, with the exchange of its format: a halo
+    plan's all-to-all (ELL, block-ELL at bk 128, the DIA remainder), the
+    ring of the DIA diagonals, the all-gather of the stencil."""
+    nshards = size_of(group)
     bell = fmt in ("block_ell", "block_ell_xla")
     if layout is None and fmt == "stencil":
-        layout = contiguous_row_layout(a.shape[0], 1,
+        layout = contiguous_row_layout(a.shape[0], nshards,
                                        row_multiple=math.lcm(8, br))
     elif layout is None:
         # block-ELL moves whole bk = 128 column blocks: rows pad to 128
-        layout = build_row_layout(a, size_of(group),
-                                  row_multiple=128 if bell else 8)
+        layout = build_row_layout(a, nshards, row_multiple=128 if bell else 8)
     a_pad = permute_and_pad_matrix(a, layout)
     stage("layout")
 
     shard = rank_of(group)
+    send_idx = None
     if fmt == "stencil":
-        mat = csr_to_stencil_bsr(a_pad, br=br, dtype=dtype, device=device)
-        if mat is None:
-            raise ValueError("matrix is not stencil-structured; use "
-                             "fmt='ell' or 'block_ell'")
+        mat = _stencil_nt_shard(a_pad, layout, shard, br, dtype, device)
     elif bell:
-        mat = csr_to_block_ell(a_pad, bm=8, bk=bell_bk, dtype=dtype,
-                               device=device)
+        mat, send_idx = _block_ell_shard(a_pad, layout, shard, bell_bk, dtype,
+                                         device)
     elif fmt == "dia":
-        mat = csr_to_dia_ell(a_pad, min_fill=0.05, dtype=dtype, device=device)
+        mat, send_idx = _dia_shard(a_pad, layout, shard, dtype, device)
     else:
         mat, send_idx = _ell_shard(a_pad, layout, shard, dtype, device)
     _sync(device)
@@ -808,9 +856,10 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
     if fmt == "stencil":
         ops = StencilNtOperands(mat=mat, bj=bj)
     elif bell:
-        ops = BlockEllOperands(mat=mat, bj=bj, kernel=fmt == "block_ell")
+        ops = BlockEllOperands(mat=mat, bj=bj, kernel=fmt == "block_ell",
+                               send_idx=send_idx)
     elif fmt == "dia":
-        ops = DiaOperands(mat=mat, bj=bj)
+        ops = DiaOperands(mat=mat, bj=bj, send_idx=send_idx)
     else:
         ops = EllOperands(mat=mat, bj=bj, send_idx=send_idx)
     ops.group, ops.shard = group, shard
@@ -822,9 +871,11 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
 
 
 def _ell_shard(a_pad, layout, shard, dtype, device):
-    """The ELL operator and, over several shards, this shard's rows with
-    columns in [own rows ∥ halo buffer] coordinates and its row of the halo
-    plan's send lists (JAX driver :405-419); (matrix, send_idx or None)."""
+    """The ELL operator of a padded CSR matrix (the operator, or the DIA
+    remainder) and, over several shards, this shard's rows with columns in
+    [own rows ∥ halo buffer] coordinates and its row of the halo plan's
+    send lists (JAX driver :352-366, :405-419); (matrix, send_idx or
+    None)."""
     if layout.nshards == 1:
         return csr_to_ell(a_pad, dtype=dtype, device=device), None
     ell = csr_to_ell(a_pad, dtype=dtype, device="cpu")
@@ -834,8 +885,63 @@ def _ell_shard(a_pad, layout, shard, dtype, device):
     mat = EllMatrix(ell.vals[rows].contiguous().to(device),
                     torch.from_numpy(plan.cols_local[rows]).to(device),
                     (mpl, mpl + layout.nshards * plan.h))
-    send_idx = torch.from_numpy(plan.send_idx[shard].astype(np.int64)).to(device)
-    return mat, send_idx
+    return mat, halo_send_row(plan.send_idx, shard, device)
+
+
+def halo_send_row(send_idx: np.ndarray, shard, device) -> torch.Tensor:
+    """This shard's row (S, h) of a halo plan's send lists, as indices."""
+    return torch.from_numpy(send_idx[shard].astype(np.int64)).to(device)
+
+
+def _block_ell_shard(a_pad, layout, shard, bell_bk, dtype, device):
+    """The block-ELL operator (bm 8; bk ``bell_bk`` on one shard, 128 over
+    several) and, over several shards, this shard's row blocks with block
+    columns in [own blocks ∥ halo buffer] coordinates and its row of the
+    block halo plan's send lists (JAX driver :460-487); (matrix, send_idx
+    or None)."""
+    if layout.nshards == 1:
+        return csr_to_block_ell(a_pad, bm=8, bk=bell_bk, dtype=dtype,
+                                device=device), None
+    bk = 128
+    bell = csr_to_block_ell(a_pad, bm=8, bk=bk, dtype=dtype, device="cpu")
+    plan = build_block_halo_plan(layout, bell.blkcols.numpy(),
+                                 bell.blocks.numpy(), bk=bk)
+    mpl = layout.rows_per_shard
+    rows = slice(shard * mpl // 8, (shard + 1) * mpl // 8)
+    mat = BlockEllMatrix(bell.blocks[rows].contiguous().to(device),
+                         torch.from_numpy(plan.blkcols_local[rows]).to(device),
+                         (mpl, mpl + layout.nshards * plan.hb * bk))
+    return mat, halo_send_row(plan.send_idx, shard, device)
+
+
+def _dia_shard(a_pad, layout, shard, dtype, device):
+    """Hybrid DIA+ELL of this shard: its columns of the (D, n_pad)
+    diagonals and its rows of the remainder, over several shards through
+    the remainder's halo plan (JAX driver :340-373, :425-459); (matrix,
+    remainder send_idx or None). The rule of both layouts' DIA."""
+    offsets, diags, rem = dia_ell_host(a_pad, min_fill=0.05, dtype=dtype)
+    mpl = layout.rows_per_shard
+    diags = torch.from_numpy(np.ascontiguousarray(
+        diags[:, shard * mpl:(shard + 1) * mpl])).to(device)
+    rem_mat, send_idx = (None, None) if rem is None else _ell_shard(
+        rem, layout, shard, dtype, device)
+    return DiaEllMatrix(offsets=offsets, diags=diags, rem=rem_mat,
+                        shape=(mpl, mpl)), send_idx
+
+
+def _stencil_nt_shard(a_pad, layout, shard, br, dtype, device):
+    """The node-major stencil blocks of this shard's nodes (all of them on
+    one shard), of shape (rows_per_shard, n_pad): the product reads the
+    gathered global panel."""
+    host = stencil_blocks_host(a_pad, br=br, dtype=dtype)
+    if host is None:
+        raise ValueError("matrix is not stencil-structured; use fmt='ell' or "
+                         "'block_ell'")
+    blocks, offsets = host
+    nrb_loc = layout.rows_per_shard // br
+    blocks = torch.from_numpy(np.ascontiguousarray(
+        blocks[shard * nrb_loc:(shard + 1) * nrb_loc])).to(device)
+    return StencilBsrMatrix(blocks, offsets, (layout.rows_per_shard, layout.n_pad))
 
 
 def _pinned_layout(a, parts, fmt, pre_perm, layout, row_multiple, nshards=1):
@@ -948,12 +1054,11 @@ class DistributedECG:
         pre_perm = fmt_info = None
         bell_bk = 128
         if fmt == "auto":
-            _check_sharded(fmt, None, nshards)
             fmt, opts, a, pre_perm, fmt_info, bell_bk = _detect(
-                a, br, opts, auto_layout, precond, device, parts is not None)
+                a, br, opts, auto_layout, precond, device, parts is not None,
+                nshards)
             stage("detect")
         kind = _check_options(fmt, precond, opts.layout)
-        _check_sharded(fmt, opts.layout, nshards)
 
         dtype = np.dtype(dtype) if dtype is not None else a.dtype
         if dtype not in (np.float32, np.float64):
@@ -989,7 +1094,7 @@ class DistributedECG:
         elif fmt == "dia" and lane_major:
             layout, operands = _dia_lane_operands(
                 a, kind, block_size, grid, dtype, device, stage, layout=layout,
-                dedupe=bj_dedupe, bj_dtype=bj_dtype, cheb=cheb)
+                dedupe=bj_dedupe, bj_dtype=bj_dtype, cheb=cheb, group=group)
         else:
             layout, operands = _general_operands(
                 a, fmt, kind, br, block_size, nblocks_per_shard, bell_bk,

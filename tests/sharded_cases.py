@@ -85,6 +85,32 @@ def jax_lorasc_applies(s, vectors):
         lorasc_driver.ecg_solve = real
 
 
+def jax_driver_applies(s, vectors):
+    """The JAX DistributedECG's preconditioned product M·A·v for each
+    vector (original ordering, scaled space): its ``_solve_scaled_once``
+    with ``ecg_solve`` replaced, while the solve is traced, by one that
+    returns M·A·b. ``s`` must not have solved yet."""
+    import jax.numpy as jnp
+
+    from prealps_tpu.parallel import driver
+    from prealps_tpu.solvers.ecg import ECGResult
+
+    def product_only(a_apply, m_apply, b_loc, opts, axis_name=None, split_assign=None):
+        p = b_loc[:, None] if b_loc.ndim == 1 else b_loc[None]
+        y = m_apply(a_apply(p))
+        z = jnp.zeros((), b_loc.dtype)
+        return ECGResult(x=y[:, 0] if b_loc.ndim == 1 else y[0], iters=jnp.int32(0),
+                         res=z, normb=z, bs=jnp.int32(0), breakdown=jnp.bool_(False),
+                         history=jnp.zeros((1,), b_loc.dtype))
+
+    real = driver.ecg_solve
+    driver.ecg_solve = product_only
+    try:
+        return [s._solve_scaled_once(v)[0] for v in vectors]
+    finally:
+        driver.ecg_solve = real
+
+
 def same_on_every_rank(results, name):
     """Every rank's (x, info) of solve ``name`` (in its first job) equal;
     returns rank 0's."""

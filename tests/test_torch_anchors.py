@@ -19,12 +19,20 @@ devices:
     JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path sharded4 --nel 36 --nshards 4
     JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dry_ell_bj --nshards 4 [--dtype f64]
 
-``sharded4`` is the headline's configuration (``[sharded4]``); the
+``sharded4`` is the headline's configuration (``[sharded4]``),
+``sharded_general4`` the general path's (``[general]``: block-ELL, host
+block Jacobi with 240-row blocks, t 12 on ``nt``, f32; the JAX side runs
+``fmt="block_ell_xla"``) and ``sharded_dia4`` DIA's (``[dia]``); the
 ``dry_*`` paths are ``__graft_entry__.dryrun_multichip``'s three
 DistributedECG solves (nel 8, heterogeneous, RAC-scaled before the build,
 t 2, tol 1e-6, f32 here as on the card; ``[sharded_dryrun]``). The k-way
 partition of ``dry_ell_bj`` runs the JAX package's Python algorithm
 (``PREALPS_TPU_NO_NATIVE=1``), the one the port copies.
+
+``--path sharded_formats`` runs the four small f64 paths of
+chip_smoke.py's ``[sharded_formats]`` (``chip_smoke.SHARDED_FORMATS``:
+the stencil on ``nt``, block-ELL, ``fmt="auto"`` on the shuffled band and
+DIA on ``nt``, each at its own nshards) and prints one JSON line each.
 
 The distributed LORASC phases (``[dlorasc_large]``, ``[dlorasc_dryrun]``)
 take theirs from the JAX ``DistributedLorascECG`` over ``--nshards`` groups
@@ -98,7 +106,8 @@ DRYRUN_LORASC = {
                                   max_deflation=64), "omin"),
 }
 LARGE_NEL = 32
-PATHS = ("dia", "cheb", "dedup", "bj2l_nogrid", "sharded4", *DRYRUN,
+SHARDED = ("sharded4", "sharded_general4", "sharded_dia4")
+PATHS = ("dia", "cheb", "dedup", "bj2l_nogrid", *SHARDED, "sharded_formats", *DRYRUN,
          "dlorasc_large", *DRYRUN_LORASC)
 
 
@@ -139,20 +148,34 @@ def jax_anchor(path: str, nel: int, block_size: int = 240) -> dict:
             "solve_s": time.perf_counter() - t0}
 
 
+def sharded_config(path: str, nel: int):
+    """(build keywords, ECGOptions fields) of a full-size sharded phase:
+    the headline (``sharded4``), the general path with the JAX driver's
+    plain block-ELL (``sharded_general4``) or DIA on ``tbn``
+    (``sharded_dia4``)."""
+    if path == "sharded4":
+        return (dict(fmt="stencil", br=3, precond="bj2l", block_size=240,
+                     grid=(nel + 1, nel + 1, nel), dtype=np.float32), DIA_OPTS)
+    if path == "sharded_general4":
+        return (dict(fmt="block_ell_xla", precond="bj", block_size=240,
+                     dtype=np.float32), dict(DIA_OPTS, layout="nt"))
+    if path == "sharded_dia4":
+        return dict(DIA_CONFIG), DIA_OPTS
+    raise ValueError(f"unknown path {path!r}")
+
+
 def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> dict:
     """The JAX driver's solve of a sharded chip_smoke phase over
-    ``nshards`` CPU devices: the headline's configuration (``sharded4``) or
-    a dryrun path."""
+    ``nshards`` CPU devices: a full-size one (``sharded_config``) or a
+    dryrun path."""
     import os
 
     from prealps_tpu.core.scaling import sym_rac_scaling
 
     os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
-    if path == "sharded4":
+    if path in SHARDED:
         a, b = _problem(nel)
-        kw = dict(fmt="stencil", br=3, precond="bj2l", block_size=240,
-                  grid=(nel + 1, nel + 1, nel), dtype=np.float32)
-        opts = DIA_OPTS
+        kw, opts = sharded_config(path, nel)
     else:
         a, b = dryrun_problem(elasticity3d, sym_rac_scaling, dtype=dtype)
         kw, opts = dryrun_build(path, dtype)
@@ -161,7 +184,7 @@ def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> d
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x, info = s.solve(b)
-    return {"path": path, "nel": nel if path == "sharded4" else DRYRUN_NEL,
+    return {"path": path, "nel": nel if path in SHARDED else DRYRUN_NEL,
             "nshards": nshards, "dtype": np.dtype(kw["dtype"]).name,
             "n": a.shape[0], "n_pad": s.layout.n_pad,
             "iters": int(info["iters"]),
@@ -169,6 +192,28 @@ def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> d
             "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
             "breakdown": bool(info["breakdown"]), "build_s": build_s,
             "solve_s": time.perf_counter() - t0}
+
+
+def jax_formats_anchors() -> list:
+    """The JAX driver's solve of each [sharded_formats] path at its own
+    nshards (``chip_smoke.SHARDED_FORMATS``)."""
+    import os
+
+    import chip_smoke
+
+    os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
+    out = []
+    for name, (nshards, problem, kw, opts) in chip_smoke.SHARDED_FORMATS.items():
+        a, b = chip_smoke.sharded_formats_problem(problem, elasticity3d)
+        s = JaxECG.build(a, nshards=nshards, opts=JaxOptions(**opts),
+                         dtype=np.float64, **kw)
+        x, info = s.solve(b)
+        out.append({"path": name, "nshards": nshards, "n": a.shape[0],
+                    "n_pad": s.layout.n_pad, "iters": int(info["iters"]),
+                    "chosen": (s.fmt_info or {}).get("chosen"),
+                    "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+                    "breakdown": bool(info["breakdown"])})
+    return out
 
 
 def lorasc_case(path: str, mesh: tuple, dtype=np.float32):
@@ -276,6 +321,41 @@ def test_dryrun_problem_is_the_graft_entry_problem():
     np.testing.assert_array_equal(b_t, b_j)
 
 
+@pytest.mark.parametrize("path", ["sharded_general4", "sharded_dia4"])
+def test_sharded_anchor_cases_are_chip_smokes(path):
+    """chip_smoke's full-width sharded phases build what their anchors
+    build: [general]'s and [dia]'s configurations (t 12 odir_fused to 1e-5,
+    f32), block-ELL as the JAX driver's plain ``block_ell_xla``."""
+    import chip_smoke
+
+    kw, layout, _ = chip_smoke.SHARDED_FULL[path]
+    jkw, opts = sharded_config(path, 36)
+    assert opts == dict(t=12, tol=chip_smoke.SOLVE_TOL, maxiter=3000,
+                        variant="odir_fused", layout=layout)
+    fmt = "block_ell_xla" if kw["fmt"] == "block_ell" else kw["fmt"]
+    assert dict(kw, fmt=fmt, dtype=np.float32) == jkw
+
+
+def test_sharded_formats_problems_are_the_jax_tests():
+    """[sharded_formats]' problems are the JAX tests' (the band of
+    tests/test_spmm.py:541-560 under the rng fixture's permutation) and the
+    port's generator gives them bitwise."""
+    import chip_smoke
+    from prealps_tpu_torch.core.generators import elasticity3d as t_elasticity3d
+
+    for name in ("ela", "ela_b5", "band"):
+        a_j, b_j = chip_smoke.sharded_formats_problem(name, elasticity3d)
+        a_t, b_t = chip_smoke.sharded_formats_problem(name, t_elasticity3d)
+        assert (a_j != a_t).nnz == 0
+        np.testing.assert_array_equal(b_j, b_t)
+    a, b = chip_smoke.sharded_formats_problem("band", elasticity3d)
+    rng = np.random.default_rng(42)
+    pm = rng.permutation(2400)
+    assert a.shape == (2400, 2400) and a.nnz == 5 * 2400 - 8
+    assert a[np.argsort(pm)][:, np.argsort(pm)].diagonal(3).sum() == 2397
+    np.testing.assert_array_equal(b, rng.standard_normal(2400))
+
+
 @pytest.mark.parametrize("path,mesh", [("dry_lorasc", (8, 1)),
                                        ("dry_lorasc_2level", (4, 2)),
                                        ("dry_lorasc_deflation", (8, 1))])
@@ -307,7 +387,7 @@ if __name__ == "__main__":
     ap.add_argument("--nel", type=int, default=36)
     ap.add_argument("--block-size", type=int, default=240)
     ap.add_argument("--nshards", type=int, default=1,
-                    help="CPU devices of the sharded paths (sharded4, dry_*)")
+                    help="CPU devices of the sharded paths (sharded*, dry_*)")
     ap.add_argument("--dtype", choices=("f32", "f64"), default="f32",
                     help="the dry_* paths' type (the card runs f32 on the stencil)")
     ap.add_argument("--mesh", default=None,
@@ -321,7 +401,10 @@ if __name__ == "__main__":
     if args.path == "dlorasc_large" or args.path in DRYRUN_LORASC:
         dtype = np.float32 if args.dtype == "f32" else np.float64
         print(json.dumps(jax_lorasc_anchor(args.path, mesh, dtype)))
-    elif args.path == "sharded4" or args.path in DRYRUN:
+    elif args.path == "sharded_formats":
+        for rec in jax_formats_anchors():
+            print(json.dumps(rec))
+    elif args.path in SHARDED or args.path in DRYRUN:
         dtype = np.float32 if args.dtype == "f32" else np.float64
         print(json.dumps(jax_sharded_anchor(args.path, args.nel, args.nshards, dtype)))
     else:

@@ -868,6 +868,59 @@ def test_sharded_solve_on_card_matches_cpu(cuda_device, tmp_path):
     assert abs(iters_g - iters_c) <= 0.25 * iters_c
 
 
+def test_b5_on_a_shard_halo_block_space_matches_plain(cuda_device):
+    """B5 on rank 1's rows of a 4-shard block-ELL build: block columns in
+    [own blocks ∥ halo buffer] coordinates, the X panel 128-row blocks of
+    its own rows and of the padded halo buffer (driver._block_ell_shard)."""
+    from prealps_tpu_torch.core.layout import build_row_layout
+    from prealps_tpu_torch.parallel.driver import _block_ell_shard
+
+    a = elasticity3d(10, 10, 10)
+    lay = build_row_layout(a, 4, row_multiple=128)
+    mat, send_idx = _block_ell_shard(permute_and_pad_matrix(a, lay), lay, 1, 128,
+                                     np.float32, cuda_device)
+    mpl = lay.rows_per_shard
+    assert mat.shape == (mpl, mpl + send_idx.numel() * 128) and mat.bk == 128
+    assert int(mat.blkcols.max()) >= mpl // 128     # halo blocks referenced
+    for t in (12, 1, 5):
+        x = torch.from_numpy(np.random.default_rng(t).standard_normal(
+            (mat.shape[1], t)).astype(np.float32)).to(cuda_device)
+        before = tspmm.block_ell_spmm_pallas.launches
+        y = tspmm.block_ell_spmm_pallas(mat, x)
+        torch.cuda.synchronize()
+        assert tspmm.block_ell_spmm_pallas.launches == before + 1
+        ref = tspmm.block_ell_spmm(mat, x)
+        scale = tspmm.block_ell_spmm(tfmt.BlockEllMatrix(mat.blocks.abs(), mat.blkcols,
+                                                         mat.shape), x.abs())
+        assert y.shape == (mpl, t)
+        assert bool(((y - ref).abs() <= KERNEL_TOL * scale + 1e-30).all())
+
+
+def test_sharded_block_ell_solve_on_card_matches_cpu(cuda_device, tmp_path):
+    """fmt="block_ell" over 2 ranks sharing the card (B5 on each shard's
+    [own ∥ halo] blocks, f32, host-f64 rounds to 1e-7) and the same 2-rank
+    solve on the CPU (B5's plain version): both converge, every rank has
+    the same x, B5 launched at least once an iteration on every rank of
+    the card, and the iteration totals within 25 %."""
+    import torch_shard_workers as w
+
+    a = elasticity3d(8, 8, 8)
+    b = np.random.default_rng(1).standard_normal(a.shape[0])
+    case = dict(fmt="block_ell", precond="bj", block_size=240, dtype=np.float32,
+                opts=dict(t=4, tol=1e-7, maxiter=2000, layout="nt"))
+    args = (a, b, case)
+    card = _spawn_on_card(w.card_solve, 2, (*args, "cuda:0", "block_ell_spmm_pallas"),
+                          tmp_path / "g")
+    cpu = _spawn_on_card(w.card_solve, 2, (*args, "cpu", "block_ell_spmm_pallas"),
+                         tmp_path / "c")
+    for out in (card, cpu):
+        np.testing.assert_array_equal(out[1][0], out[0][0])
+        assert np.linalg.norm(b - a @ out[0][0]) < 1e-7 * np.linalg.norm(b)
+    iters_g, iters_c = card[0][1]["iters"], cpu[0][1]["iters"]
+    assert all(r[2] >= iters_g for r in card) and cpu[0][2] == 0
+    assert abs(iters_g - iters_c) <= 0.25 * iters_c
+
+
 def test_concurrent_kernel_builds(cuda_device, tmp_path):
     """Two processes that start from one empty build directory at once
     both load all three kernels; each source is compiled by one of them

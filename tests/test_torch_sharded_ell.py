@@ -1,6 +1,6 @@
 """The sharded general path (fmt="ell", row-major panels) at 2 and 4 gloo
 ranks on the CPU against the JAX driver's ``build(nshards=N)`` on the
-conftest's CPU devices, and the formats the sharded driver still refuses.
+conftest's CPU devices.
 
 elasticity3d(8,8,8), ECG t = 4 odir_fused to 1e-8 in f64: host block
 Jacobi (30-row blocks) on the k-way row layout at 2 and 4 ranks, and at 2
@@ -8,11 +8,8 @@ ranks on a caller's layout (the stencil's contiguous one, as
 tests/test_distributed.py:100-102 does), Chebyshev and none; iterations
 ±1 and x within 1e-8 relative. The JAX side partitions with its Python
 algorithm (``PREALPS_TPU_NO_NATIVE=1``), the one the port copies. In f32
-to 1e-6 the device double-float rounds run on the exchanged panel.
-
-Refused over several shards (NotImplementedError naming ROADMAP.md queue
-A, item 3): block-ELL, DIA on either layout, the stencil on row-major
-panels and fmt="auto".
+to 1e-6 the device double-float rounds run on the exchanged panel. The other sharded formats have files
+of their own: ``test_torch_sharded_{block_ell,nt4,nt8,dia_tbn}.py``.
 """
 
 import numpy as np
@@ -41,28 +38,6 @@ CASES2 = {
     "none": dict(BJ, precond="none"),
     "f32": dict(BJ, dtype=np.float32, opts=dict(OPTS, tol=1e-6)),
 }
-REFUSED = {
-    "block_ell": dict(fmt="block_ell", precond="bj"),
-    "block_ell_xla": dict(fmt="block_ell_xla", precond="bj"),
-    "dia_nt": dict(fmt="dia", precond="bj"),
-    "dia_tbn": dict(fmt="dia", precond="bj",
-                    opts_layout="tbn"),
-    "stencil_nt": dict(fmt="stencil", precond="bj"),
-    "auto": dict(fmt="auto", precond="bj"),
-}
-
-
-def _refusal_kwargs():
-    from prealps_tpu_torch.solvers.ecg import ECGOptions
-
-    out = {}
-    for name, kw in REFUSED.items():
-        kw = dict(kw)
-        layout = kw.pop("opts_layout", "nt")
-        out[name] = dict(kw, opts=ECGOptions(t=4, layout=layout))
-    return out
-
-
 @pytest.fixture(scope="module")
 def problem():
     a = elasticity3d(8, 8, 8, heterogeneous=False)
@@ -82,8 +57,7 @@ def port2(problem, tmp_path_factory):
     lay = contiguous_row_layout(a.shape[0], 2, row_multiple=24)
     on_layout = {"on_layout": dict(BJ, layout=lay)}
     return spawn_jobs(2, [("solves", (a, b, CASES2)),
-                          ("solves", (a, b, on_layout)),
-                          ("refusals", (a, _refusal_kwargs()))],
+                          ("solves", (a, b, on_layout))],
                       tmp_path_factory)
 
 
@@ -131,10 +105,3 @@ def test_sharded_ell_f32_device_rounds(problem, port2):
     assert info["device_rounds"] >= 1 and not info["breakdown"]
     assert relres(a, x, b) < 1e-6 and relres(a, x_j, b) < 1e-6
     assert abs(info["iters"] - info_j["iters"]) <= 0.25 * info_j["iters"]
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_sharded_formats_raise(port2, name):
-    for r in port2:
-        kind, msg = r[2][name]
-        assert kind == "NotImplementedError" and "queue A, item 3" in msg

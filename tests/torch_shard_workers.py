@@ -91,18 +91,49 @@ def solves(rank, group, a, b, cases):
     return out
 
 
-def refusals(rank, group, a, cases):
-    """The build of each case (name -> build keywords) over the group;
-    returns name -> (exception type name, message), or None if it built."""
+def operand_facts(s):
+    """What the tests hold of a sharded build's operands: the
+    preconditioner kind, the padded size, the operands' class, the
+    ``fmt="auto"`` choice, the shape of this shard's row-major operator,
+    the columns of its extended operator (block-ELL, the DIA remainder),
+    the stencil or DIA offsets."""
+    ops = s.operands
+    mat = getattr(ops, "mat", None)
+    rem = getattr(mat, "rem", None)
+    facts = {"kind": ops.precond_kind, "n_pad": s.layout.n_pad,
+             "operands": type(ops).__name__,
+             "chosen": (s.fmt_info or {}).get("chosen"),
+             "layout": ops.layout}
+    if mat is not None:
+        facts.update(mat_shape=tuple(mat.shape))
+    if hasattr(mat, "blkcols"):
+        facts.update(ext_cols=mat.shape[1], s_max=int(mat.blocks.shape[1]),
+                     bk=mat.bk)
+    offsets = getattr(mat, "offsets", getattr(ops, "offsets", None))
+    if offsets is not None:
+        facts.update(offsets=tuple(offsets))
+    if rem is not None:
+        facts.update(rem_ext_cols=rem.shape[1])
+    if getattr(ops, "rem_cols", None) is not None:
+        facts.update(rem_width=int(ops.rem_vals.shape[1]))
+    return facts
+
+
+def format_solves(rank, group, a, b, cases):
+    """``DistributedECG.build(nshards=world, group=group, device="cpu")`` and
+    ``solve(b)`` for each case (name -> build keywords, ``opts`` a dict of
+    ECGOptions fields); returns name -> (x, info without the history,
+    ``operand_facts``)."""
     world = mesh.size_of(group)
     out = {}
     for name, kw in cases.items():
-        try:
-            DistributedECG.build(a, nshards=world, device="cpu", group=group,
-                                 **kw)
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
-            out[name] = (type(e).__name__, str(e))
+        kw = dict(kw)
+        opts = ECGOptions(**kw.pop("opts"))
+        s = DistributedECG.build(a, nshards=world, opts=opts, device="cpu",
+                                 group=group, **kw)
+        x, info = s.solve(b)
+        info.pop("history")
+        out[name] = (x, info, operand_facts(s))
     return out
 
 
@@ -122,6 +153,41 @@ def reference_solves(rank, group, b, refs):
         x, info = s.solve(b)
         out[name] = (x, info["iters"], info["history"][: info["iters"]])
     return out
+
+
+def reference_applies(rank, group, refs, b, vectors):
+    """``solver_from_reference`` on each JAX sharded build's operands (name
+    -> (arrays, meta)): M·A·v for each of ``vectors`` (original ordering,
+    scaled space; through ``_solve_scaled_once`` with ``ecg_solve``
+    replaced by the preconditioned product, as
+    ``sharded_cases.jax_driver_applies`` does on the JAX side), then
+    ``solve(b)``; returns name -> (the M·A·v, x, iterations)."""
+    from prealps_tpu_torch.parallel import driver
+
+    out = {}
+    for name, (arrays, meta) in refs.items():
+        s = solver_from_reference(arrays, meta, device="cpu", group=group)
+        real = driver.ecg_solve
+        driver.ecg_solve = _product_only
+        try:
+            ys = [s._solve_scaled_once(v)[0] for v in vectors]
+        finally:
+            driver.ecg_solve = real
+        x, info = s.solve(b)
+        out[name] = (ys, x, info["iters"])
+    return out
+
+
+def _product_only(a_apply, m_apply, b, opts, split_assign=None, group=None):
+    """An ``ecg_solve`` stand-in that returns M·A·b as its x, on row-major
+    (n,) or lane-major (br, nrb) shards."""
+    from prealps_tpu_torch.solvers.ecg import ECGResult
+
+    p = b[:, None] if b.dim() == 1 else b[None]
+    y = m_apply(a_apply(p))
+    z = torch.zeros((), dtype=b.dtype)
+    return ECGResult(x=y[:, 0] if b.dim() == 1 else y[0], iters=0, res=z, normb=z,
+                     bs=0, breakdown=False, history=z[None])
 
 
 def lorasc_solves(rank, group, a, b, cases):
@@ -244,18 +310,19 @@ def card_ring(rank, group, nrb_loc, halos):
     return out
 
 
-def card_solve(rank, group, a, b, case, device):
+def card_solve(rank, group, a, b, case, device, kernel="stencil_flat_ext"):
     """A sharded f32 solve on ``device`` (cuda:0, shared by the ranks, or
-    the CPU; device double-float rounds); returns (x, info without the
-    history, B1 launches during the solve)."""
+    the CPU); returns (x, info without the history, the launches of the
+    ``kernel`` wrapper of ``ops/spmm.py`` during the solve)."""
     kw = dict(case)
     opts = ECGOptions(**kw.pop("opts"))
     s = DistributedECG.build(a, nshards=mesh.size_of(group), opts=opts,
                              device=device, group=group, **kw)
-    before = spmm.stencil_flat_ext.launches
+    counter = getattr(spmm, kernel)
+    before = counter.launches
     x, info = s.solve(b)
     info.pop("history")
-    return x, info, spmm.stencil_flat_ext.launches - before
+    return x, info, counter.launches - before
 
 
 def card_lorasc_solve(rank, group, a, b, case, device):

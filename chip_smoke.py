@@ -24,8 +24,11 @@ Phases (any failure exits nonzero before a result is printed):
  7. the general-sparse path's build at full size: the same operator,
     fmt="block_ell" (bm 8, bk 128), host block Jacobi (240-row blocks), ECG
     t = 12 odir_fused on row-major panels;
- 8. ``[kernel]`` B5 (``block_ell_spmm_pallas``) against ``block_ell_spmm``
-    at the path's shape (t = 12), at t = 1 and at bk = 8, timed in turns;
+ 8. ``[kernel]`` B5 (``block_ell_spmm_pallas``, on the blocks' packed
+    nonzero entries) against ``block_ell_spmm`` at the path's shape
+    (t = 12), at t = 1 and at bk = 8, timed in turns, with its device time,
+    nnz, fill, entries a row, the entry stream's bound beside the block
+    slots' and ``torch.sparse.mm`` on the same entries;
  9. ``[general]`` the general path: counts zeroed, one warm solve and three
     timed solves; host f64 relres < 1e-5, no breakdown, B5 launches >=
     iterations, iterations within 5 % of GENERAL_ANCHOR_ITERS (the JAX
@@ -184,7 +187,7 @@ Phases (any failure exits nonzero before a result is printed):
     then ``[kernel]`` B5 at rank 0's shard shape (its row blocks, s_max and
     extended columns; t 12 and t 1) against its plain version, with its
     device time (``timing.py::device_ms``), bound and ``torch.sparse.mm``
-    of the shard's rows of its extended operator;
+    of the shard's packed nonzero entries on its extended panel;
 35. ``[sharded_dia4]`` [dia] over 4 ranks (SHARDED_DIA4_NEL³, tbn, bj,
     f32): each rank's promoted diagonals of the k-way layout as a br = 1
     table through B1 on the ring-extended panel, the remainder through its
@@ -218,7 +221,8 @@ check, every path's numbers), the card's ``nvidia-smi`` name and power
 limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
 ``bound_ms``/``library_ms`` at each kernel's first shape and, under
 ``shapes``, at every shape checked, B2a's and B2b's with their
-``blocks_dtype``; ``max_abs_err`` over its shapes, ``launches`` from its
+``blocks_dtype``, B5's with ``device_ms``, ``format_bound_ms`` (the block
+slots' bound) and ``nnz``; ``max_abs_err`` over its shapes, ``launches`` from its
 path's run — for B4 and B6, which no path runs, chip_smoke's own calls;
 B1's, B2a's, B2b's and B5's entries also list their count on every path's
 solve under ``path_launches`` (B1's and B5's also each sharded rank's),
@@ -481,20 +485,15 @@ def scipy_csr(a, dev):
         torch.from_numpy(a.data.astype(np.float32)), a.shape).to(dev)
 
 
-def block_ell_csr(mat):
-    """A block-ELL operator (blocks (nrb, S, 8, bk), block columns in its
-    own column space, e.g. a shard's [own ∥ halo] blocks) as an f32 torch
-    CSR matrix on its device, its zero entries dropped: the library
-    yardstick's operand."""
+def entries_csr(mat):
+    """A block-ELL operator's packed nonzero entries (``mat.entries``) as an
+    f32 torch CSR matrix on their device: the library yardstick's operand,
+    the same entries the kernel reads."""
     import torch
 
-    nrb, _, bm, bk = mat.blocks.shape
-    rb, slot, m, k = mat.blocks.nonzero(as_tuple=True)
-    rows = rb * bm + m
-    cols = mat.blkcols.long()[rb, slot] * bk + k
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), mat.blocks[rb, slot, m, k],
-                                  tuple(mat.shape)).coalesce()
-    return coo.to_sparse_csr()
+    e = mat.entries
+    return torch.sparse_csr_tensor(e.row_ptr.long(), e.cols.long(), e.vals,
+                                   tuple(mat.shape))
 
 
 def library_ms(csr, t, seed):
@@ -700,16 +699,23 @@ def device_busy_ms(prof) -> float:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
-def check_block_ell(name, mat, t, seed, csr=None, device_time=False):
-    """B5 against block_ell_spmm on the card for one shape; returns a record
-    (with ``device_time`` also the kernel's device time by
-    ``timing.py::device_ms``)."""
+def check_block_ell(name, mat, t, seed):
+    """B5 against block_ell_spmm on the card for one shape, its packed
+    entries made first where the matrix has none; returns a record with
+    the kernel's device time (``timing.py::device_ms``) and
+    ``torch.sparse.mm`` on the same entries. The bound is the entry
+    stream's (8 bytes an entry, the row pointers, the X rows the entries
+    reference once, y once); the
+    block slots' bound (PR 2's format) is kept beside it as
+    ``format_bound_ms``."""
     import numpy as np
     import torch
 
-    from prealps_tpu_torch.ops.formats import BlockEllMatrix
+    from prealps_tpu_torch.ops.formats import BlockEllMatrix, pack_block_ell_entries
     from prealps_tpu_torch.ops.spmm import block_ell_spmm, block_ell_spmm_pallas
 
+    if mat.entries is None:
+        mat.entries = pack_block_ell_entries(mat)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((mat.shape[1], t)).astype(
         np.float32)).to(mat.blocks.device)
@@ -726,18 +732,32 @@ def check_block_ell(name, mat, t, seed, csr=None, device_time=False):
     if err > err_bound:
         fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
     nrb, s_max, bm, bk = mat.blocks.shape
-    nbytes = (4 * (mat.blocks.numel() + x.numel() + y_k.numel())
-              + 4 * mat.blkcols.numel())
+    n = nrb * bm
+    nnz = mat.entries.nnz
+    per_row = torch.diff(mat.entries.row_ptr)
+    # X: the rows the entries reference (a shard's halo slots are padded)
+    ncols_ref = int(torch.unique(mat.entries.cols).numel())
+    nbytes = 8 * nnz + 4 * (n + 1) + 4 * t * ncols_ref + 4 * y_k.numel()
+    format_nbytes = (4 * (mat.blocks.numel() + x.numel() + y_k.numel())
+                     + 4 * mat.blkcols.numel())
+    csr = entries_csr(mat)
     rec = {"shape": name, "nrb": nrb, "S": s_max, "bm": bm, "bk": bk, "t": t,
+           "nnz": nnz, "fill": nnz / mat.blocks.numel(), "ncols_ref": ncols_ref,
+           "entries_per_row_max": int(per_row.max()),
+           "entries_per_row_mean": nnz / n,
            "max_abs_err": err, "err_bound": err_bound,
            **in_turns(lambda: block_ell_spmm_pallas(mat, x),
                       lambda: block_ell_spmm(mat, x), nbytes, reps=10),
-           **bound(nbytes, 2 * nrb * s_max * bm * bk * t),
-           "library_ms": None if csr is None else library_ms(csr, t, seed)}
-    if device_time:
-        rec["device_ms"] = kernel_device_ms(lambda: block_ell_spmm_pallas(mat, x))
-    log_kernel(name, f"nrb={nrb} S={s_max} bm={bm} bk={bk} ncols={mat.shape[1]} t={t}",
-               rec)
+           **bound(nbytes, 2 * nnz * t),
+           "format_bound_ms": bound(format_nbytes, 2 * nrb * s_max * bm * bk * t)["bound_ms"],
+           "library_ms": library_ms(csr, t, seed),
+           "device_ms": kernel_device_ms(lambda: block_ell_spmm_pallas(mat, x))}
+    del csr
+    log_kernel(name, f"nrb={nrb} S={s_max} bm={bm} bk={bk} ncols={mat.shape[1]} "
+               f"referenced {ncols_ref} t={t} "
+               f"nnz={nnz} fill={100 * rec['fill']:.2f} % entries/row "
+               f"max {rec['entries_per_row_max']} mean {rec['entries_per_row_mean']:.1f}; "
+               f"block-slot bound {rec['format_bound_ms']:.4f} ms", rec)
     return rec
 
 
@@ -1915,7 +1935,8 @@ def _sharded_full_rank(rank, group, path, nel, device):
     if path == "sharded_general4":
         shard = {"nrb": int(ops.mat.blocks.shape[0]), "s_max": int(ops.mat.blocks.shape[1]),
                  "ext_rows": int(ops.mat.shape[1]), "hb": int(ops.send_idx.shape[1]),
-                 "blocks_MB": ops.mat.blocks.numel() * ops.mat.blocks.element_size() / 1e6}
+                 "blocks_MB": ops.mat.blocks.numel() * ops.mat.blocks.element_size() / 1e6,
+                 "entries_MB": 8 * ops.mat.entries.nnz / 1e6}
     else:
         shard = {"D": len(ops.offsets), "halo": ops.halo, "nrb": ops.nrb,
                  "rem_width": None if ops.rem_vals is None else int(ops.rem_vals.shape[1]),
@@ -1924,9 +1945,8 @@ def _sharded_full_rank(rank, group, path, nel, device):
     checks = []
     if rank == 0 and on_card:
         if path == "sharded_general4":
-            csr = block_ell_csr(ops.mat)
             checks = [check_block_ell(f"[{path}] rank 0's shard (bk128,t{t})", ops.mat, t,
-                                      seed=90 + t, csr=csr, device_time=True)
+                                      seed=90 + t)
                       for t in (12, 1)]
         else:
             flat = ops.blocks_flat
@@ -1935,7 +1955,7 @@ def _sharded_full_rank(rank, group, path, nel, device):
                                    f"t{t})", flat, ops.offsets, ops.halo, 1, t,
                                    seed=94 + t, csr=csr, device_time=True)
                       for t in (12, 1)]
-        del csr
+            del csr
     mesh.all_reduce(torch.zeros(1), group)     # the others wait for rank 0's checks
     return {"rank": rank, "iters": int(info["iters"]), **prof_rec,
             "refine_rounds": info["refine_rounds"], "breakdown": bool(info["breakdown"]),
@@ -2455,13 +2475,13 @@ def main() -> int:
         + json.dumps({k: round(v, 4) for k, v in gsolver.timings.items()})
         + f"; n_pad={gsolver.layout.n_pad} block-ELL nrb={nrb} S={s_max} "
         f"bm={bm} bk={bk} ({gops.mat.blocks.numel() * 4 / 1e9:.3f} GB, fill "
-        f"{100 * fill:.1f} %); block Jacobi nb={gops.bj.factors.shape[0]} "
+        f"{100 * fill:.1f} %), packed entries nnz={gops.mat.entries.nnz} "
+        f"({8 * gops.mat.entries.nnz / 1e9:.3f} GB); block Jacobi nb={gops.bj.factors.shape[0]} "
         f"mb={gops.bj.factors.shape[1]} mode={gops.bj.mode}")
 
     # --- 8. B5 vs its plain version on the card ---
-    gen_csr = scipy_csr(permute_and_pad_matrix(gsolver.a_scaled, gsolver.layout), dev)
     b5_checks = [check_block_ell("general solver apply (bk128,t12)", gops.mat,
-                                 12, seed=11, csr=gen_csr),
+                                 12, seed=11),
                  check_block_ell("single vector (bk128,t1)", gops.mat, 1,
                                  seed=12)]
     bell8 = csr_to_block_ell(permute_and_pad_matrix(gsolver.a_scaled,
@@ -2469,7 +2489,7 @@ def main() -> int:
                              bm=8, bk=8, dtype=np.float32, device=dev)
     b5_checks.append(check_block_ell("bk8 generic (bk8,t12)", bell8, 12,
                                      seed=13))
-    del bell8, gen_csr
+    del bell8
 
     # --- 9. the general path, through the user's entry points ---
     ginfo, glaunches, gwarm_s = checked_solve(gsolver, a, b, "general",
@@ -2623,8 +2643,9 @@ def main() -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in recs),
                 **{k: head[k] for k in keys},
                 "shapes": [{"shape": c["shape"], **{k: c[k] for k in keys},
-                            **({"blocks_dtype": c["blocks_dtype"]}
-                               if "blocks_dtype" in c else {})}
+                            **{k: c[k] for k in ("blocks_dtype", "device_ms",
+                                                 "format_bound_ms", "nnz")
+                               if k in c}}
                            for c in recs]}
 
     b1 = entry("stencil_flat_ext", "stencil.cu", "ops/spmm.py:800", launches,

@@ -1,12 +1,15 @@
-"""Time the hand-written stencil (B1-B4) and block-Jacobi (B6) kernels at
-the shapes of PERF.md's kernel table, through their public wrappers.
+"""Time the hand-written stencil (B1-B4), block-ELL (B5) and block-Jacobi
+(B6) kernels at the shapes of PERF.md's kernel table, through their public
+wrappers.
 
 The script imports ``prealps_tpu_torch`` from the caller's path, so one copy
 of it times any checkout of the port whose wrappers take these arguments;
 run it once per checkout, in turns (A, B, B, A), to compare two of them on
 one card:
 
-    PYTHONPATH=<checkout> python prealps_tpu_torch/examples/kernel_ab.py
+    PYTHONPATH=<checkout> python prealps_tpu_torch/examples/kernel_ab.py [--only B5,B6]
+
+(``--only`` times the named kernels' shapes alone.)
 
 Shapes (all f32, inputs from ``default_rng``; the times do not depend on
 the values):
@@ -26,6 +29,15 @@ the values):
   same shape (f32, bf16, bf16, f32); a checkout whose wrappers refuse bf16
   blocks prints that it does not take them;
 * B3 at t 12, 8, 1 and B4 at t 12 on the headline operator;
+* B5 on the general path's operator (elasticity3d 36³ scaled, one shard,
+  rows padded to 128: nrb 18,496, S 9) at bk 128 t 12 and t 1 and at bk 8
+  t 12, and on rank 0's shard of the 4-rank block-ELL layout ([own ∥
+  halo] blocks, bk 128) at t 12 and t 1, each beside ``torch.sparse.mm``
+  of the same nonzero entries as CSR (cuSPARSE). A checkout with
+  ``formats.pack_block_ell_entries`` packs each operator once first (its
+  kernel reads the entries); an older one launches on the blocks. Bound:
+  the entries (8 bytes each), the row pointers, the X rows they reference
+  (on the shard not the padding of its halo slots) and y;
 * B6 at the ``bj`` path's shape (nb 617, mb 240) and the ``dia`` path's (nb
   145, mb 1024), t 12, beside ``torch.bmm`` of the unpadded inverses.
 
@@ -44,6 +56,7 @@ record.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import pathlib
@@ -56,35 +69,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels to time (B1..B6); all by default")
+    only = set(filter(None, ap.parse_args(argv).only.split(",")))
+
+    def want(*kernels):
+        return not only or bool(only & set(kernels))
+
     import prealps_tpu_torch
     from prealps_tpu_torch.core.generators import elasticity3d
-    from prealps_tpu_torch.core.layout import (
-        build_row_layout,
-        contiguous_row_layout,
-        permute_and_pad_matrix,
-    )
     from prealps_tpu_torch.core.scaling import sym_rac_scaling
-    from prealps_tpu_torch.direct.device_bj import (
-        bj_apply_flat,
-        bj_apply_pallas,
-        pack_bj_dense,
-    )
-    from prealps_tpu_torch.ops.formats import (
-        StencilBsrTMatrix,
-        csr_to_stencil_bsr_t,
-        dia_ell_host,
-        stencil_blocks_flat,
-    )
-    from prealps_tpu_torch.ops.spmm import (
-        extend_wrap,
-        stencil_bsr_spmm_t_pallas,
-        stencil_bsr_spmm_t_pallas_bs,
-        stencil_blocks_planar,
-        stencil_flat_ext,
-        stencil_pallas_bs_ext,
-        stencil_spmm_planar,
-    )
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab.py needs a CUDA card")
@@ -113,8 +109,82 @@ def main() -> int:
     a = elasticity3d(nel, nel, nel, heterogeneous=False)
     a_s = sym_rac_scaling(a)[0]
 
+    if want("B5"):
+        b5_records(a_s, dev, rand, record)
+    if want("B1", "B3", "B4"):
+        stencil_records(a_s, dev, rand, record)
+    if want("B1", "B2a", "B2b"):
+        dia_records(a, a_s, dev, rand, record)
+    if want("B2a", "B2b"):
+        lorasc_records(nel, dev, rand, record)
+    if want("B6"):
+        bj_records(rand, record)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(json.dumps({"package": prealps_tpu_torch.__file__, "card": card,
+                      "records": recs}))
+    return 0
+
+
+def b5_records(a_s, dev, rand, record):
+    """B5 at the general path's three shapes and a 4-rank shard's two, each
+    beside torch.sparse.mm on the same entries."""
+    from prealps_tpu_torch.core.layout import build_row_layout, permute_and_pad_matrix
+    from prealps_tpu_torch.ops import formats
+    from prealps_tpu_torch.ops.spmm import block_ell_spmm_pallas
+    from prealps_tpu_torch.parallel.driver import _block_ell_shard
+
+    pack = getattr(formats, "pack_block_ell_entries", None)
+
+    def shapes():
+        a_pad = permute_and_pad_matrix(a_s, build_row_layout(a_s, 1, row_multiple=128))
+        for bk, ts in ((128, (12, 1)), (8, (12,))):
+            yield (f"general bk{bk}", formats.csr_to_block_ell(
+                a_pad, bm=8, bk=bk, dtype=np.float32, device=dev), ts)
+        lay4 = build_row_layout(a_s, 4, row_multiple=128)
+        mat, _ = _block_ell_shard(permute_and_pad_matrix(a_s, lay4), lay4, 0, 128,
+                                  np.float32, dev)
+        yield "4-rank shard 0 bk128", mat, (12, 1)
+
+    for tag, mat, ts in shapes():
+        nrb, s_max, bm, bk = mat.blocks.shape
+        nz = mat.blocks != 0
+        rb, slot, m, k = nz.nonzero(as_tuple=True)
+        nnz = int(rb.numel())
+        cols = mat.blkcols.long()[rb, slot] * bk + k
+        # the X rows the entries reference: a shard's halo slots are padded
+        ncols_ref = int(torch.unique(cols).numel())
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rb * bm + m, cols]),
+            mat.blocks[rb, slot, m, k], tuple(mat.shape)).coalesce().to_sparse_csr()
+        del nz, rb, slot, m, k, cols
+        if pack is not None:
+            mat.entries = pack(mat)
+        for t in ts:
+            x = rand(mat.shape[1], t)
+            nbytes = 8 * nnz + 4 * (nrb * bm + 1) + 4 * t * (ncols_ref + nrb * bm)
+            shape = f"{tag} nrb{nrb} S{s_max} nnz{nnz} t{t}"
+            record("B5", shape, lambda: block_ell_spmm_pallas(mat, x), nbytes)
+            record("torch.sparse.mm", shape, lambda: torch.sparse.mm(csr, x), nbytes)
+        del mat, csr
+
+
+def stencil_records(a_s, dev, rand, record):
+    """B1, B3 and B4 on the headline operator and a 4-rank shard of it."""
+    from prealps_tpu_torch.core.layout import contiguous_row_layout, permute_and_pad_matrix
+    from prealps_tpu_torch.ops.formats import csr_to_stencil_bsr_t, stencil_blocks_flat
+    from prealps_tpu_torch.ops.spmm import (
+        extend_wrap,
+        stencil_blocks_planar,
+        stencil_bsr_spmm_t_pallas,
+        stencil_flat_ext,
+        stencil_spmm_planar,
+    )
+
     # headline operator, padded as the stencil path pads it (240-row blocks)
-    lay = contiguous_row_layout(a.shape[0], 1, row_multiple=math.lcm(24, 240))
+    lay = contiguous_row_layout(a_s.shape[0], 1, row_multiple=math.lcm(24, 240))
     head = csr_to_stencil_bsr_t(permute_and_pad_matrix(a_s, lay), br=3,
                                 dtype=np.float32, device=dev)
     s_off, br, _, nrb = head.blocks_t.shape
@@ -131,7 +201,7 @@ def main() -> int:
                lambda: stencil_bsr_spmm_t_pallas(head, x),
                4 * (head.blocks_t.numel() + 2 * x.numel()))
     # a shard of the headline over 4 ranks (the sharded driver's layout)
-    lay4 = contiguous_row_layout(a.shape[0], 4, row_multiple=math.lcm(24, 240))
+    lay4 = contiguous_row_layout(a_s.shape[0], 4, row_multiple=math.lcm(24, 240))
     nrb4 = lay4.rows_per_shard // br
     head4 = csr_to_stencil_bsr_t(permute_and_pad_matrix(a_s, lay4), br=3,
                                  dtype=np.float32, device=dev)
@@ -149,6 +219,13 @@ def main() -> int:
            lambda: stencil_spmm_planar(b3, x2, offsets=head.offsets, br=br, nrb=nrb),
            4 * (b3.numel() + 2 * x2.numel()))
     del bf, b3, x2
+
+
+def dia_records(a, a_s, dev, rand, record):
+    """B1 on the DIA path's table and the unscaled one, B2b on the latter."""
+    from prealps_tpu_torch.core.layout import build_row_layout, permute_and_pad_matrix
+    from prealps_tpu_torch.ops.formats import dia_ell_host
+    from prealps_tpu_torch.ops.spmm import extend_wrap, stencil_flat_ext, stencil_pallas_bs_ext
 
     # the DIA path's table (scaled: 97 diagonals) and the unscaled one (99)
     lay_d = build_row_layout(a_s, 1, row_multiple=1024)
@@ -170,6 +247,17 @@ def main() -> int:
                    4 * (d_t.numel() + 2 * 12 * n))
             del d_t
         del diags
+
+
+def lorasc_records(nel, dev, rand, record):
+    """B2a and B2b on the LORASC path's operator, f32 and bf16 blocks."""
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.ops.formats import StencilBsrTMatrix, csr_to_stencil_bsr_t
+    from prealps_tpu_torch.ops.spmm import (
+        extend_wrap,
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_pallas_bs_ext,
+    )
 
     # the LORASC path's operator shape
     het = csr_to_stencil_bsr_t(elasticity3d(nel, nel, nel, heterogeneous=True),
@@ -208,7 +296,11 @@ def main() -> int:
         print(f"[ab] bf16 blocks not taken by this checkout: {e}", flush=True)
     del het, lor, lor16
 
-    # B6 at the bj and the dia path's block sizes, beside torch.bmm
+
+def bj_records(rand, record):
+    """B6 at the bj and the dia path's block sizes, beside torch.bmm."""
+    from prealps_tpu_torch.direct.device_bj import bj_apply_flat, bj_apply_pallas, pack_bj_dense
+
     for nb, mb, bbr in ((617, 240, 3), (145, 1024, 1)):
         inv = rand(nb, mb, mb)
         b2 = pack_bj_dense(inv)
@@ -217,13 +309,6 @@ def main() -> int:
         record("B6", f"nb{nb} mb{mb} t12", lambda: bj_apply_pallas(b2, z, bbr), nbytes)
         record("torch.bmm", f"nb{nb} mb{mb} t12", lambda: bj_apply_flat(inv, z), nbytes)
         del inv, b2, z
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(json.dumps({"package": prealps_tpu_torch.__file__, "card": card,
-                      "records": recs}))
-    return 0
 
 
 if __name__ == "__main__":

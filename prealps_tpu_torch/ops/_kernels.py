@@ -48,7 +48,7 @@ _SIGNATURES = {         # C entry point -> (argtypes, restype)
     "prealps_stencil": ([_P, _I, _P, _P, ctypes.POINTER(_I)] + [_I] * 10
                         + [_P], _I),
     "prealps_stencil_max_offsets": ([], _I),
-    "prealps_block_ell_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "prealps_block_ell_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "prealps_bj_apply_f32": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
     "prealps_bj_apply_max_rows": ([_I, _I], _I),
     "prealps_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -170,15 +170,17 @@ def stencil(blocks: torch.Tensor, offsets: tuple, x: torch.Tensor,
     _check(lib, rc, f"{what} launch")
 
 
-def block_ell_f32(blocks: torch.Tensor, blkcols: torch.Tensor,
-                  x: torch.Tensor, y: torch.Tensor, s_max: int, bk: int,
-                  t: int) -> None:
-    """Launch the block-ELL kernel writing into ``y`` (checked by the
-    caller: CUDA, f32 / int32, contiguous, bm = 8, shapes consistent)."""
+def block_ell_f32(entries, x: torch.Tensor, y: torch.Tensor) -> None:
+    """Launch the block-ELL kernel on the packed entries (``formats.py::
+    BlockEllEntries``) writing into ``y`` (checked by the caller: CUDA,
+    int32 / f32, contiguous, cols and vals 16-byte aligned, shapes
+    consistent)."""
     lib = load()["block_ell.cu"]
+    n, t = y.shape
     rc = lib.prealps_block_ell_f32(
-        blocks.data_ptr(), blkcols.data_ptr(), x.data_ptr(), y.data_ptr(),
-        blocks.shape[0], s_max, bk, t, y.device.index or 0, _stream(y))
+        entries.row_ptr.data_ptr(), entries.cols.data_ptr(),
+        entries.vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, t,
+        y.device.index or 0, _stream(y))
     _check(lib, rc, "block_ell_spmm_pallas launch")
 
 

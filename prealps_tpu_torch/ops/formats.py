@@ -14,7 +14,10 @@ General formats (row-major (n, t) panels):
 * block-ELL  blocks (nrb, S, bm, bk), blkcols (nrb, S) int32: for each bm-row
              block, its S bk-wide column blocks with nonzeros, padded to the
              longest such list; padding slots point at column block 0 and
-             hold zeros, so they add nothing.
+             hold zeros, so they add nothing. The block-ELL kernel reads
+             the blocks' nonzero entries instead, packed once per
+             operator (``pack_block_ell_entries``): row_ptr (n_pad + 1),
+             cols (nnz) int32 and vals (nnz), each row in slot order.
 * DIA+ELL    diags (D, n): the D promoted diagonals, entry [d, i] = a[i, i +
              off_d] (zero where that column leaves the matrix), plus an ELL
              remainder of the entries on no promoted diagonal. A DIA table
@@ -36,6 +39,7 @@ Layouts (t = number of panel columns, nrb = number of nodes):
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -52,10 +56,26 @@ class EllMatrix:
 
 
 @dataclass
+class BlockEllEntries:
+    """The nonzero entries of a block-ELL operator, row by row (CSR): row
+    r's entries are ``cols[row_ptr[r]:row_ptr[r+1]]`` and the same slice of
+    ``vals``, in slot order (s, then k), which is ascending column."""
+
+    row_ptr: torch.Tensor  # (n_pad + 1,) int32
+    cols: torch.Tensor     # (nnz,) int32, in the matrix's column space
+    vals: torch.Tensor     # (nnz,) the blocks' type
+
+    @property
+    def nnz(self) -> int:
+        return int(self.cols.numel())
+
+
+@dataclass
 class BlockEllMatrix:
     blocks: torch.Tensor   # (nrb, S, bm, bk)
     blkcols: torch.Tensor  # (nrb, S) int32
     shape: tuple           # (n_pad, ncols_pad): multiples of bm and bk
+    entries: Optional[BlockEllEntries] = None   # the kernel's operand
 
     @property
     def bm(self) -> int:
@@ -118,6 +138,27 @@ def csr_to_block_ell(a: sp.spmatrix, bm: int = 8, bk: int = 128,
     blocks[rb, slot, coo.row % bm, coo.col % bk] = coo.data
     return BlockEllMatrix(torch.from_numpy(blocks).to(device),
                           torch.from_numpy(blkcols).to(device), (n_pad, ncols_pad))
+
+
+def pack_block_ell_entries(mat: BlockEllMatrix) -> BlockEllEntries:
+    """The block-ELL kernel's operand: the nonzero entries of ``mat.blocks``
+    (``blocks != 0``) as CSR on the matrix's own device, each row's entries
+    in slot order s, then k. ``csr_to_block_ell`` fills slots in ascending
+    column-block order, so that is ascending column; columns are
+    ``blkcols[rb, s]·bk + k`` in the matrix's column space (on a shard, its
+    [own ∥ halo] coordinates)."""
+    nrb, s_max, bm, bk = mat.blocks.shape
+    n = nrb * bm
+    # (nrb, bm, S, bk): row rb·bm + m, then slot order
+    nz = (mat.blocks != 0).permute(0, 2, 1, 3).reshape(n, s_max * bk)
+    row, pos = torch.nonzero(nz, as_tuple=True)      # row-major order
+    rb, m = row // bm, row % bm
+    slot, k = pos // bk, pos % bk
+    vals = mat.blocks[rb, slot, m, k].contiguous()
+    cols = (mat.blkcols.long()[rb, slot] * bk + k).to(torch.int32)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=mat.blocks.device)
+    row_ptr[1:] = torch.cumsum(nz.sum(dim=1), 0)
+    return BlockEllEntries(row_ptr.to(torch.int32), cols, vals)
 
 
 @dataclass

@@ -11,8 +11,12 @@ General formats, row-major (n, t) panels:
   the block-ELL kernel, and the route of ``fmt="block_ell_xla"``.
 * ``block_ell_spmm_pallas`` — the block-ELL SpMM (the TPU kernel
   ``prealps_tpu/ops/spmm.py::block_ell_spmm_pallas``). CUDA tensors launch
-  the hand-written kernel (``csrc/block_ell.cu``), CPU tensors run
+  the hand-written kernel (``csrc/block_ell.cu``) on the blocks' nonzero
+  entries (``formats.py::pack_block_ell_entries``), CPU tensors run
   ``block_ell_spmm``; anything else raises.
+* ``block_ell_entries_spmm`` — the same product on the packed entries, plain
+  PyTorch (a gather, then a sum in slot order): the tests hold the pack to
+  the JAX package with it; no path of the port calls it.
 * ``dia_ell_spmm`` — hybrid DIA+ELL: one shifted FMA per promoted
   diagonal (``dia_window_spmm``) plus the ELL remainder (XLA in the JAX
   package, plain PyTorch here). The driver's ``fmt="dia"`` on row-major
@@ -65,6 +69,7 @@ import torch
 from prealps_tpu_torch.ops import _kernels
 from prealps_tpu_torch.ops.doublefloat import two_prod, two_sum
 from prealps_tpu_torch.ops.formats import (
+    BlockEllEntries,
     BlockEllMatrix,
     DiaEllMatrix,
     EllMatrix,
@@ -131,19 +136,39 @@ def block_ell_spmm(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(nrb * bm, t)
 
 
+def block_ell_entries_spmm(entries: BlockEllEntries, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x on the packed entries, plain PyTorch -> (n_pad, t): the
+    rows padded to the longest with zeros, then one gather and one
+    multiply-add per slot, in slot order."""
+    n = entries.row_ptr.numel() - 1
+    counts = torch.diff(entries.row_ptr.long())
+    width = int(counts.max()) if n else 0
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts)
+    slot = (torch.arange(entries.nnz, device=x.device)
+            - torch.repeat_interleave(entries.row_ptr[:-1].long(), counts))
+    vals = torch.zeros((n, width), dtype=entries.vals.dtype, device=x.device)
+    cols = torch.zeros((n, width), dtype=torch.int64, device=x.device)
+    vals[rows, slot] = entries.vals
+    cols[rows, slot] = entries.cols.long()
+    y = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    for s in range(width):
+        y = y + vals[:, s, None] * x[cols[:, s]]
+    return y
+
+
 def block_ell_spmm_pallas(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     """Block-ELL SpMM -> (n_pad, t); x: (ncols_pad, t) = (a.shape[1], t).
 
-    CPU tensors run ``block_ell_spmm``. CUDA tensors launch the CUDA kernel,
-    which takes f32 contiguous operands on one card with bm = 8 and bk a
-    multiple of 8 up to 128, and count one launch in
-    ``block_ell_spmm_pallas.launches``.
+    CPU tensors run ``block_ell_spmm``. CUDA tensors launch the CUDA kernel
+    on ``a.entries`` (``pack_block_ell_entries``, packed once per operator:
+    a matrix without them raises), which takes f32 contiguous operands on
+    one card, and count one launch in ``block_ell_spmm_pallas.launches``.
     """
     blocks, blkcols = a.blocks, a.blkcols
     if blocks.dim() != 4 or blkcols.shape != blocks.shape[:2]:
         raise ValueError(f"block-ELL blocks {tuple(blocks.shape)} and blkcols "
                          f"{tuple(blkcols.shape)} do not match")
-    nrb, s_max, bm, bk = blocks.shape
+    nrb, _, bm, bk = blocks.shape
     if x.dim() != 2 or x.shape[0] != a.shape[1] or x.shape[0] % bk:
         raise ValueError(f"x has shape {tuple(x.shape)}; expected "
                          f"({a.shape[1]}, t) with a multiple of bk={bk} rows")
@@ -156,18 +181,29 @@ def block_ell_spmm_pallas(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     if blocks.dtype != torch.float32 or x.dtype != torch.float32:
         raise TypeError(f"block_ell_spmm_pallas kernel takes float32, got "
                         f"{blocks.dtype} and {x.dtype}")
-    if blkcols.dtype != torch.int32:
-        raise TypeError(f"blkcols must be int32, got {blkcols.dtype}")
-    if not (blocks.is_contiguous() and blkcols.is_contiguous() and x.is_contiguous()):
+    e = a.entries
+    if e is None:
+        raise ValueError("block_ell_spmm_pallas: the matrix carries no packed "
+                         "entries; pack them once with "
+                         "formats.pack_block_ell_entries(mat)")
+    if ({e.row_ptr.device, e.cols.device, e.vals.device} != {x.device}
+            or e.row_ptr.dtype != torch.int32 or e.cols.dtype != torch.int32
+            or e.vals.dtype != torch.float32 or e.row_ptr.numel() != nrb * bm + 1):
+        raise ValueError("block_ell_spmm_pallas: entries must be int32 row_ptr "
+                         f"({nrb * bm + 1},), int32 cols and f32 vals on {x.device}")
+    if not (x.is_contiguous() and e.row_ptr.is_contiguous() and e.cols.is_contiguous()
+            and e.vals.is_contiguous()):
         raise ValueError("block_ell_spmm_pallas kernel takes contiguous operands")
-    if bm != 8 or bk % 8 or not 8 <= bk <= 128:
-        raise ValueError(f"block_ell_spmm_pallas kernel takes bm = 8 and bk a "
-                         f"multiple of 8 up to 128, got bm={bm} bk={bk}")
+    if e.cols.data_ptr() % 16 or e.vals.data_ptr() % 16:
+        raise ValueError("block_ell_spmm_pallas kernel takes 16-byte aligned "
+                         "entries")
     t = x.shape[1]
+    if t > 1024:
+        raise ValueError(f"block_ell_spmm_pallas kernel takes t <= 1024, got {t}")
     y = torch.empty((nrb * bm, t), dtype=torch.float32, device=x.device)
     if nrb == 0 or t == 0:
         return y
-    _kernels.block_ell_f32(blocks, blkcols, x, y, s_max, bk, t)
+    _kernels.block_ell_f32(e, x, y)
     block_ell_spmm_pallas.launches += 1
     return y
 

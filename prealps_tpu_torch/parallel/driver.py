@@ -149,6 +149,7 @@ from prealps_tpu_torch.ops.formats import (
     csr_to_ell,
     detect_format,
     dia_ell_host,
+    pack_block_ell_entries,
     panel_from_flat_kmajor,
     panel_to_flat_kmajor,
     stencil_blocks_host,
@@ -455,12 +456,18 @@ class BlockEllOperands(_RowMajor):
     Over several shards ``mat`` holds this shard's row blocks with block
     columns in [own blocks ∥ halo buffer] coordinates and ``send_idx``
     (S, hb) the bk-row X blocks each shard needs of this one
-    (``core/layout.py::BlockHaloPlan``)."""
+    (``core/layout.py::BlockHaloPlan``). With ``kernel`` the blocks'
+    nonzero entries, the kernel's operand, are packed here once
+    (``pack_block_ell_entries``), on every build path."""
 
     mat: BlockEllMatrix
     bj: Optional[BlockJacobi]
     kernel: bool = True
     send_idx: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.kernel and self.mat.entries is None:
+            self.mat.entries = pack_block_ell_entries(self.mat)
 
     @property
     def device(self) -> torch.device:

@@ -12,8 +12,10 @@ stencil kernels (flat B1, lane-major B2a / B2b / B3, planar B4: one source,
 csrc/stencil.cu) sum the same products in the same order, with FMAs, so B1
 is also held bitwise to an fmaf reference in that order (each step
 computed in float64 and rounded to float32: the product of two floats is
-exact in float64). The block-ELL kernel sums lane-partial sums through a
-warp tree and the block-Jacobi kernel sums over k in one thread, so those
+exact in float64). The block-ELL kernel walks the packed nonzero entries
+(``formats.pack_block_ell_entries``) of each row in slot order with fmaf
+(at t 1 four strided part sums and a fixed tree), so two launches agree
+bitwise, and the block-Jacobi kernel sums over k in one thread; those
 agree with their plain versions to f32 rounding of the dot-product length.
 The edge shapes are those of the stencil kernel's tiling (node tiles of
 128, whole-width instances at t 1, 4, 8, 12 and 16, chunks of 8 columns
@@ -100,12 +102,14 @@ def test_small_solve_on_the_card_matches_cpu(cuda_device):
 
 def _block_ell(a, bk, t, seed, device):
     m = tfmt.csr_to_block_ell(a, bm=8, bk=bk, dtype=np.float32, device=device)
+    m.entries = tfmt.pack_block_ell_entries(m)
     x = np.random.default_rng(seed).standard_normal((m.shape[1], t))
     return m, torch.from_numpy(x.astype(np.float32)).to(device)
 
 
 @pytest.mark.parametrize("bk,t", [(128, 12), (128, 1), (128, 5), (8, 12),
-                                  (8, 1), (64, 3)])
+                                  (8, 1), (64, 3), (128, 4), (128, 16), (8, 4),
+                                  (8, 16), (64, 1), (64, 4), (64, 12), (64, 16)])
 def test_block_ell_kernel_matches_plain(cuda_device, bk, t):
     m, x = _block_ell(elasticity3d(7, 6, 5), bk, t, seed=bk + t,
                       device=cuda_device)
@@ -129,6 +133,28 @@ def test_block_ell_kernel_refuses_what_it_does_not_take(cuda_device):
         tspmm.block_ell_spmm_pallas(m, x.t().contiguous().t())
     with pytest.raises(ValueError, match="CUDA"):
         tspmm.block_ell_spmm_pallas(m, x.cpu())
+
+
+def test_block_ell_kernel_needs_packed_entries(cuda_device):
+    """A CUDA matrix without its packed entries raises, naming the pack;
+    the wrapper neither packs per call nor falls back."""
+    m, x = _block_ell(elasticity3d(5, 5, 4), 128, 12, seed=0, device=cuda_device)
+    bare = tfmt.BlockEllMatrix(m.blocks, m.blkcols, m.shape)
+    before = tspmm.block_ell_spmm_pallas.launches
+    with pytest.raises(ValueError, match="pack_block_ell_entries"):
+        tspmm.block_ell_spmm_pallas(bare, x)
+    assert tspmm.block_ell_spmm_pallas.launches == before and bare.entries is None
+
+
+@pytest.mark.parametrize("t", [1, 5, 12])
+def test_block_ell_kernel_is_deterministic(cuda_device, t):
+    """Two launches on the same input give the same bits (each row summed
+    in slot order; at t 1 a fixed tree of four part sums)."""
+    m, x = _block_ell(elasticity3d(9, 8, 7), 128, t, seed=t, device=cuda_device)
+    y1 = tspmm.block_ell_spmm_pallas(m, x)
+    y2 = tspmm.block_ell_spmm_pallas(m, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
 
 
 def _bj_operands(t, seed, device):
@@ -879,10 +905,12 @@ def test_b5_on_a_shard_halo_block_space_matches_plain(cuda_device):
     lay = build_row_layout(a, 4, row_multiple=128)
     mat, send_idx = _block_ell_shard(permute_and_pad_matrix(a, lay), lay, 1, 128,
                                      np.float32, cuda_device)
+    mat.entries = tfmt.pack_block_ell_entries(mat)
     mpl = lay.rows_per_shard
     assert mat.shape == (mpl, mpl + send_idx.numel() * 128) and mat.bk == 128
     assert int(mat.blkcols.max()) >= mpl // 128     # halo blocks referenced
-    for t in (12, 1, 5):
+    assert int(mat.entries.cols.max()) >= mpl       # halo columns referenced
+    for t in (12, 1, 5, 4, 16):
         x = torch.from_numpy(np.random.default_rng(t).standard_normal(
             (mat.shape[1], t)).astype(np.float32)).to(cuda_device)
         before = tspmm.block_ell_spmm_pallas.launches

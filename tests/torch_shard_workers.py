@@ -194,7 +194,7 @@ def lorasc_solves(rank, group, a, b, cases):
     """``DistributedLorascECG.build(group=group, device="cpu")`` and
     ``solve(b)`` for each case (name -> build keywords, ``opts`` a dict of
     ECGOptions fields, ``mesh_shape`` or ``nshards``); returns name -> (x,
-    info, ng_max, ni_max)."""
+    info, ng_max, ni_max, sigma)."""
     from prealps_tpu_torch.parallel.lorasc_driver import DistributedLorascECG
 
     out = {}
@@ -203,7 +203,7 @@ def lorasc_solves(rank, group, a, b, cases):
         opts = ECGOptions(**kw.pop("opts"))
         s = DistributedLorascECG.build(a, opts=opts, device="cpu", group=group, **kw)
         x, info = s.solve(b)
-        out[name] = (x, info, s.ng_max, s.ni_max)
+        out[name] = (x, info, s.ng_max, s.ni_max, s.ops["sigma"].cpu().numpy())
     return out
 
 
@@ -351,3 +351,84 @@ def card_build(rank, group, build_dir):
     cached = sorted(src for src, info in _kernels.build_info.items()
                     if info["log"] == "(cached)")
     return sorted(libs), cached
+
+
+def lorasc_f32_stages(rank, group, a, b, case, arrays, meta):
+    """The f32 distributed LORASC build stage by stage, for
+    ``tests/dlorasc_f32_stages.py``: the Lanczos Ritz values and residual
+    estimates, theta / bnorm2 / resid after Rayleigh-Ritz, deflated and
+    sigma, and each refinement round's iterations of the solves on the
+    port's own operands, on the JAX build's (``arrays``, ``meta``), on each
+    with the other's Ritz basis and sigma, and on the port's with sigma
+    scaled by 1 ± 1e-4. Returns a dict of numpy values (rank 0's)."""
+    import prealps_tpu_torch.parallel.lorasc_driver as ld
+
+    rec, rounds = {}, []
+    lanczos = {name: getattr(ld, name) for name in
+               ("block_lanczos_thick_restart", "lanczos_thick_restart", "lanczos_gen")}
+    refine, solve = ld.rayleigh_ritz_refine, ld.ecg_solve
+
+    def traced(name, fn):
+        def run(*args, **kw):
+            res = fn(*args, **kw)
+            rec["lanczos"] = name
+            rec["ritz"] = res.eigvalues.numpy()
+            rec["ritz_resid"] = res.resid.numpy()
+            return res
+        return run
+
+    def rr(*args, **kw):
+        out = refine(*args, **kw)
+        rec.update(zip(("theta", "vecs", "bnorm2", "resid"), (t.numpy() for t in out)))
+        return out
+
+    def counted(*args, **kw):
+        res = solve(*args, **kw)
+        rounds.append(int(res.iters))
+        return res
+
+    for name, fn in lanczos.items():
+        setattr(ld, name, traced(name, fn))
+    ld.rayleigh_ritz_refine, ld.ecg_solve = rr, counted
+    try:
+        kw = dict(case)
+        opts = ECGOptions(**kw.pop("opts"))
+
+        def own():
+            return ld.DistributedLorascECG.build(a, opts=opts, device="cpu",
+                                                 group=group, **kw)
+
+        def ref():
+            return distributed_lorasc_from_reference(arrays, meta, device="cpu",
+                                                     group=group)
+
+        def rounds_of(s):
+            rounds.clear()
+            x, info = s.solve(b)
+            return int(info["iters"]), list(rounds)
+
+        s_own = own()
+        out = {k: rec[k] for k in ("lanczos", "ritz", "ritz_resid", "theta", "bnorm2",
+                                   "resid")}
+        out.update(deflated=s_own.deflated, sigma=s_own.ops["sigma"].numpy(),
+                   own=rounds_of(s_own))
+        s_ref = ref()
+        out["ref"] = rounds_of(s_ref)
+        out["ops_equal"] = sorted(k for k, v in s_own.ops.items()
+                                  if isinstance(v, torch.Tensor) and k in s_ref.ops
+                                  and torch.equal(v, s_ref.ops[k]))
+        pair = ("e_mat", "sigma")
+        for name, (dst, src) in {"own_with_ref_pairs": (own(), s_ref),
+                                 "ref_with_own_pairs": (ref(), s_own)}.items():
+            for k in pair:
+                dst.ops[k] = src.ops[k]
+            out[name] = rounds_of(dst)
+        for eps in (1e-4, -1e-4):
+            s = own()
+            s.ops["sigma"] = s.ops["sigma"] * (1 + eps)
+            out[f"own_sigma_{eps:+g}"] = rounds_of(s)
+        return out
+    finally:
+        for name, fn in lanczos.items():
+            setattr(ld, name, fn)
+        ld.rayleigh_ritz_refine, ld.ecg_solve = refine, solve

@@ -9,6 +9,13 @@ Phases (any failure exits nonzero before a result is printed):
  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
  2. build the CUDA kernels from prealps_tpu_torch/csrc (one nvcc per
     source, all started together, sm_90a);
+2a. ``[native]`` the native host library (prealps_tpu_torch/native.py over
+    csrc/host/graph.cpp and mmio.cpp, g++ with native/Makefile's flags):
+    it must load, and the default partitioner must be it; the k-way
+    partition and the block-arrow structure of elasticity3d(36³) into 8
+    parts, native and Python (PREALPS_TPU_NO_NATIVE), timed on the host
+    with their separator sizes. Every k-way or block-arrow partition below
+    (the sharded and distributed-LORASC phases, [api_*]) is the native one;
  3. the headline path's build at full size: elasticity3d 36³ (n = 147,852),
     stencil format, two-level block Jacobi (240-row blocks), ECG t = 12;
  4. ``[kernel]`` B1 (``stencil_flat_ext``) against its plain PyTorch version
@@ -43,6 +50,31 @@ Phases (any failure exits nonzero before a result is printed):
     inverses at t = 12 against its plain version, with ``torch.bmm`` on the
     unpadded inverses (the driver's apply) timed beside them (and again on
     the [dia] build's 1024-row inverses in phase 20);
+12a. ``[api_bj]`` [general]'s matrix through the single-device API:
+    ``api.ECGSolver.build(elasticity3d(36³), ECGOptions(t=12, tol=1e-5),
+    precond="block_jacobi", dtype=float32)`` (ELL operator, host block
+    Jacobi, f32 inner solves to 1e-3 with host-f64 residual rounds): build
+    stages, every operand on the card, a warm solve (host f64 relres <
+    1e-5, iterations within ANCHOR_BAND of API_ANCHORS, the JAX
+    ``ECGSolver`` on a CPU), TTS as the median of three solves, rounds, one
+    solve under torch.profiler (chiprun_out/profile_api_bj.txt);
+12b. ``[api_lorasc]`` / ``[api_presc]`` the reference's
+    elasticity3d_12x10x10 (n = 4,290) at the CLI defaults through
+    ``cli.lorasc_main`` (``python -m prealps_tpu_torch.cli lorasc``) on the
+    card: -p lorasc (direct eigensolve) and -p presc (ssloc), in f64 (held
+    to the JAX CLI's counts ±1) and f32 (the card's default; logged beside
+    JAX's counts, relres < 1e-5); each build again through ECGSolver in
+    f64 (its pairs equal JAX's, its count ±1, its operands on the card),
+    and ``[api_presc_banded]``: PRESC with ``schur_method="banded"``
+    (block_banded_schur on the card), held the same way;
+12c. ``[api_lanczos]`` build_lorasc with the Lanczos eigensolve on the card
+    against the direct pairs of the same arrow (tests/test_lorasc.py's
+    bar: at least min(direct, 3) − 1 pairs), with the eigenvalue gap;
+12d. ``[checkpoint]`` ecg_solve_checkpointed on the card (the
+    [api_lorasc] build, f64, chunks of 25 iterations): a run in chunks, and
+    a run stopped after its first chunk and resumed from its file at
+    iteration 25 in the same process; each one's count and x bitwise the
+    straight solve's;
 13. ``[lorasc]`` the single-GPU LORASC path at full size:
     ``StencilLorascECG.build`` of heterogeneous elasticity3d 36³ (generated
     once and shared by phases 13-19; nparts 8, ECG t = 12 omin,
@@ -158,8 +190,8 @@ Phases (any failure exits nonzero before a result is printed):
     memory; a solve with the collective counts zeroed just before and
     read just after (host f64 relres < 1e-5, no breakdown, every rank the
     same x, iterations within 5 % of DLORASC_LARGE_ANCHOR_ITERS, the JAX
-    driver on a CPU with the Python partition; the JAX record's 377,
-    which came from the native partition, printed beside it), its TTS,
+    driver on a CPU with the native partition; the JAX record's 377, from
+    the same partition, printed beside), its TTS,
     then the first PROFILE_ITERS iterations of a second solve, rank 0's
     under torch.profiler (device-busy share,
     chiprun_out/profile_dlorasc.txt), and each rank's wall time by step;
@@ -169,9 +201,11 @@ Phases (any failure exits nonzero before a result is printed):
     (mesh (4, 2), max_deflation 16) and "lorasc deflation" (omin,
     exact_schur=False, correction="deflate", max_deflation 64): each to
     relres < 1e-4 (the dry run's 100 × tol), every rank the same x, the
-    counts within ANCHOR_BAND of the JAX driver's on a CPU at the same
-    mesh (DLORASC_DRY_ANCHORS), at least one pair on the deflation path;
-    MULTICHIP_r05.json's 5, 5 and 88 (19 pairs) printed beside them;
+    deflated pairs equal to the JAX driver's on a CPU at the same mesh and
+    the counts within ANCHOR_BAND of its counts (DLORASC_DRY_ANCHORS,
+    native partition), but for the exact-Schur path, held to the card's
+    own 4 (DLORASC_DRY_CARD_ITERS, with its second witness) beside JAX's
+    5; MULTICHIP_r05.json's 5, 5 and 88 (19 pairs) printed beside them;
 34. ``[sharded_general4]`` the general path ([general]: elasticity3d 36³,
     fmt="block_ell", host block Jacobi with 240-row blocks, t 12 on nt, f32
     with host-f64 rounds) at full width over 4 ranks spawned on this card
@@ -282,53 +316,73 @@ CHEB_ANCHOR_ITERS = 44          # precond="chebyshev", degree 8, κ 30
 DEDUP_ANCHOR_ITERS = 234        # precond="bj", grid=, bj_dedupe: x-line blocks
 BJ2L_NOGRID_ANCHOR_ITERS = 182  # precond="bj2l", grid=None
 PATH_BAND = 0.10
-# the sharded phases (the JAX driver over nshards CPU devices, f32, the
-# Python k-way partition: python -m tests.test_torch_anchors --path P
-# --nshards N [--nel 36] [--dtype f64]). [sharded4]: the headline at
-# nshards 4 (n_pad 148,800), 131 iterations in 2 rounds, relres 5.3e-7.
+# the sharded phases (the JAX driver over nshards CPU devices, f32:
+# python -m tests.test_torch_anchors --path P --nshards N [--nel 36]
+# [--dtype f64] --native). Both packages partition with the native host
+# library by default, so the phases built on a k-way or block-arrow
+# partition are held to the JAX counts under it (--native); the Python
+# algorithm's counts (PREALPS_TPU_NO_NATIVE, without --native) are kept
+# in the comments. [sharded4]: the headline at nshards 4 (n_pad 148,800;
+# the stencil format's contiguous layout, no k-way partition), 131
+# iterations in 2 rounds, relres 5.3e-7.
 SHARDED4_ANCHOR_ITERS = 131
 # [sharded_dryrun]: __graft_entry__.dryrun_multichip's DistributedECG paths
 # (het elasticity3d 8³, RAC-scaled, t 2, tol 1e-6, f32). JAX on a CPU:
-# nshards 4: stencil+cheb 1662, ell+bj 967, stencil+bj2l 531; nshards 8:
-# stencil+bj2l 559 (MULTICHIP_r05.json, 8 shards: 1312 / 957 / 559); ell+bj
-# in f64 at nshards 4: 192. Held to PATH_BAND: stencil+bj2l (f32) and
+# nshards 4: stencil+cheb 1662, ell+bj 1025 (Python partition 967),
+# stencil+bj2l 531; nshards 8: stencil+bj2l 559 (MULTICHIP_r05.json, 8
+# shards: 1312 / 957 / 559); ell+bj in f64 at nshards 4: 162 (Python 192);
+# the stencil paths keep their contiguous layout under either partitioner.
+# Held to PATH_BAND: stencil+bj2l (f32) and
 # ell+bj (f64). The f32 counts of stencil+cheb and ell+bj are logged beside
 # JAX's only: at t 2 on the het operator they hinge on whether an f32 inner
 # solve ends at a stall window (250 iterations), which follows the
 # rounding, and they part between the packages on one shard already.
 DRYRUN_ANCHOR_ITERS = {("dry_stencil_cheb", "f32", 4): 1662,
-                       ("dry_ell_bj", "f32", 4): 967,
+                       ("dry_ell_bj", "f32", 4): 1025,
                        ("dry_stencil_bj2l", "f32", 4): 531,
                        ("dry_stencil_bj2l", "f32", 8): 559,
-                       ("dry_ell_bj", "f64", 4): 192}
+                       ("dry_ell_bj", "f64", 4): 162}
 DRYRUN_HELD = {("dry_stencil_bj2l", "f32"), ("dry_ell_bj", "f64")}
 MULTICHIP_R05 = {"dry_stencil_cheb": 1312, "dry_ell_bj": 957, "dry_stencil_bj2l": 559}
 # the distributed LORASC phases (the JAX DistributedLorascECG on a CPU,
-# Python block-arrow partition: python -m tests.test_torch_anchors --path P
-# --nshards 8 | --mesh 4,2). [dlorasc_large]: demo_large_separator.py's
-# configuration at 8 groups (f64); its JAX record, 377 iterations
-# (docs/PERFORMANCE.md, "Large-separator distributed LORASC"), came from
-# the native partition (18,152 padded separator rows).
-DLORASC_LARGE_ANCHOR_ITERS = 425
+# native block-arrow partition: python -m tests.test_torch_anchors --path P
+# --nshards 8 | --mesh 4,2 --native). [dlorasc_large]: demo_large_separator.py's
+# configuration at 8 groups (f64): 405 iterations, 1 pair, 18,152 padded
+# separator rows (the Python partition: 425). Its JAX record, 377
+# iterations (docs/PERFORMANCE.md, "Large-separator distributed LORASC"),
+# has the same 18,152 rows but was not reproduced on a CPU; it is printed
+# beside.
+DLORASC_LARGE_ANCHOR_ITERS = 405
 DLORASC_LARGE_RECORD_ITERS = 377
 # [dlorasc_dryrun]: dryrun_multichip's LORASC paths (het 8³, f32, t 2, tol
 # 1e-6); (iterations, deflated pairs) of the JAX driver on a CPU at the
-# same mesh, and MULTICHIP_r05.json's (native partition) beside them
-DLORASC_DRY_ANCHORS = {"dry_lorasc": (4, 828), "dry_lorasc_2level": (4, 594),
-                       "dry_lorasc_deflation": (61, 21)}
+# same mesh, native partition (Python partition: (4, 828), (4, 594),
+# (61, 21)), and MULTICHIP_r05.json's (native partition) beside them
+DLORASC_DRY_ANCHORS = {"dry_lorasc": (5, 786), "dry_lorasc_2level": (5, 562),
+                       "dry_lorasc_deflation": (88, 19)}
 DLORASC_DRY_R05 = {"dry_lorasc": "5", "dry_lorasc_2level": "5",
                    "dry_lorasc_deflation": "88 (19 pairs)"}
+# the card's count where it is not JAX's: "dry_lorasc"'s second refinement
+# round meets the inner 1e-3 in 2 counted iterations on the card
+# (‖r‖/‖rhs‖ 7.5e-4) and in 3 on the host, the f32 rounding of a near-exact
+# preconditioner deciding. The second witness of the card's 4: the card's
+# build solved on the host and the host's build solved on the card take 4
+# too; only the host's build solved on the host takes JAX's 5 (python -m
+# prealps_tpu_torch.examples.dlorasc_dry_devices, on the H100)
+DLORASC_DRY_CARD_ITERS = {"dry_lorasc": 4}
 # the sharded driver's other formats (the JAX driver over nshards CPU
-# devices, the Python k-way partition: python -m tests.test_torch_anchors
+# devices, the native k-way partition: python -m tests.test_torch_anchors
 # --path sharded_general4|sharded_dia4 --nel N --nshards 4 and --path
-# sharded_formats). [sharded_general4]: [general] over 4 ranks, the JAX
-# driver's fmt="block_ell_xla" (its Pallas block-ELL is too slow in
-# interpret mode at this size, and sums in f32 anyway): n_pad 155,648, 193
-# iterations in 2 host refinement rounds, relres 3.1e-8.
-SHARDED_GENERAL4_ANCHOR_ITERS = 193
-# [sharded_dia4]: [dia] over 4 ranks, at SHARDED_DIA4_NEL: n_pad 155,648,
-# 189 iterations in 2 rounds, relres 3.5e-8.
-SHARDED_DIA4_ANCHOR_ITERS = 189
+# sharded_formats, each with --native). [sharded_general4]: [general] over
+# 4 ranks, the JAX driver's fmt="block_ell_xla" (its Pallas block-ELL is
+# too slow in interpret mode at this size, and sums in f32 anyway): n_pad
+# 159,744, 192 iterations in 2 host refinement rounds, relres 1.4e-8 (the
+# Python partition: n_pad 155,648, 193).
+SHARDED_GENERAL4_ANCHOR_ITERS = 192
+# [sharded_dia4]: [dia] over 4 ranks, at SHARDED_DIA4_NEL: n_pad 159,744,
+# 188 iterations in 2 rounds, relres 2.9e-8 (the Python partition: n_pad
+# 155,648, 189).
+SHARDED_DIA4_ANCHOR_ITERS = 188
 SHARDED_DIA4_NEL = 36
 # [sharded_formats]: (ranks, problem, build keywords, ECGOptions fields) of
 # the JAX tests' sharded paths (tests/test_distributed.py:98-108, :79-83 and
@@ -347,8 +401,39 @@ SHARDED_FORMATS = {
     "dia_nt": (8, "ela_b5", dict(fmt="dia", precond="block_jacobi"),
                dict(t=4, tol=1e-8, maxiter=2000, layout="nt")),
 }
-SHARDED_FORMATS_ANCHOR_ITERS = {"stencil_nt": 55, "block_ell_xla": 51, "auto": 11,
-                                "dia_nt": 63}
+# (the native partition; the Python one gave 55, 51, 11 and 63)
+SHARDED_FORMATS_ANCHOR_ITERS = {"stencil_nt": 55, "block_ell_xla": 47, "auto": 8,
+                                "dia_nt": 55}
+# the general-matrix single-device API (prealps_tpu_torch/api.py::ECGSolver):
+# (elasticity3d keywords, precond, build keywords, ECGOptions fields).
+# [api_bj] is [general]'s matrix (homogeneous 36³); [api_lorasc] and
+# [api_presc] are the
+# reference's elasticity3d_12x10x10 at the CLI's defaults (lorasc_main:
+# 8 parts, t 4, tol 1e-5, odir_fused, σ correction, b from seed 0), PRESC
+# also with the banded local Schur complements (block_banded_schur).
+API_CLI_OPTS = dict(t=4, tol=1e-5, maxiter=10000, variant="odir_fused")
+API_CASES = {
+    "api_bj": (dict(nx=36, ny=36, nz=36, heterogeneous=False), "block_jacobi", {},
+               dict(t=12, tol=1e-5, maxiter=3000, variant="odir_fused")),
+    "api_lorasc": (dict(nx=12, ny=10, nz=10), "lorasc",
+                   dict(nparts=8, deflation_tol=1e-2, eig_method="direct"), API_CLI_OPTS),
+    "api_presc": (dict(nx=12, ny=10, nz=10), "presc",
+                  dict(nparts=8, deflation_tol=1e-2, eigs_kind="ssloc"), API_CLI_OPTS),
+    "api_presc_banded": (dict(nx=12, ny=10, nz=10), "presc",
+                         dict(nparts=8, deflation_tol=1e-2, eigs_kind="ssloc",
+                              schur_method="banded"), API_CLI_OPTS),
+}
+# the JAX ECGSolver's counts on a CPU (python -m tests.test_torch_anchors
+# --path P --dtype f32|f64; the native partition, JAX's default) and the
+# pairs its LORASC / PRESC build deflates: [api_bj]'s f32 count (held
+# within ANCHOR_BAND); the CLI cases' f64 counts (held ±1) and f32 counts
+# (logged beside the port's: they part with the rounding, ROADMAP A4).
+API_ANCHORS = {
+    "api_bj": 181,
+    "api_lorasc": {"f64": 50, "f32": 4074, "pairs": 27},
+    "api_presc": {"f64": 63, "f32": 2247, "pairs": 27},
+    "api_presc_banded": {"f64": 63, "pairs": 27},
+}
 SHARDED_TIMEOUT = 420      # seconds a spawn of ranks may take before they are killed
 # yardsticks: one H100 SXM's HBM3 rate and f32 rate outside the tensor cores
 # (NVIDIA's data sheet, at the 700 W limit)
@@ -375,6 +460,20 @@ def sharded_formats_problem(name, elasticity3d):
     a = elasticity3d(6, 5, 5)
     seed = 5 if name == "ela_b5" else 42
     return a, np.random.default_rng(seed).standard_normal(a.shape[0])
+
+
+def api_problem(path, elasticity3d):
+    """The (a, b) of an [api_*] phase from either package's generator (they
+    are bitwise equal): API_CASES' elasticity3d, b from default_rng(0) (the
+    CLI's --seed 0)."""
+    import numpy as np
+
+    a = elasticity3d(**API_CASES[path][0])
+    return a, np.random.default_rng(0).standard_normal(a.shape[0])
+
+
+def _size_arg(problem) -> str:
+    return f"{problem['nx']}x{problem['ny']}x{problem['nz']}"
 
 
 def log(msg: str) -> None:
@@ -2262,8 +2361,8 @@ def dlorasc_phase(device="cuda:0"):
     log(f"[dlorasc_large] solve: iters={r0['iters']} relres={r0['relres']:.3e} "
         f"breakdown={r0['breakdown']} TTS {r0['solve_s']:.3f} s (rank 0; 8 ranks "
         f"share one card: not a scaling number); collectives per solve "
-        f"{r0['calls']}; JAX driver on a CPU, Python partition: "
-        f"{DLORASC_LARGE_ANCHOR_ITERS}; the JAX record (native partition): "
+        f"{r0['calls']}; JAX driver on a CPU, native partition: "
+        f"{DLORASC_LARGE_ANCHOR_ITERS}; the JAX record: "
         f"{DLORASC_LARGE_RECORD_ITERS}; spawn {wall_s:.1f} s")
     if not r0["x_ok"] or r0["breakdown"] or not r0["relres"] < 1e-5:
         fail(f"[dlorasc_large] breakdown {r0['breakdown']}, relres "
@@ -2289,23 +2388,330 @@ def dlorasc_phase(device="cuda:0"):
         log(f"[dlorasc_dryrun] {path} mesh {rec['mesh']}: iters={rec['iters']} "
             f"rounds={rec['refine_rounds']} deflated={rec['deflated']} relres="
             f"{rec['relres']:.3e} in {rec['secs']:.2f} s (rank 0); JAX on a CPU at "
-            f"the same mesh: {anchor} iterations, {pairs} pairs; "
+            f"the same mesh: {anchor} iterations, {pairs} pairs; the card's "
+            f"witnessed count: {DLORASC_DRY_CARD_ITERS.get(path, anchor)}; "
             f"MULTICHIP_r05.json: {DLORASC_DRY_R05[path]}")
         if rec["breakdown"] or not rec["relres"] < 1e-4:
             fail(f"[dlorasc_dryrun] {path}: breakdown {rec['breakdown']}, relres "
                  f"{rec['relres']:.3e}")
-        if not within(rec["iters"], anchor):
+        held = DLORASC_DRY_CARD_ITERS.get(path, anchor)
+        if not within(rec["iters"], held):
             fail(f"[dlorasc_dryrun] {path}: {rec['iters']} iterations, outside "
-                 f"{anchor} ± {100 * ANCHOR_BAND:.0f} %")
-        if path == "dry_lorasc_deflation" and rec["deflated"] < 1:
-            fail("[dlorasc_dryrun] the deflation path deflated no pair")
-        dry[path] = dict(rec, anchor_iters=anchor, anchor_pairs=pairs)
+                 f"{held} ± {100 * ANCHOR_BAND:.0f} %")
+        if rec["deflated"] != pairs:
+            fail(f"[dlorasc_dryrun] {path}: {rec['deflated']} pairs deflated, not "
+                 f"JAX's {pairs}")
+        dry[path] = dict(rec, anchor_iters=anchor, anchor_pairs=pairs, held_iters=held)
     large = {k: v for k, v in r0.items() if k not in ("profile_table", "x_sha")}
     large.update(anchor_iters=DLORASC_LARGE_ANCHOR_ITERS,
                  record_iters=DLORASC_LARGE_RECORD_ITERS, busy_share=busy,
                  peak_bytes_per_rank=[r["large"]["peak_bytes"] for r in ranks],
                  spawn_s=wall_s)
     return {"dlorasc_large": large, "dlorasc_dryrun": dry}
+
+
+# --- the native host library and the general-matrix single-device API -----
+
+NATIVE_NEL = 36            # [native]: the partitions of elasticity3d(36³), 8 parts
+NATIVE_PARTS = 8
+
+
+def native_phase():
+    """[native]: the host library built from prealps_tpu_torch/csrc/host
+    (g++, native/Makefile's flags) must load; the k-way partition and the
+    block-arrow structure of elasticity3d(36³) into 8 parts by it and by
+    the Python algorithms (PREALPS_TPU_NO_NATIVE), timed on the host, with
+    their separators."""
+    import numpy as np
+
+    from prealps_tpu_torch import native
+    from prealps_tpu_torch.core import partition
+    from prealps_tpu_torch.core.generators import elasticity3d
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    load_s = time.perf_counter() - t0
+    if not ok:
+        fail(f"[native] the native host library did not load: {native.build_info}")
+    log(f"[native] library {os.path.relpath(native.build_info['path'], HERE)}: "
+        f"g++ {native.build_info['seconds']:.2f} s (load {load_s:.2f} s)")
+    a = elasticity3d(NATIVE_NEL, NATIVE_NEL, NATIVE_NEL)
+    out = {"build_s": native.build_info["seconds"]}
+    kway = partition.kway_partition
+    for name, knob in (("native", None), ("python", "1")):
+        if knob:
+            os.environ["PREALPS_TPU_NO_NATIVE"] = knob
+        seen = {}
+
+        def timed_kway(*args, **kw):   # block_arrow_structure's own k-way call
+            t0 = time.perf_counter()
+            seen["part"] = kway(*args, **kw)
+            seen["kway_s"] = time.perf_counter() - t0
+            return seen["part"]
+
+        partition.kway_partition = timed_kway
+        try:
+            if partition._use_native() != (knob is None):
+                fail(f"[native] the {name} partitioner was not the one that ran")
+            t0 = time.perf_counter()
+            arrow = partition.block_arrow_structure(a, NATIVE_PARTS)
+            arrow_s = time.perf_counter() - t0
+        finally:
+            partition.kway_partition = kway
+            os.environ.pop("PREALPS_TPU_NO_NATIVE", None)
+        sizes = np.bincount(seen["part"], minlength=NATIVE_PARTS)
+        out[name] = {"kway_s": seen["kway_s"], "block_arrow_s": arrow_s,
+                     "sep_size": arrow.sep_size, "part_min": int(sizes.min()),
+                     "part_max": int(sizes.max())}
+        log(f"[native] {name} partitioner, elasticity3d({NATIVE_NEL}³) n={a.shape[0]} "
+            f"into {NATIVE_PARTS}: block_arrow_structure {arrow_s:.2f} s, of which "
+            f"the k-way partition {seen['kway_s']:.2f} s (parts {sizes.min()}–"
+            f"{sizes.max()} rows); separator {arrow.sep_size} rows")
+    if not partition._use_native():
+        fail("[native] the default partitioner is not the native library")
+    return out
+
+
+def _api_operands_on_card(solver, tag):
+    """Every operand of an ECGSolver's solve must live on the card."""
+    ops = solver.operands()
+    off = [k for k, t in ops.items() if t.device.type != "cuda"]
+    if not ops or off:
+        fail(f"[{tag}] operands off the card: {off}")
+    return len(ops)
+
+
+def _pairs(solver) -> int:
+    import torch
+
+    return int(torch.count_nonzero(solver.precond.sigma))
+
+
+def api_bj_phase(dev, a, b):
+    """[api_bj]: [general]'s matrix through api.ECGSolver with host block
+    Jacobi (1024-row blocks), f32 with host-f64 refinement rounds: every
+    operand on the card, a checked solve held to relres < 1e-5 and to the
+    JAX ECGSolver's count on a CPU within ANCHOR_BAND, TTS the median of
+    three more, one solve under torch.profiler."""
+    import numpy as np
+
+    from prealps_tpu_torch.api import ECGSolver
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    problem, precond, kw, opts = API_CASES["api_bj"]
+    anchor = API_ANCHORS["api_bj"]
+    t0 = time.perf_counter()
+    solver = ECGSolver.build(a, opts=ECGOptions(**opts), precond=precond,
+                             dtype=np.float32, device=dev, **kw)
+    build_s = time.perf_counter() - t0
+    n_ops = _api_operands_on_card(solver, "api_bj")
+    log(f"[api_bj] ECGSolver.build(elasticity3d({_size_arg(problem)}), block_jacobi, "
+        f"f32) in {build_s:.2f} s, stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in solver.timings.items()})
+        + f"; ELL width {solver.ell.vals.shape[1]}, block Jacobi nb="
+        f"{solver.precond.factors.shape[0]} mb={solver.precond.factors.shape[1]} "
+        f"mode={solver.precond.mode}; {n_ops} operands, all on the card")
+    info, _, warm_s = checked_solve(solver, a, b, "api_bj")
+    iters = int(info["iters"])
+    timed = timed_solves(solver, b, iters, "api_bj")
+    tts = statistics.median(timed)
+    log(f"[api_bj] warm solve {warm_s:.3f} s: iters={iters} refine_rounds="
+        f"{info['refine_rounds']} relres={info['relres']:.3e}; TTS median of 3 "
+        f"{tts:.4f} s ({[round(v, 4) for v in timed]}), {1e3 * tts / iters:.3f} "
+        f"ms/iteration (the JAX package on a CPU: {anchor} iterations)")
+    if not within(iters, anchor):
+        fail(f"[api_bj] ran {iters} iterations, outside {anchor} ± "
+             f"{100 * ANCHOR_BAND:.0f} %")
+    busy_ms, wall_ms = profile_solve(solver, b, "api_bj")
+    return {"iters": iters, "refine_rounds": info["refine_rounds"],
+            "relres": info["relres"], "warm_s": warm_s, "solve_s": timed,
+            "tts_s": tts, "ms_per_iter": 1e3 * tts / iters, "build_s": build_s,
+            "build_stages_s": solver.timings, "device_busy_ms": busy_ms,
+            "profiled_wall_ms": wall_ms, "anchor_iters": anchor}
+
+
+def _cli_json(argv):
+    """One ``prealps_tpu_torch.cli lorasc`` run: (exit code, its JSON line)."""
+    import contextlib
+    import io
+
+    from prealps_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["lorasc", *argv, "--json"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rec["cli_s"] = time.perf_counter() - t0
+    return rc, rec
+
+
+def api_schur_phases(dev):
+    """[api_lorasc] / [api_presc]: the reference's elasticity3d_12x10x10 at
+    the CLI's defaults through ``python -m prealps_tpu_torch.cli lorasc``
+    on the card, -p lorasc (direct eigensolve) and -p presc (ssloc), in f64
+    (held to JAX's CPU counts ±1, and their ECGSolver builds to JAX's
+    pairs) and in f32 (the card's default: logged beside JAX's counts, held
+    to convergence); then PRESC with the banded local Schur complements
+    (block_banded_schur on the card) through ECGSolver, f64."""
+    import numpy as np
+
+    from prealps_tpu_torch.api import ECGSolver
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    out = {}
+    for path in ("api_lorasc", "api_presc", "api_presc_banded"):
+        problem, precond, kw, opts = API_CASES[path]
+        tag = path
+        a, b = api_problem(path, elasticity3d)
+        anchor = API_ANCHORS[path]
+        rec = {"n": a.shape[0]}
+        if path != "api_presc_banded":
+            for dname in ("f64", "f32"):
+                rc, line = _cli_json([
+                    "-p", precond, "--size", _size_arg(problem), "--nparts",
+                    str(kw["nparts"]), "-e", str(opts["t"]), "-t", str(opts["tol"]),
+                    "--dtype", dname])
+                if rc != 0 or line["breakdown"]:
+                    fail(f"[{tag}] the CLI in {dname} failed: {line}")
+                rec[dname] = line
+                ref = anchor[dname]
+                log(f"[{tag}] cli lorasc -p {precond} --dtype {dname} (--size "
+                    f"{_size_arg(problem)}, 8 parts, t 4, tol 1e-5): "
+                    f"iters={line['iters']} refine_rounds={line.get('refine_rounds')} "
+                    f"relres={line['relres']:.3e} in {line['cli_s']:.2f} s (the JAX "
+                    f"package on a CPU: {ref} iterations)")
+                if dname == "f64" and abs(line["iters"] - ref) > 1:
+                    fail(f"[{tag}] f64 ran {line['iters']} iterations, JAX {ref} ± 1")
+                if not line["relres"] < SOLVE_TOL:
+                    fail(f"[{tag}] {dname} relres {line['relres']:.3e} >= {SOLVE_TOL}")
+                if dname == "f32" and abs(line["iters"] - ref) > 0.1 * ref:
+                    log(f"[{tag}] note: f32 count {line['iters']} differs from JAX's "
+                        f"{ref} by more than 10 % (ROADMAP A4)")
+        t0 = time.perf_counter()
+        solver = ECGSolver.build(a, opts=ECGOptions(**opts), precond=precond,
+                                 dtype=np.float64, device=dev, **kw)
+        build_s = time.perf_counter() - t0
+        _api_operands_on_card(solver, tag)
+        pairs = _pairs(solver)
+        info, _, solve_s = checked_solve(solver, a, b, tag)
+        log(f"[{tag}] ECGSolver f64 on the card: built in {build_s:.2f} s (stages "
+            + json.dumps({k: round(v, 4) for k, v in solver.timings.items()})
+            + f"), ni={solver.precond.ni} ng={solver.precond.ng}, {pairs} pairs "
+            f"(JAX {anchor['pairs']}); iters={info['iters']} (JAX {anchor['f64']}) "
+            f"relres={info['relres']:.3e} in {solve_s:.3f} s")
+        if pairs != anchor["pairs"]:
+            fail(f"[{tag}] {pairs} deflated pairs, JAX {anchor['pairs']}")
+        if abs(int(info["iters"]) - anchor["f64"]) > 1:
+            fail(f"[{tag}] ECGSolver ran {info['iters']} iterations, JAX "
+                 f"{anchor['f64']} ± 1")
+        rec.update(pairs=pairs, build_s=build_s, build_stages_s=solver.timings,
+                   solver_iters=int(info["iters"]), solver_relres=info["relres"],
+                   solve_s=solve_s, anchor=anchor)
+        out[path] = rec
+    return out
+
+
+def api_lanczos_phase(dev):
+    """[api_lanczos]: build_lorasc with the Lanczos eigensolve on the card
+    against the direct pairs of the same build (tests/test_lorasc.py:53-66:
+    at least min(direct, 3) − 1 pairs), with the Ritz values beside the
+    direct eigenvalues."""
+    import numpy as np
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.core.partition import block_arrow_structure
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.precond.lorasc import build_lorasc
+
+    kw = API_CASES["api_lorasc"][2]
+    a, _ = sym_rac_scaling(api_problem("api_lorasc", elasticity3d)[0])
+    arrow = block_arrow_structure(a, kw["nparts"])
+    built = {}
+    for method in ("direct", "lanczos"):
+        t0 = time.perf_counter()
+        lor, _ = build_lorasc(a, arrow=arrow, deflation_tol=kw["deflation_tol"],
+                              eig_method=method, device=dev)
+        built[method] = (lor, time.perf_counter() - t0)
+    (lor_d, d_s), (lor_l, l_s) = built["direct"], built["lanczos"]
+    if lor_l.e_mat.device.type != "cuda":
+        fail("[api_lanczos] the Lanczos pairs are not on the card")
+    nd, nl = int((lor_d.sigma > 0).sum()), int((lor_l.sigma > 0).sum())
+    lam = lambda lor: (kw["deflation_tol"] / (1 + lor.sigma)).cpu().numpy()
+    k = min(nd, nl)
+    gap = float(np.abs(lam(lor_l)[:k] - lam(lor_d)[:k]).max()) if k else 0.0
+    log(f"[api_lanczos] separator {arrow.sep_size} rows: direct {nd} pairs in "
+        f"{d_s:.2f} s, Lanczos (ncv {min(arrow.sep_size, 129)}) {nl} pairs in "
+        f"{l_s:.2f} s on the card; max |λ_lanczos − λ_direct| over the first {k}: "
+        f"{gap:.2e}")
+    if nl < min(nd, 3) - 1:
+        fail(f"[api_lanczos] Lanczos found {nl} pairs, direct {nd}")
+    return {"direct_pairs": nd, "lanczos_pairs": nl, "max_lambda_gap": gap,
+            "direct_s": d_s, "lanczos_s": l_s}
+
+
+def checkpoint_phase(dev):
+    """[checkpoint]: ecg_solve_checkpointed on the card (the [api_lorasc]
+    build in f64, 25 iterations a chunk): a run in chunks, and a run
+    stopped after its first chunk then resumed from its file in this
+    process; each one's count and x equal the straight solve's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.api import ECGSolver
+    from prealps_tpu_torch.core.generators import elasticity3d
+    from prealps_tpu_torch.solvers.checkpoint import ecg_solve_checkpointed, load_state
+    from prealps_tpu_torch.solvers.ecg import ECGOptions, ecg_solve
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_first(it, res):
+        raise Stop
+
+    _, precond, kw, opts = API_CASES["api_lorasc"]
+    s = ECGSolver.build(api_problem("api_lorasc", elasticity3d)[0],
+                        opts=ECGOptions(**opts), precond=precond,
+                        dtype=np.float64, device=dev, **kw)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(s.n)).to(dev)
+    straight = ecg_solve(s.a_apply, s.precond.apply, b, s.opts)
+    chunks, resumed_chunks = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        res = ecg_solve_checkpointed(s.a_apply, s.precond.apply, b, s.opts,
+                                     os.path.join(tmp, "whole.npz"), every=25,
+                                     on_chunk=lambda it, r: chunks.append(it))
+        path = os.path.join(tmp, "state.npz")
+        try:
+            ecg_solve_checkpointed(s.a_apply, s.precond.apply, b, s.opts, path,
+                                   every=25, on_chunk=stop_after_first)
+            fail("[checkpoint] the interrupted solve was not stopped")
+        except Stop:
+            pass
+        half, _ = load_state(path, device=dev)
+        resumed = ecg_solve_checkpointed(
+            s.a_apply, s.precond.apply, b, s.opts, path, every=25,
+            on_chunk=lambda it, r: resumed_chunks.append(it))
+    same = bool(torch.equal(res.x, straight.x))
+    same_resumed = bool(torch.equal(resumed.x, straight.x))
+    log(f"[checkpoint] {len(chunks)} chunks at iterations {chunks}: {res.iters} "
+        f"iterations, x bitwise equal to the straight solve's ({straight.iters}): "
+        f"{same}; stopped at iteration {half.it}, resumed through {resumed_chunks}: "
+        f"{resumed.iters} iterations, x bitwise equal: {same_resumed}")
+    if res.iters != straight.iters or not same:
+        fail("[checkpoint] the solve in chunks differs from the straight one")
+    if half.it != 25 or half.mask.device.type != "cuda" or len(resumed_chunks) < 1:
+        fail(f"[checkpoint] the interrupted solve's file holds iteration {half.it} "
+             f"on {half.mask.device}, not 25 on the card")
+    if resumed.iters != straight.iters or not same_resumed:
+        fail("[checkpoint] the resumed solve differs from the straight one")
+    if res.x.device.type != "cuda" or resumed.x.device.type != "cuda" or len(chunks) < 2:
+        fail("[checkpoint] the solve did not run in chunks on the card")
+    return {"chunks": chunks, "iters": int(res.iters), "bitwise": same,
+            "stopped_at": int(half.it), "resumed_chunks": resumed_chunks,
+            "resumed_iters": int(resumed.iters), "resumed_bitwise": same_resumed}
 
 
 def main() -> int:
@@ -2359,6 +2765,9 @@ def main() -> int:
         for line in binfo["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build] {line.strip()}")
+
+    # --- 2a. the native host library: built, loaded, timed ---
+    native_rec = native_phase()
 
     # --- 3. main path build at full size ---
     nel = 36
@@ -2569,6 +2978,11 @@ def main() -> int:
     b6 = [check_bj_apply(bsolver.operands.inv_f, 3, 12, seed=21)]
     del bsolver
 
+    # --- 12a-12d. the general-matrix single-device API and its CLI ---
+    api_paths = {"api_bj": api_bj_phase(dev, a, b), **api_schur_phases(dev),
+                 "api_lanczos": api_lanczos_phase(dev),
+                 "checkpoint": checkpoint_phase(dev)}
+
     # --- 13-15. the single-GPU LORASC path, with B2a and B2b, on the het
     # operator that phases 16-19 share ---
     t0 = time.perf_counter()
@@ -2628,7 +3042,7 @@ def main() -> int:
         "auto_path": auto_path, "spmm_sweep": spmm_recs, **a1_paths,
         "sharded_nccl1": nccl1, "sharded4": sharded4, "sharded_dryrun": dryrun,
         **dlorasc, "sharded_general4": sharded_general4, "sharded_dia4": sharded_dia4,
-        "sharded_formats": sharded_formats,
+        "sharded_formats": sharded_formats, "native": native_rec, **api_paths,
         "total_s": time.perf_counter() - t_start}))
 
     def entry(name, source, replaces, launches_, recs):

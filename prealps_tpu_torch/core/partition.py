@@ -10,19 +10,33 @@ ordering, and the BFS pseudo-coordinates and Morton order of
 ``fmt="auto"``'s block clustering. ``tests/test_torch_general_host.py``,
 ``tests/test_torch_dia_host.py``, ``tests/test_torch_partition_kway.py``
 and ``tests/test_torch_arrow_host.py`` hold them bitwise equal to the
-originals (the k-way partition and the separator to the JAX Python
-versions: the JAX package's native C++ code, which it prefers where built,
-gives other parts).
+originals. As in the JAX package, the k-way partition and the separator
+of ``block_arrow_structure`` run the native host library
+(``prealps_tpu_torch/native.py``, a copy of ``native/graph.cpp``) when it
+loads, unless ``PREALPS_TPU_NO_NATIVE`` is set, and the Python algorithms
+otherwise; ``tests/test_torch_native.py`` holds the native results bitwise
+equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import heapq
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
 from scipy.sparse.csgraph import dijkstra, reverse_cuthill_mckee
+
+
+def _use_native() -> bool:
+    """The native library's branch: off under ``PREALPS_TPU_NO_NATIVE``, or
+    when the library cannot be built or loaded (the JAX rule)."""
+    if os.environ.get("PREALPS_TPU_NO_NATIVE"):
+        return False
+    from prealps_tpu_torch import native
+
+    return native.available()
 
 
 def nsplit(n: int, k: int) -> np.ndarray:
@@ -152,7 +166,11 @@ def kway_partition(a: sp.spmatrix, k: int, refine_passes: int = 8) -> np.ndarray
     """Partition the graph of A into k parts; returns the part id of each
     vertex. Recursive bisection into floor / ceil halves of k (any k): a
     BFS-ordered split at the ka/kk fraction, or ``_bisect`` where two parts
-    remain. Deterministic."""
+    remain. Deterministic. The native library's version when it loads."""
+    if _use_native():
+        from prealps_tpu_torch import native
+
+        return native.kway_partition(a, k, refine_passes)
     adj = _adjacency(a)
     n = adj.shape[0]
     part = np.zeros(n, dtype=np.int64)
@@ -289,10 +307,14 @@ def block_arrow_structure(a: sp.spmatrix, k: int,
     The JAX loop finds it with an argsort of every degree per pick; here a
     lazy max-heap keyed on (-degree, index) does (degrees only fall, so an
     entry whose degree is stale is skipped), which picks the same vertex
-    each time."""
+    each time. The native library's separator when it loads."""
+    part = kway_partition(a, k, refine_passes)
+    if _use_native():
+        from prealps_tpu_torch import native
+
+        return _finish_block_arrow(part, native.vertex_separator(a, part), k)
     adj = _adjacency(a)
     n = adj.shape[0]
-    part = kway_partition(a, k, refine_passes)
     coo = sp.triu(adj, k=1).tocoo()
     cut = part[coo.row] != part[coo.col]
     cu, cv = coo.row[cut].astype(np.int64), coo.col[cut].astype(np.int64)

@@ -25,8 +25,10 @@ The two-level solve (``prepare_two_level``, ``block_banded_solve_two_level``)
 shares each step's GEMMs between the L ranks of a process group, each
 holding bs/L rows of every factor block: one all-gather in the group per
 block step, forward and backward (the distributed LORASC's interior
-solves). ``block_banded_schur`` (PRESC on general matrices) is not ported
-(ROADMAP.md queue A, item 7).
+solves). ``block_banded_schur`` is the factor recursion stopped one block
+early plus one dense Schur complement on the last block: the exact Schur
+complement onto the trailing rows, which PRESC's banded local Schur
+complements (``precond/presc.py``) take.
 
 The factors may be stored in bf16 (LORASC's ``factor_store="bf16"``) while
 the vectors stay f32. The solves then compute what the JAX package's mixed
@@ -304,3 +306,53 @@ def block_banded_solve_two_level(fac2: BlockBandedCholesky2L, v: torch.Tensor,
         nxt = gather(fac2.l_inv_t[:, i] @ y[i] - fac2.w_bwd[:, i] @ nxt)
         w[i] = nxt
     return torch.stack(w, dim=1)
+
+
+# --- partial factorization with Schur output --------------------------------
+
+
+def _chol_flagged(s: torch.Tensor):
+    """Lower Cholesky factor of sym(s) with a per-batch failure flag; a
+    failed factor is zeroed (the JAX version's NaN mapping)."""
+    l, info = torch.linalg.cholesky_ex(0.5 * (s + s.mT))
+    ok = (info == 0)[:, None, None]
+    return torch.where(ok, l, torch.zeros_like(l)), bool((info != 0).any())
+
+
+def block_banded_schur(d: torch.Tensor, e: torch.Tensor, n_schur: int,
+                       shift: float = 0.0):
+    """Exact Schur complement of the batched block-banded SPD matrix (D, E)
+    onto its trailing n_schur rows (0 < n_schur ≤ bs: the Schur rows live
+    in the last block). The factor recursion runs over the leading nblk − 1
+    blocks, corrects the last diagonal block, and one dense Schur
+    complement of that block onto its trailing rows follows.
+
+    Returns (schur, failed): schur (P, n_schur, n_schur), symmetric, and
+    whether a factor failed (not SPD)."""
+    P, nblk, bs, _ = d.shape
+    if not (0 < n_schur <= bs):
+        raise ValueError(f"n_schur must be in (0, {bs}], got {n_schur}")
+    dtype, dev = d.dtype, d.device
+    if shift:
+        d = d + shift * torch.diag_embed(torch.diagonal(d, dim1=-2, dim2=-1))
+    eye = torch.eye(bs, dtype=dtype, device=dev).expand(P, bs, bs)
+    bad = False
+    l_inv_prev = torch.zeros((P, bs, bs), dtype=dtype, device=dev)
+    for i in range(nblk - 1):
+        m_i = e[:, i] @ l_inv_prev.mT
+        l_i, fail = _chol_flagged(d[:, i] - m_i @ m_i.mT)
+        bad |= fail
+        l_inv_prev = torch.linalg.solve_triangular(l_i, eye, upper=False)
+    d_last = d[:, -1]
+    if nblk > 1:
+        m_last = e[:, -1] @ l_inv_prev.mT
+        d_last = d_last - m_last @ m_last.mT
+    k = bs - n_schur
+    if k == 0:
+        schur = d_last
+    else:
+        l11, fail = _chol_flagged(d_last[:, :k, :k])
+        bad |= fail
+        w = torch.linalg.solve_triangular(l11, d_last[:, k:, :k].mT, upper=False)
+        schur = d_last[:, k:, k:] - w.mT @ w
+    return 0.5 * (schur + schur.mT), bad

@@ -4,22 +4,34 @@
 operands another build produced (the JAX ``DistributedECG``'s, handed over
 as numpy arrays), skipping the port's own build; ``lorasc_from_reference``
 does the same for a JAX ``ScalableLorasc`` and
-``distributed_lorasc_from_reference`` for a JAX ``DistributedLorascECG``. Both packages can then solve on
-identical operands (for LORASC: identical deflation pairs, which an f32
-Lanczos does not reproduce across implementations), which separates solver
-parity from build parity in the tests.
+``distributed_lorasc_from_reference`` for a JAX ``DistributedLorascECG``
+and ``ecg_solver_from_reference`` for the single-device ``ECGSolver``.
+Both packages can then solve on identical operands (for LORASC:
+identical deflation pairs, which an f32 Lanczos does not reproduce across
+implementations), which separates solver parity from build parity in the
+tests.
+
+The scipy adapters (the counterpart of the reference's PETSc interface,
+used for comparison baselines) wrap a built solver or a preconditioner
+apply as a ``scipy.sparse.linalg.LinearOperator``, and
+``ecg_vs_scipy_cg`` sets ECG beside scipy's CG on the same system.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 import torch
 
+from prealps_tpu_torch.api import ECGSolver
 from prealps_tpu_torch.config import resolve_device, strict_fp32
 from prealps_tpu_torch.core.layout import RowLayout
 from prealps_tpu_torch.direct.banded import BlockBandedCholesky, BlockBandedCholesky2L
 from prealps_tpu_torch.direct.device_bj import block_groups
+from prealps_tpu_torch.direct.subdomain import DenseCholesky
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
     DiaEllMatrix,
@@ -44,6 +56,7 @@ from prealps_tpu_torch.parallel.lorasc_driver import (
 from prealps_tpu_torch.parallel.mesh import mesh_groups, rank_of, shard_device, size_of
 from prealps_tpu_torch.precond.block_jacobi import BlockJacobi
 from prealps_tpu_torch.precond.chebyshev import Chebyshev
+from prealps_tpu_torch.precond.lorasc import Lorasc
 from prealps_tpu_torch.precond.lorasc_scale import ArrowBandPlan, ScalableLorasc
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 
@@ -345,3 +358,103 @@ def distributed_lorasc_from_reference(arrays: dict, meta: dict, device="cuda",
         deflated=int(meta["deflated"]), geo=geo, ops=ops, device=device,
         group=group, local=local, target_tol=float(meta["target_tol"]),
         a_scaled=None if a_scaled is None else sp.csr_matrix(a_scaled))
+
+
+def ecg_solver_from_reference(fields: dict, meta: dict, device="cuda") -> ECGSolver:
+    """Port ``ECGSolver`` on a JAX single-device build's operands.
+
+    fields — numpy arrays: the operator ``ell_vals``, ``ell_cols`` (the
+      scaled, permuted matrix in ELL); ``a_solver`` (that matrix as scipy
+      CSR, or None: no refinement); ``perm`` and ``scale_d`` (or None);
+      for block Jacobi ``bj_factors``, ``bj_gather_idx``, ``bj_inv_perm``;
+      for LORASC and PRESC ``aii_factors``, ``aii_gather_idx``,
+      ``aii_inv_perm``, ``agg_factor``, ``aig_vals``, ``aig_cols``,
+      ``agi_vals``, ``agi_cols``, ``e_mat`` and ``sigma``;
+    meta — ``precond`` ("block_jacobi", "lorasc", "presc" or "none"),
+      ``bj_mode``, ``ni``, ``ng``, ``n``, ``dtype``, ``target_tol`` and
+      ``opts`` (dict of ECGOptions fields as the reference holds them after
+      build)."""
+    dev = resolve_device(device)
+    strict_fp32()
+    n = int(meta["n"])
+    t = lambda name, dtype=None: _tensor(fields[name], dtype).to(dev)
+
+    def ell(pre, ncols):
+        vals = t(f"{pre}_vals")
+        return EllMatrix(vals, t(f"{pre}_cols", np.int32), (vals.shape[0], ncols))
+
+    kind = meta["precond"]
+    m_obj = None
+    if kind in ("block_jacobi", "bj"):
+        m_obj = BlockJacobi(t("bj_factors"), t("bj_gather_idx", np.int64),
+                            t("bj_inv_perm", np.int64), mode=meta["bj_mode"])
+    elif kind in ("lorasc", "presc"):
+        ni, ng = int(meta["ni"]), int(meta["ng"])
+        m_obj = Lorasc(
+            aii_solver=BlockJacobi(t("aii_factors"), t("aii_gather_idx", np.int64),
+                                   t("aii_inv_perm", np.int64), mode="cholesky"),
+            agg_solver=DenseCholesky(t("agg_factor")),
+            aig=ell("aig", ng), agi=ell("agi", ni), e_mat=t("e_mat"),
+            sigma=t("sigma"), ni=ni, ng=ng)
+    a_solver = fields.get("a_solver")
+    perm, scale_d = fields.get("perm"), fields.get("scale_d")
+    return ECGSolver(
+        opts=ECGOptions(**meta["opts"]), ell=ell("ell", n), precond=m_obj,
+        dtype=np.dtype(meta["dtype"]), device=dev, n=n,
+        target_tol=float(meta["target_tol"]),
+        perm=None if perm is None else np.asarray(perm),
+        scale_d=None if scale_d is None else np.asarray(scale_d),
+        a_solver=None if a_solver is None else sp.csr_matrix(a_solver))
+
+
+def as_scipy_linear_operator(solver) -> spla.LinearOperator:
+    """A built solver (``ECGSolver``, ``DistributedECG`` on one shard,
+    ``StencilLorascECG``) as a scipy LinearOperator computing A⁻¹ b."""
+    n = solver.layout.n if hasattr(solver, "layout") else solver.n
+
+    def matvec(b):
+        x, _ = solver.solve(np.asarray(b).ravel())
+        return x
+
+    return spla.LinearOperator((n, n), matvec=matvec, dtype=np.float64)
+
+
+def precond_as_scipy(m_apply, n: int, device="cuda",
+                     dtype=torch.float64) -> spla.LinearOperator:
+    """An (n, t) panel preconditioner apply as a scipy LinearOperator (for
+    scipy.sparse.linalg.cg's ``M``); the vector goes to ``device`` (the
+    preconditioner's; "cuda" unless named) in ``dtype`` and back."""
+    dev = resolve_device(device)
+
+    def matvec(v):
+        z = torch.from_numpy(np.asarray(v, dtype=np.float64).reshape(n, 1))
+        return m_apply(z.to(device=dev, dtype=dtype)).cpu().numpy().astype(np.float64).ravel()
+
+    return spla.LinearOperator((n, n), matvec=matvec, dtype=np.float64)
+
+
+def ecg_vs_scipy_cg(a: sp.spmatrix, b: np.ndarray, tol: float = 1e-6,
+                    t: int = 4, maxiter: int = 10000, device="cuda"):
+    """scipy CG and ECG with block Jacobi (on ``device``) on the same
+    system: iteration counts, true relative residuals and wall times (the
+    reference's test_ecg_bench_petsc_pcg)."""
+    it = {"cg": 0}
+
+    def cb(_):
+        it["cg"] += 1
+
+    t0 = time.time()
+    x_cg, _ = spla.cg(a, b, rtol=tol, maxiter=maxiter, callback=cb)
+    cg_time = time.time() - t0
+    solver = ECGSolver.build(a, opts=ECGOptions(t=t, tol=tol, maxiter=maxiter),
+                             precond="block_jacobi", device=device)
+    t0 = time.time()
+    x_ecg, ecg_info = solver.solve(b)
+    ecg_time = time.time() - t0
+    nb = np.linalg.norm(b)
+    return {"cg_iters": it["cg"],
+            "cg_relres": float(np.linalg.norm(b - a @ x_cg) / nb),
+            "cg_time": cg_time,
+            "ecg_iters": ecg_info["iters"],
+            "ecg_relres": float(np.linalg.norm(b - a @ x_ecg) / nb),
+            "ecg_time": ecg_time}

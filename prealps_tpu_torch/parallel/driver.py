@@ -182,6 +182,7 @@ from prealps_tpu_torch.precond.twolevel import (
     translation_modes,
 )
 from prealps_tpu_torch.solvers.ecg import ECGOptions, ECGResult, ecg_solve
+from prealps_tpu_torch.solvers.refine import INNER_TOL, STALL_RATIO, STALL_WINDOW
 
 MAX_REFINE_ROUNDS = 8
 Q_MODES = 6          # rigid-body coarse modes per block (3-D elasticity)
@@ -1006,7 +1007,7 @@ class DistributedECG:
         fmt: str = "ell",
         br: int = 3,
         refine: Optional[bool] = None,
-        inner_tol: float = 1e-3,
+        inner_tol: float = INNER_TOL,
         cheb_degree: int = 8,
         cheb_kappa: float = 30.0,
         bj_dtype: str = "f32",
@@ -1080,7 +1081,7 @@ class DistributedECG:
             # inner solves stop on stagnation: an early stop just hands the
             # remaining work to the next refinement round
             opts = replace(opts, tol=inner_tol,
-                           stall_window=opts.stall_window or 250)
+                           stall_window=opts.stall_window or STALL_WINDOW)
         lane_major = opts.layout == "tbn"
         # a pinned partition's rows pad to the format's row multiple and,
         # for the device block Jacobi of DIA, to whole blocks
@@ -1188,7 +1189,7 @@ class DistributedECG:
             xh, xl = df_add((xh, xl), (res.x, torch.zeros_like(res.x)))
             r, _ = resid(xh, xl)
             relres2 = gnorm(r) / normb
-            stop = bool((relres2 <= tol_s) | (relres2 > 0.9 * relres)
+            stop = bool((relres2 <= tol_s) | (relres2 > STALL_RATIO * relres)
                         | torch.isnan(relres2)) or res.breakdown
             relres = relres2
             it_tot += res.iters
@@ -1262,7 +1263,7 @@ class DistributedECG:
                 relres = np.linalg.norm(r) / normb
                 if relres <= self.target_tol:
                     break
-                if relres > 0.9 * prev_relres:
+                if relres > STALL_RATIO * prev_relres:
                     break  # no meaningful progress: at the f32 floor
                 prev_relres = relres
                 dx, info = self._solve_scaled_once(r)

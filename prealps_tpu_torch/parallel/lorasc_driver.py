@@ -82,7 +82,7 @@ from prealps_tpu_torch.parallel.mesh import (
     size_of,
 )
 from prealps_tpu_torch.solvers.ecg import ECGOptions, ecg_solve
-from prealps_tpu_torch.solvers.refine import refine_solve
+from prealps_tpu_torch.solvers.refine import INNER_TOL, STALL_WINDOW, refine_solve
 
 # operand names by how the JAX build shards them (its ``specs``)
 FLAT_ROWS = ("ell_vals", "ell_cols", "w_lift")               # P((AXIS, LOC))
@@ -399,7 +399,7 @@ class DistributedLorascECG:
         scale: bool = True,
         dtype=None,
         refine: Optional[bool] = None,
-        inner_tol: float = 1e-3,
+        inner_tol: float = INNER_TOL,
         mesh_shape: Optional[tuple] = None,
         shift: float = 0.0,
         eig_resid_tol: float = 0.03,
@@ -448,7 +448,8 @@ class DistributedLorascECG:
         if refine is None:
             refine = dtype == np.float32 and opts.tol < inner_tol
         if refine:
-            opts = replace(opts, tol=inner_tol, stall_window=opts.stall_window or 250)
+            opts = replace(opts, tol=inner_tol,
+                           stall_window=opts.stall_window or STALL_WINDOW)
 
         def share(fn):
             return broadcast(fn() if rank == 0 else None, group)

@@ -66,7 +66,8 @@ from prealps_tpu_torch.solvers.ecg import (
     ecg_init,
     ecg_run,
 )
-from prealps_tpu_torch.solvers.refine import refine_solve
+from prealps_tpu_torch.solvers.refine import (INNER_TOL, STALL_RATIO, STALL_WINDOW,
+                                              refine_solve)
 
 
 @dataclass
@@ -97,7 +98,7 @@ class StencilLorascECG:
         scale: bool = True,
         dtype=None,
         refine: Optional[bool] = None,
-        inner_tol: float = 1e-3,
+        inner_tol: float = INNER_TOL,
         shift: float = 0.0,
         pencil: str = "agg",
         host_refine: bool | None = None,
@@ -132,7 +133,7 @@ class StencilLorascECG:
             refine = dtype == np.float32 and opts.tol < inner_tol
         if refine:
             opts = replace(opts, tol=inner_tol,
-                           stall_window=opts.stall_window or 250)
+                           stall_window=opts.stall_window or STALL_WINDOW)
         if precond is None:
             a_t = csr_to_stencil_bsr_t(a, br=br, dtype=dtype, device=device)
             if a_t is None:
@@ -164,7 +165,7 @@ class StencilLorascECG:
                    precond=precond, device=device, target_tol=target_tol,
                    a_scaled=a if refine else None)
 
-    def with_tol(self, tol: float, inner_tol: float = 1e-3,
+    def with_tol(self, tol: float, inner_tol: float = INNER_TOL,
                  refine: Optional[bool] = None) -> "StencilLorascECG":
         """A solver at another target tolerance sharing this built
         preconditioner (the LORASC build does not depend on the tolerance)."""
@@ -176,7 +177,7 @@ class StencilLorascECG:
                              "refined original build")
         opts = replace(
             self.opts, tol=inner_tol if refine else tol,
-            stall_window=self.opts.stall_window or (250 if refine else 0))
+            stall_window=self.opts.stall_window or (STALL_WINDOW if refine else 0))
         return replace(self, opts=opts, target_tol=tol,
                        a_scaled=self.a_scaled if refine else None)
 
@@ -252,7 +253,7 @@ class StencilLorascECG:
         total_iters, rounds, breakdown = 0, 0, False
         for _ in range(max_refine_rounds):
             relres = rnorm / normb0 if normb0 else 0.0
-            if relres <= self.target_tol or relres > 0.9 * prev_relres:
+            if relres <= self.target_tol or relres > STALL_RATIO * prev_relres:
                 break
             prev_relres = relres
             res = self._ecg(r2[0])

@@ -26,8 +26,9 @@ block Jacobi with 240-row blocks, t 12 on ``nt``, f32; the JAX side runs
 ``dry_*`` paths are ``__graft_entry__.dryrun_multichip``'s three
 DistributedECG solves (nel 8, heterogeneous, RAC-scaled before the build,
 t 2, tol 1e-6, f32 here as on the card; ``[sharded_dryrun]``). The k-way
-partition of ``dry_ell_bj`` runs the JAX package's Python algorithm
-(``PREALPS_TPU_NO_NATIVE=1``), the one the port copies.
+and block-arrow partitions run the JAX package's Python algorithm
+(``PREALPS_TPU_NO_NATIVE=1``) unless ``--native`` asks for its native
+library, both packages' default, whose counts chip_smoke.py holds.
 
 ``--path sharded_formats`` runs the four small f64 paths of
 chip_smoke.py's ``[sharded_formats]`` (``chip_smoke.SHARDED_FORMATS``:
@@ -36,18 +37,25 @@ DIA on ``nt``, each at its own nshards) and prints one JSON line each.
 
 The distributed LORASC phases (``[dlorasc_large]``, ``[dlorasc_dryrun]``)
 take theirs from the JAX ``DistributedLorascECG`` over ``--nshards`` groups
-or a ``--mesh G,L``, with the Python block-arrow partition:
+or a ``--mesh G,L``:
 
-    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dlorasc_large --nshards 8
-    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dry_lorasc_2level --mesh 4,2
+    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dlorasc_large --nshards 8 --native
+    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path dry_lorasc_2level --mesh 4,2 --native
 
 ``dlorasc_large`` is ``examples/demo_large_separator.py``'s configuration
 (heterogeneous elasticity3d 32³, f64, t 4 odir_fused, tol 1e-5); the
 ``dry_lorasc*`` paths are dryrun_multichip's three LORASC builds.
+
+The single-device API phases (``[api_bj]``, ``[api_lorasc]``,
+``[api_presc]``, ``[api_presc_banded]``: ``chip_smoke.API_CASES``) take
+theirs from the JAX ``ECGSolver`` with its default (native) partition:
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_anchors --path api_lorasc --dtype f64
 """
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -107,8 +115,9 @@ DRYRUN_LORASC = {
 }
 LARGE_NEL = 32
 SHARDED = ("sharded4", "sharded_general4", "sharded_dia4")
+API = ("api_bj", "api_lorasc", "api_presc", "api_presc_banded")
 PATHS = ("dia", "cheb", "dedup", "bj2l_nogrid", *SHARDED, "sharded_formats", *DRYRUN,
-         "dlorasc_large", *DRYRUN_LORASC)
+         "dlorasc_large", *DRYRUN_LORASC, *API)
 
 
 def dryrun_problem(elasticity3d, sym_rac_scaling, nel=DRYRUN_NEL, dtype=np.float32):
@@ -164,15 +173,25 @@ def sharded_config(path: str, nel: int):
     raise ValueError(f"unknown path {path!r}")
 
 
-def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> dict:
+def set_partitioner(native: bool) -> str:
+    """The JAX package's k-way and block-arrow partitioner for an anchor:
+    its native library (its default, and the port's) or its Python
+    algorithm (``PREALPS_TPU_NO_NATIVE=1``). Returns its name."""
+    if native:
+        os.environ.pop("PREALPS_TPU_NO_NATIVE", None)
+        return "native"
+    os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
+    return "python"
+
+
+def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32,
+                       native: bool = False) -> dict:
     """The JAX driver's solve of a sharded chip_smoke phase over
     ``nshards`` CPU devices: a full-size one (``sharded_config``) or a
     dryrun path."""
-    import os
-
     from prealps_tpu.core.scaling import sym_rac_scaling
 
-    os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
+    partitioner = set_partitioner(native)
     if path in SHARDED:
         a, b = _problem(nel)
         kw, opts = sharded_config(path, nel)
@@ -186,6 +205,7 @@ def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> d
     x, info = s.solve(b)
     return {"path": path, "nel": nel if path in SHARDED else DRYRUN_NEL,
             "nshards": nshards, "dtype": np.dtype(kw["dtype"]).name,
+            "partitioner": partitioner,
             "n": a.shape[0], "n_pad": s.layout.n_pad,
             "iters": int(info["iters"]),
             "refine_rounds": int(info.get("refine_rounds", 0)),
@@ -194,21 +214,20 @@ def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32) -> d
             "solve_s": time.perf_counter() - t0}
 
 
-def jax_formats_anchors() -> list:
+def jax_formats_anchors(native: bool = False) -> list:
     """The JAX driver's solve of each [sharded_formats] path at its own
     nshards (``chip_smoke.SHARDED_FORMATS``)."""
-    import os
-
     import chip_smoke
 
-    os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
+    partitioner = set_partitioner(native)
     out = []
     for name, (nshards, problem, kw, opts) in chip_smoke.SHARDED_FORMATS.items():
         a, b = chip_smoke.sharded_formats_problem(problem, elasticity3d)
         s = JaxECG.build(a, nshards=nshards, opts=JaxOptions(**opts),
                          dtype=np.float64, **kw)
         x, info = s.solve(b)
-        out.append({"path": name, "nshards": nshards, "n": a.shape[0],
+        out.append({"path": name, "nshards": nshards, "partitioner": partitioner,
+                    "n": a.shape[0],
                     "n_pad": s.layout.n_pad, "iters": int(info["iters"]),
                     "chosen": (s.fmt_info or {}).get("chosen"),
                     "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
@@ -235,14 +254,13 @@ def lorasc_case(path: str, mesh: tuple, dtype=np.float32):
         t=2, tol=1e-6, maxiter=6000, variant=variant))
 
 
-def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32) -> dict:
+def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32,
+                      native: bool = False) -> dict:
     """The JAX DistributedLorascECG's build and solve of a distributed
-    LORASC path over ``mesh`` CPU devices (Python block-arrow partition)."""
-    import os
-
+    LORASC path over ``mesh`` CPU devices."""
     from prealps_tpu.parallel.lorasc_driver import DistributedLorascECG as JaxLorasc
 
-    os.environ["PREALPS_TPU_NO_NATIVE"] = "1"
+    partitioner = set_partitioner(native)
     (a, b), kw = lorasc_case(path, mesh, dtype)
     opts = JaxOptions(**kw.pop("opts"))
     t0 = time.perf_counter()
@@ -251,6 +269,7 @@ def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32) -> dict:
     t0 = time.perf_counter()
     x, info = s.solve(b)
     return {"path": path, "mesh": list(mesh), "dtype": np.dtype(kw["dtype"]).name,
+            "partitioner": partitioner,
             "n": a.shape[0], "ng_max": int(s.ng_max),
             "sep_padded_rows": int(s.ng_max * s.ngroups),
             "deflated": int(s.deflated), "iters": int(info["iters"]),
@@ -258,6 +277,38 @@ def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32) -> dict:
             "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
             "breakdown": bool(info["breakdown"]), "build_s": build_s,
             "solve_s": time.perf_counter() - t0}
+
+
+def jax_api_anchor(path: str, dtype=np.float32) -> dict:
+    """The JAX ``ECGSolver``'s build and solve of a chip_smoke [api_*]
+    phase (``chip_smoke.API_CASES``; the native partitioner, the JAX
+    default), with the pairs its LORASC / PRESC build deflates."""
+    import chip_smoke
+    from prealps_tpu.api import ECGSolver as JaxSolver
+    from prealps_tpu.core.scaling import sym_rac_scaling
+
+    set_partitioner(True)
+    problem, precond, kw, opts = chip_smoke.API_CASES[path]
+    a, b = chip_smoke.api_problem(path, elasticity3d)
+    t0 = time.perf_counter()
+    s = JaxSolver.build(a, opts=JaxOptions(**opts), precond=precond, dtype=dtype, **kw)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = s.solve(b)
+    out = {"path": path, "problem": problem, "dtype": np.dtype(dtype).name,
+           "n": a.shape[0], "iters": int(info["iters"]),
+           "refine_rounds": int(info.get("refine_rounds", 0)),
+           "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+           "breakdown": bool(info["breakdown"]), "build_s": build_s,
+           "solve_s": time.perf_counter() - t0}
+    if precond in ("lorasc", "presc"):
+        from prealps_tpu.precond.lorasc import build_lorasc
+        from prealps_tpu.precond.presc import build_presc
+
+        build = build_lorasc if precond == "lorasc" else build_presc
+        m, _ = build(sym_rac_scaling(a)[0], dtype=dtype, **kw)
+        out["deflated"] = int(np.count_nonzero(np.asarray(m.sigma)))
+    return out
 
 
 def jax_dia_anchor(nel: int) -> dict:
@@ -392,20 +443,49 @@ if __name__ == "__main__":
                     help="the dry_* paths' type (the card runs f32 on the stencil)")
     ap.add_argument("--mesh", default=None,
                     help="G,L: the distributed LORASC paths' (groups, local) mesh")
+    ap.add_argument("--native", action="store_true",
+                    help="partition with the JAX package's native library (its "
+                         "default and the port's) instead of its Python algorithm")
     args = ap.parse_args()
     mesh = (tuple(int(v) for v in args.mesh.split(",")) if args.mesh
             else (args.nshards, 1))
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", max(8, mesh[0] * mesh[1]))
     jax.config.update("jax_enable_x64", True)
+    dtype = np.float32 if args.dtype == "f32" else np.float64
     if args.path == "dlorasc_large" or args.path in DRYRUN_LORASC:
-        dtype = np.float32 if args.dtype == "f32" else np.float64
-        print(json.dumps(jax_lorasc_anchor(args.path, mesh, dtype)))
+        print(json.dumps(jax_lorasc_anchor(args.path, mesh, dtype, args.native)))
     elif args.path == "sharded_formats":
-        for rec in jax_formats_anchors():
+        for rec in jax_formats_anchors(args.native):
             print(json.dumps(rec))
     elif args.path in SHARDED or args.path in DRYRUN:
-        dtype = np.float32 if args.dtype == "f32" else np.float64
-        print(json.dumps(jax_sharded_anchor(args.path, args.nel, args.nshards, dtype)))
+        print(json.dumps(jax_sharded_anchor(args.path, args.nel, args.nshards, dtype,
+                                            args.native)))
+    elif args.path in API:
+        print(json.dumps(jax_api_anchor(args.path, dtype)))
     else:
         print(json.dumps(jax_anchor(args.path, args.nel, args.block_size)))
+
+
+def test_api_cases_are_the_cli_defaults():
+    """chip_smoke's [api_lorasc] / [api_presc] cases are the reference's
+    elasticity3d_12x10x10 at the CLI's defaults, in both packages' CLIs."""
+    import chip_smoke
+    from prealps_tpu import cli as jcli
+    from prealps_tpu_torch import cli as tcli
+
+    for cli in (jcli, tcli):
+        args = cli._common_parser("").parse_args([])
+        assert args.size == "12x10x10" and args.generate == "ela"
+        assert dict(t=args.t, tol=args.tol, maxiter=args.maxiter,
+                    variant=args.ortho_alg) == chip_smoke.API_CLI_OPTS
+    assert set(API) == set(chip_smoke.API_CASES) == set(chip_smoke.API_ANCHORS)
+    for path in ("api_lorasc", "api_presc", "api_presc_banded"):
+        problem, precond, kw, opts = chip_smoke.API_CASES[path]
+        assert problem == dict(nx=12, ny=10, nz=10) and opts is chip_smoke.API_CLI_OPTS
+        assert kw["nparts"] == 8 and kw["deflation_tol"] == 1e-2
+    # [api_bj] runs [general]'s matrix, the homogeneous 36³ operator
+    a, b = chip_smoke.api_problem("api_bj", elasticity3d)
+    a_g = elasticity3d(36, 36, 36, heterogeneous=False)
+    assert (a != a_g).nnz == 0
+    np.testing.assert_array_equal(b, np.random.default_rng(0).standard_normal(a.shape[0]))

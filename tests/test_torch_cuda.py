@@ -1029,3 +1029,62 @@ def test_distributed_lorasc_on_card_matches_cpu(cuda_device, tmp_path):
     assert not info_g["breakdown"]
     assert abs(info_g["iters"] - info_c["iters"]) <= 1
     assert np.linalg.norm(x_g - x_c) <= 1e-8 * np.linalg.norm(x_c)
+
+
+# --- the general-matrix single-device API (api.ECGSolver) on the card ------
+
+API_CASES = {"block_jacobi": ("block_jacobi", dict(nblocks=8)),
+             "lorasc": ("lorasc", dict(nparts=4)), "presc": ("presc", dict(nparts=4)),
+             "presc_banded": ("presc", dict(nparts=4, schur_method="banded"))}
+
+
+@pytest.mark.parametrize("case", sorted(API_CASES))
+def test_ecg_solver_on_card_matches_cpu(cuda_device, case):
+    """f64 ECGSolver on the card against the CPU port: iterations ±1, x
+    within 1e-8; every operand of the solve on the card."""
+    from prealps_tpu_torch.api import ECGSolver
+
+    a = elasticity3d(6, 5, 5)
+    b = np.random.default_rng(3).standard_normal(a.shape[0])
+    precond, kw = API_CASES[case]
+    opts = ECGOptions(t=4, tol=1e-8, maxiter=3000)
+    on_card = ECGSolver.build(a, opts=opts, precond=precond, device=cuda_device, **kw)
+    ops = on_card.operands()
+    assert ops and all(t.device.type == "cuda" for t in ops.values()), \
+        [k for k, t in ops.items() if t.device.type != "cuda"]
+    x, info = on_card.solve(b)
+    x_c, info_c = ECGSolver.build(a, opts=opts, precond=precond, device="cpu",
+                                  **kw).solve(b)
+    assert abs(info["iters"] - info_c["iters"]) <= 1
+    assert np.abs(x - x_c).max() <= 1e-8 * np.abs(x_c).max()
+
+
+def test_ecg_solver_f32_on_card_refines(cuda_device):
+    from prealps_tpu_torch.api import ECGSolver
+
+    a = elasticity3d(6, 5, 5)
+    b = np.random.default_rng(3).standard_normal(a.shape[0])
+    s = ECGSolver.build(a, opts=ECGOptions(t=4, tol=1e-8, maxiter=3000),
+                        precond="lorasc", nparts=4, dtype=np.float32, device=cuda_device)
+    assert all(t.device.type == "cuda" for t in s.operands().values())
+    assert s.precond.e_mat.dtype == torch.float32
+    x, info = s.solve(b)
+    assert info["refine_rounds"] >= 1 and not info["breakdown"]
+    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) < 1e-6
+
+
+def test_ecg_solver_raises_without_a_card(cuda_device, monkeypatch):
+    from prealps_tpu_torch.api import ECGSolver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ECGSolver.build(elasticity3d(3, 3, 3), device="cuda")
+
+
+def test_native_library_on_the_card_machine(cuda_device):
+    from prealps_tpu_torch import native
+    from prealps_tpu_torch.core import partition
+
+    assert native.available(), native.build_info
+    part = partition.kway_partition(elasticity3d(6, 5, 5), 4)
+    assert sorted(set(part.tolist())) == [0, 1, 2, 3]

@@ -65,9 +65,10 @@ def both(tmp_path_factory):
         jax_res["f32"] = (s.deflated, *s.solve(b), np.asarray(s._operands[0]["sigma"]))
         with pytest.raises(ValueError, match=">= 2 interior parts") as err:
             JaxLorasc.build(a, nshards=1)
-    port = spawn_jobs(4, [("lorasc_solves", (a, b, {**CASES, **F32})),
-                          ("lorasc_refusals", (a, REFUSED))], tmp_path_factory,
-                      timeout=LORASC_SPAWN_TIMEOUT)
+        # the ranks inherit the knob: the port partitions as JAX did
+        port = spawn_jobs(4, [("lorasc_solves", (a, b, {**CASES, **F32})),
+                              ("lorasc_refusals", (a, REFUSED))], tmp_path_factory,
+                          timeout=LORASC_SPAWN_TIMEOUT)
     return a, b, jax_res, port, str(err.value)
 
 

@@ -59,12 +59,13 @@ def both(tmp_path_factory):
         assert s.nlocal == 2 and "w_lift" in s._operands[0]
         y_j = jax_lorasc_applies(s, [v])[0]
         ref = lorasc_reference(s)
-    port = spawn_jobs(8, [("lorasc_solves", (a, b, {"mesh42": CASES["mesh42"]})),
-                          ("lorasc_reference_applies", ({"lift": ref}, b, [v]))],
-                      tmp_path_factory, timeout=LORASC_SPAWN_TIMEOUT)
-    # nshards 4 takes a group of 4 ranks
-    port4 = spawn_jobs(4, [("lorasc_solves", (a, b, {"nshards4": CASES["nshards4"]}))],
-                       tmp_path_factory, timeout=LORASC_SPAWN_TIMEOUT)
+        # the ranks inherit the knob: the port partitions as JAX did
+        port = spawn_jobs(8, [("lorasc_solves", (a, b, {"mesh42": CASES["mesh42"]})),
+                              ("lorasc_reference_applies", ({"lift": ref}, b, [v]))],
+                          tmp_path_factory, timeout=LORASC_SPAWN_TIMEOUT)
+        # nshards 4 takes a group of 4 ranks
+        port4 = spawn_jobs(4, [("lorasc_solves", (a, b, {"nshards4": CASES["nshards4"]}))],
+                           tmp_path_factory, timeout=LORASC_SPAWN_TIMEOUT)
     for r, r4 in zip(port, port4 + [None] * 4):
         r[0].update(r4[0] if r4 else {})
     return a, b, jax_res, port, y_j

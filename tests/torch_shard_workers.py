@@ -432,3 +432,20 @@ def lorasc_f32_stages(rank, group, a, b, case, arrays, meta):
         for name, fn in lanczos.items():
             setattr(ld, name, fn)
         ld.rayleigh_ritz_refine, ld.ecg_solve = refine, solve
+
+
+def cli_runs(rank, group, runs):
+    """Each (command, argv) of ``runs`` through the port's CLI on this
+    rank's group: (exit code, standard output) per run."""
+    import contextlib
+    import io
+
+    from prealps_tpu_torch import cli
+
+    out = []
+    for command, argv in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.COMMANDS[command](argv)
+        out.append((rc, buf.getvalue()))
+    return out

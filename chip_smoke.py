@@ -41,6 +41,26 @@ Phases (any failure exits nonzero before a result is printed):
     iterations, iterations within 5 % of GENERAL_ANCHOR_ITERS (the JAX
     package's CPU run of the same build with fmt="block_ell_xla"); one solve
     under torch.profiler (chiprun_out/profile_general.txt);
+ 9a. ``[lx]`` the communication-avoiding kernel tier (ops/spmsv.py,
+    tsqr.py, cholqr.py, tournament.py) on [general]'s operator (RAC-scaled
+    36³) in block-ELL bk 128 with its packed entries and in square 32-row
+    blocks: ``spmsv_chain`` (s 8, t 12, from the first 1/8 of the row
+    blocks, dense_switch 0.5) through B5 and A-CholQR's two products, B5's
+    count zeroed just before and read just after (one launch a product);
+    every panel against the same chain through ``block_ell_spmm`` within
+    KERNEL_TOL, the support exact; the support fractions and the step at
+    which the chain goes dense; ``spmsv_packed`` at active fractions 1/16,
+    1/4 and 1: its device time (``timing.py::device_ms`` of
+    ``spmsv_packed_device``), its bound (the nonzero entries in B's active
+    columns, B and C once), its format bound (C's active rows of dense
+    blocks, B and C once) and the dense-carrier B5 product's device time,
+    C against B5's product;
+    TSQR and A-CholQR of a (n × 12) panel (‖QᵀQ − I‖_F, R against
+    ``torch.linalg.qr``'s, ‖P̃ᵀAP̃ − I‖_F, each < LX_ORTH_TOL); TP-QR and
+    TP-CUR (k 24) of the chain's s-step basis (n × 108): their error beside
+    the best rank-24 error and each step's seconds (``utils/timing.py``'s
+    ``Timers`` with the card synchronised), the pivoted Cholesky's among
+    them;
 10. ``[ell]`` fmt="ell" f32 at elasticity3d 20³ through the device
     double-float refinement rounds;
 11. ``[bj]`` the stencil path with precond="bj" (block Jacobi alone, the
@@ -62,8 +82,9 @@ Phases (any failure exits nonzero before a result is printed):
     elasticity3d_12x10x10 (n = 4,290) at the CLI defaults through
     ``cli.lorasc_main`` (``python -m prealps_tpu_torch.cli lorasc``) on the
     card: -p lorasc (direct eigensolve) and -p presc (ssloc), in f64 (held
-    to the JAX CLI's counts ±1) and f32 (the card's default; logged beside
-    JAX's counts, relres < 1e-5); each build again through ECGSolver in
+    to the JAX CLI's counts ±1) and, -p presc also, f32 (the card's
+    default; logged beside JAX's count, relres < 1e-5; the f32 -p lorasc
+    run was cut for time); each build again through ECGSolver in
     f64 (its pairs equal JAX's, its count ±1, its operands on the card),
     and ``[api_presc_banded]``: PRESC with ``schur_method="banded"``
     (block_banded_schur on the card), held the same way;
@@ -170,14 +191,25 @@ Phases (any failure exits nonzero before a result is printed):
     SHARDED4_ANCHOR_ITERS (the JAX driver at nshards 4 on a CPU); rank 0's
     timed solves, which are not a scaling number (4 ranks share one card),
     and one solve of rank 0 under torch.profiler (by host time:
-    chiprun_out/profile_sharded4.txt);
-31. ``[sharded_dryrun]`` ``__graft_entry__.dryrun_multichip``'s three
-    DistributedECG paths (het 8³, t 2, tol 1e-6) over 4 ranks on the card,
-    stencil+bj2l also over 8 (88 nodes a shard against a halo of 91: the
-    all-gather branch): f32 (the stencil kernel's type), and ell+bj also in
-    f64; stencil+bj2l (f32) and ell+bj (f64) within 10 % of the JAX
-    driver's count at the same nshards, the f32 stencil+cheb and ell+bj
-    counts logged beside JAX's (DRYRUN_ANCHOR_ITERS);
+    chiprun_out/profile_sharded4.txt); then in the same ranks the sharded
+    LX kernels on a planted (n × 512) matrix made on the card from a seed
+    (128 columns a rank, k 32): ``tsqr_r_distributed`` on its rows in f64
+    (R within 1e-8 of ``torch.linalg.qr``'s), ``tournament_select_sharded``
+    and ``tp_qr_sharded`` on its columns (every rank the same R, Q and ids,
+    the planted columns found, Q orthonormal), and the collectives
+    ablation: the headline operator with block Jacobi solved for
+    ABLATION_ITERS iterations with PREALPS_TIMING_NO_COLLECTIVES off, on,
+    on, off (no all-reduce and no ring exchange under it), rank 0's ms an
+    iteration each way and comm_frac;
+31. ``[sharded_dryrun]`` ``prealps_tpu_torch/dryrun.py``'s three
+    DistributedECG paths (``__graft_entry__.dryrun_multichip``'s; het 8³,
+    t 2, tol 1e-6) over 4 ranks on the card, stencil+bj2l also over 8 (88
+    nodes a shard against a halo of 91: the all-gather branch): f32 (the
+    stencil kernel's type), and ell+bj also in f64; stencil+bj2l (f32) and
+    ell+bj (f64) within 10 % of the JAX driver's count at the same
+    nshards, the f32 stencil+cheb and ell+bj counts logged beside JAX's
+    (DRYRUN_ANCHOR_ITERS); every path converged, B1 launched at least once
+    an iteration on the stencil paths;
 32. ``[dlorasc_large]`` the distributed LORASC driver
     (``parallel/lorasc_driver.py::DistributedLorascECG``) at full width
     over 8 ranks spawned on this card (a gloo group, one spawn shared with
@@ -195,7 +227,7 @@ Phases (any failure exits nonzero before a result is printed):
     then the first PROFILE_ITERS iterations of a second solve, rank 0's
     under torch.profiler (device-busy share,
     chiprun_out/profile_dlorasc.txt), and each rank's wall time by step;
-33. ``[dlorasc_dryrun]`` ``dryrun_multichip``'s three LORASC paths (het 8³,
+33. ``[dlorasc_dryrun]`` ``dryrun.py``'s three LORASC paths (het 8³,
     RAC-scaled, f32, t 2, tol 1e-6) over the same 8 ranks: "lorasc" (the
     exact Schur complement chosen automatically), "lorasc 2-level mesh"
     (mesh (4, 2), max_deflation 16) and "lorasc deflation" (omin,
@@ -259,7 +291,8 @@ limit, the kernels' JSON record (seven entries; ``ms``/``plain_ms``/
 slots' bound) and ``nnz``; ``max_abs_err`` over its shapes, ``launches`` from its
 path's run — for B4 and B6, which no path runs, chip_smoke's own calls;
 B1's, B2a's, B2b's and B5's entries also list their count on every path's
-solve under ``path_launches`` (B1's and B5's also each sharded rank's),
+solve under ``path_launches`` (B1's and B5's also each sharded rank's,
+B5's also [lx]'s chain and A-CholQR),
 B2a's that of its bf16 instance under
 ``bf16_launches``), and last ``{"ok": true, "device": {...}}``.
 """
@@ -430,7 +463,7 @@ API_CASES = {
 # (logged beside the port's: they part with the rounding, ROADMAP A4).
 API_ANCHORS = {
     "api_bj": 181,
-    "api_lorasc": {"f64": 50, "f32": 4074, "pairs": 27},
+    "api_lorasc": {"f64": 50, "pairs": 27},
     "api_presc": {"f64": 63, "f32": 2247, "pairs": 27},
     "api_presc_banded": {"f64": 63, "pairs": 27},
 }
@@ -1643,11 +1676,117 @@ def _collective_calls():
                                           mesh.ring_exchange, mesh.all_to_all)}
 
 
-def _sync(device):
+LX_SHARDED_COLS = 512      # [sharded4]'s column-sharded matrix: 128 columns a rank
+LX_SHARDED_K = 32          # selected columns: the planted ones
+LX_SHARDED_SEED = 29
+ABLATION_ITERS = 20        # [sharded4]'s ablation: a fixed-length solve
+TIMING_KNOB = "PREALPS_TIMING_NO_COLLECTIVES"
+
+
+def _planted_matrix(m, device):
+    """[sharded4]'s (m, LX_SHARDED_COLS) f32 matrix, made on the card from a
+    seed (every rank the same): a rank-64 background with graded scales
+    plus 1e-3 noise, and LX_SHARDED_K columns of 50× larger random values
+    planted at spread positions (8 on each rank's block of columns).
+    Returns (matrix, planted positions)."""
     import torch
 
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+    gen = torch.Generator(device=device).manual_seed(LX_SHARDED_SEED)
+    n = LX_SHARDED_COLS
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    scale = torch.logspace(0, -3, 64, device=device)[:, None]
+    a = randn(m, 64) @ (scale * randn(64, n)) + 1e-3 * randn(m, n)
+    step = n // LX_SHARDED_K
+    pos = [step * i + (5 * i) % step for i in range(LX_SHARDED_K)]
+    a[:, pos] = 50.0 * randn(m, LX_SHARDED_K)
+    return a, pos
+
+
+def _sharded_lx(rank, group, m, device):
+    """One rank's sharded LX checks on [sharded4]'s planted matrix:
+    ``tsqr_r_distributed`` on its rows (rank 0 also against
+    ``torch.linalg.qr`` of the whole matrix), ``tournament_select_sharded``
+    and ``tp_qr_sharded`` on its columns; each step's seconds."""
+    import hashlib
+
+    import torch
+
+    from prealps_tpu_torch.ops.tournament import tournament_select_sharded, tp_qr_sharded
+    from prealps_tpu_torch.ops.tsqr import sign_fixed, tsqr_r_distributed
+    from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.utils.timing import Timers
+
+    world = mesh.size_of(group)
+    full, pos = _planted_matrix(m, device)
+    m_loc, n_loc = m // world, LX_SHARDED_COLS // world
+    rows = full[rank * m_loc:(rank + 1) * m_loc].contiguous()
+    cols = full[:, rank * n_loc:(rank + 1) * n_loc].contiguous()
+    steps = Timers(device=device)
+
+    # TSQR in f64: its R against one Householder QR of the whole matrix
+    with steps.time("tsqr_r_distributed"):
+        r = tsqr_r_distributed(rows.double(), group)
+    rec = {"r_sha": hashlib.sha256(r.cpu().numpy().tobytes()).hexdigest()}
+    if rank == 0:
+        r_ref = sign_fixed(torch.linalg.qr(full.double(), mode="r").R)
+        rec["r_rel"] = _fro(r - r_ref) / _fro(r_ref)
+    with steps.time("tournament_select_sharded"):
+        sel = tournament_select_sharded(cols, group, LX_SHARDED_K)
+    with steps.time("tp_qr_sharded"):
+        q, r_loc, qr_cols = tp_qr_sharded(cols, group, LX_SHARDED_K)
+    rec.update(selected=sel.tolist(), qr_cols=qr_cols.tolist(), planted=pos,
+               orth=_orth_err(q), secs=steps.as_dict(),
+               q_sha=hashlib.sha256(q.cpu().numpy().tobytes()).hexdigest(),
+               resid_sq=_fro(cols - q @ r_loc) ** 2, norm_sq=_fro(cols) ** 2)
+    del full, rows, cols, q, r_loc
+    return rec
+
+
+def _ablation_solves(a, b, nel, device, group):
+    """[sharded4]'s ablation on one rank: the headline operator with block
+    Jacobi alone ([bj]'s 240-row blocks; the headline's bj2l gathers its
+    coarse residual inside every apply, a collective the knob keeps, and
+    under the knob ranks stop at different iterations, so those gathers
+    would pair with other calls), solved for ABLATION_ITERS iterations
+    (tol 1e-30, no stall window, no refinement round), in turns with the
+    timing knob off, on, on, off (set and unset inside this rank); each
+    solve's seconds, iterations, breakdown and collective calls (counts
+    zeroed just before, read just after)."""
+    import numpy as np
+
+    from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.parallel.driver import DistributedECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+    from prealps_tpu_torch.utils.timing import sync
+
+    solver = DistributedECG.build(
+        a, nshards=mesh.size_of(group), fmt="stencil", br=3, precond="bj",
+        block_size=240, grid=(nel + 1, nel + 1, nel), bj_dedupe=False,
+        opts=ECGOptions(t=12, tol=1e-30, maxiter=ABLATION_ITERS, stall_window=0,
+                        variant="odir_fused", layout="tbn"),
+        dtype=np.float32, refine=False, device=device, group=group)
+    counters = (mesh.all_reduce, mesh.all_gather, mesh.ring_exchange, mesh.all_to_all)
+    out = {"coll": [], "nocoll": []}
+    for name in ("coll", "nocoll", "nocoll", "coll"):
+        for f in counters:
+            f.calls = 0
+        if name == "nocoll":
+            os.environ[TIMING_KNOB] = "1"
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            _, info = solver.solve(b)
+            sync(device)
+            secs = time.perf_counter() - t0
+        finally:
+            os.environ.pop(TIMING_KNOB, None)
+        out[name].append({"secs": secs, "iters": int(info["iters"]),
+                          "breakdown": bool(info["breakdown"]),
+                          "calls": {f.__name__: f.calls for f in counters}})
+    return out
 
 
 def _sharded_headline_rank(rank, group, nel, timed, device):
@@ -1663,6 +1802,7 @@ def _sharded_headline_rank(rank, group, nel, timed, device):
     from prealps_tpu_torch.core.generators import elasticity3d
     from prealps_tpu_torch.ops.spmm import stencil_flat_ext
     from prealps_tpu_torch.parallel import mesh
+    from prealps_tpu_torch.utils.timing import sync
 
     a = elasticity3d(nel, nel, nel, heterogeneous=False)
     b = np.random.default_rng(0).standard_normal(a.shape[0])
@@ -1671,19 +1811,19 @@ def _sharded_headline_rank(rank, group, nel, timed, device):
     build_s = time.perf_counter() - t0
     ops = solver.operands
     stencil_flat_ext.launches = 0
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     x, info = solver.solve(b)
-    _sync(device)
+    sync(device)
     warm_s = time.perf_counter() - t0
     launches = stencil_flat_ext.launches
     calls = _collective_calls()
     timed_s = []
     for _ in range(timed):
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         solver.solve(b)
-        _sync(device)
+        sync(device)
         timed_s.append(time.perf_counter() - t0)
     # one more solve on every rank (the collectives must pair up), rank 0's
     # under torch.profiler on a CUDA device: its device time and its table
@@ -1695,7 +1835,7 @@ def _sharded_headline_rank(rank, group, nel, timed, device):
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             solver.solve(b)
-            _sync(device)
+            sync(device)
             wall_ms = 1e3 * (time.perf_counter() - t0)
         table = prof.key_averages().table(sort_by="self_cpu_time_total",
                                           row_limit=30)
@@ -1703,7 +1843,10 @@ def _sharded_headline_rank(rank, group, nel, timed, device):
                     "profile_wall_ms": wall_ms, "profile_table": table}
     else:
         solver.solve(b)
-    return {"rank": rank, "iters": int(info["iters"]), **prof_rec,
+    lx = _sharded_lx(rank, group, a.shape[0], device)
+    ablation = _ablation_solves(a, b, nel, device, group)
+    return {"rank": rank, "iters": int(info["iters"]), **prof_rec, "lx": lx,
+            "ablation": ablation,
             "refine_rounds": info["refine_rounds"],
             "device_rounds": info["device_rounds"],
             "breakdown": bool(info["breakdown"]),
@@ -1715,67 +1858,14 @@ def _sharded_headline_rank(rank, group, nel, timed, device):
             "x": x if rank == 0 else None}
 
 
-def _dryrun_problem(dtype):
-    """__graft_entry__._problem(nel=8) in the port: het elasticity3d 8³,
-    RAC-scaled, b = default_rng(0), both in dtype."""
-    import numpy as np
-
-    from prealps_tpu_torch.core.generators import elasticity3d
-    from prealps_tpu_torch.core.scaling import sym_rac_scaling
-
-    a, _ = sym_rac_scaling(elasticity3d(8, 8, 8))
-    b = np.random.default_rng(0).standard_normal(a.shape[0]).astype(dtype)
-    return a.astype(dtype), b
-
-
-DRYRUN_PATHS = {   # dryrun_multichip's builds: keywords and layout
-    "dry_stencil_cheb": (dict(fmt="stencil", br=3, precond="chebyshev"), "tbn"),
-    "dry_ell_bj": (dict(fmt="ell", precond="block_jacobi"), "nt"),
-    "dry_stencil_bj2l": (dict(fmt="stencil", br=3, precond="bj2l", block_size=24,
-                              grid=(9, 9, 8)), "tbn"),
-}
-
-
 def _dryrun_rank(rank, group, runs, device):
-    """One rank of [sharded_dryrun]: each (path, dtype) of ``runs`` built
-    over the group on the shared card (``device``; scale=False, t 2, tol
-    1e-6) and solved with B1's count zeroed just before and read just
-    after."""
-    import hashlib
+    """One rank of [sharded_dryrun]: each (path, dtype) of ``runs``
+    through ``prealps_tpu_torch/dryrun.py::ecg_paths`` over the group on
+    the shared card (``device``; scale=False, t 2, tol 1e-6), B1's count
+    zeroed just before each solve and read just after."""
+    from prealps_tpu_torch.dryrun import ecg_paths
 
-    import numpy as np
-
-    from prealps_tpu_torch.ops.spmm import stencil_flat_ext
-    from prealps_tpu_torch.parallel import mesh
-    from prealps_tpu_torch.parallel.driver import DistributedECG
-    from prealps_tpu_torch.solvers.ecg import ECGOptions
-
-    out = {}
-    for path, dt in runs:
-        dtype = np.float32 if dt == "f32" else np.float64
-        a, b = _dryrun_problem(dtype)
-        kw, layout = DRYRUN_PATHS[path]
-        solver = DistributedECG.build(
-            a, nshards=mesh.size_of(group), scale=False, dtype=dtype,
-            device=device, group=group,
-            opts=ECGOptions(t=2, tol=1e-6, maxiter=6000, variant="odir_fused",
-                            layout=layout), **kw)
-        stencil_flat_ext.launches = 0
-        _sync(device)
-        t0 = time.perf_counter()
-        x, info = solver.solve(b)
-        _sync(device)
-        out[f"{path}_{dt}"] = {
-            "path": path, "dtype": dt, "iters": int(info["iters"]),
-            "refine_rounds": info.get("refine_rounds"),
-            "breakdown": bool(info["breakdown"]),
-            "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
-            "launches": stencil_flat_ext.launches,
-            "solve_s": time.perf_counter() - t0, "n_pad": solver.layout.n_pad,
-            "nodes_a_shard": getattr(solver.operands, "nrb", None),
-            "halo": getattr(solver.operands, "halo", None),
-            "x_sha": hashlib.sha256(x.tobytes()).hexdigest()}
-    return out
+    return ecg_paths(group, runs, device)
 
 
 def _spawn_ranks(fn, world, args, timeout=SHARDED_TIMEOUT, threads=2):
@@ -1846,9 +1936,10 @@ def sharded_nccl1_phase(dev, a, b, nel, x_main, main_iters):
             table, offsets, halo)
 
 
-def sharded4_phase(nel, x_main, device="cuda:0"):
+def sharded4_phase(nel, x_main, card, device="cuda:0"):
     """[sharded4]: the headline at full width over 4 spawned ranks sharing
-    cuda:0 through a gloo group."""
+    cuda:0 through a gloo group, then in the same ranks the sharded LX
+    kernels and the collectives ablation."""
     import numpy as np
 
     world = 4
@@ -1885,6 +1976,7 @@ def sharded4_phase(nel, x_main, device="cuda:0"):
     if not within(iters, SHARDED4_ANCHOR_ITERS, PATH_BAND):
         fail(f"[sharded4] {iters} iterations, outside {SHARDED4_ANCHOR_ITERS} ± "
              f"{100 * PATH_BAND:.0f} %")
+    lx, ablation = sharded4_lx_checks(ranks, card)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "profile_sharded4.txt"), "w") as f:
         f.write(r0["profile_table"])
@@ -1902,7 +1994,75 @@ def sharded4_phase(nel, x_main, device="cuda:0"):
             "n_pad": r0["n_pad"], "nrb_loc": r0["nrb_loc"], "halo": r0["halo"],
             "dx_main": dx, "spawn_s": wall_s, "anchor_iters": SHARDED4_ANCHOR_ITERS,
             "profile_device_ms": r0["profile_device_ms"],
-            "profile_wall_ms": r0["profile_wall_ms"]}
+            "profile_wall_ms": r0["profile_wall_ms"], "lx": lx, "ablation": ablation}
+
+
+def sharded4_lx_checks(ranks, card):
+    """[sharded4]'s sharded LX kernels and timing ablation, from every
+    rank's records: the same R, Q and ids on every rank, the planted
+    columns found, Q orthonormal; the ablation's fixed-length solves at
+    ABLATION_ITERS on every rank, no all-reduce and no ring exchange with
+    the knob on, and its ms an iteration with and without collectives."""
+    import numpy as np
+
+    lx0 = ranks[0]["lx"]
+    for r in ranks:
+        lx = r["lx"]
+        if any(lx[k] != lx0[k] for k in ("r_sha", "q_sha", "selected", "qr_cols")):
+            fail(f"[sharded4] lx: rank {r['rank']} returned another R, Q or "
+                 "selection than rank 0")
+    planted = set(lx0["planted"])
+    resid = float(np.sqrt(sum(r["lx"]["resid_sq"] for r in ranks)
+                          / sum(r["lx"]["norm_sq"] for r in ranks)))
+    log(f"[sharded4] lx on a planted ({LX_SHARDED_COLS} columns, "
+        f"{LX_SHARDED_COLS // len(ranks)} a rank) f32 matrix of the headline's rows, "
+        f"k {LX_SHARDED_K}: tsqr_r_distributed (f64, rows sharded) ‖R − R_qr‖/‖R_qr‖ "
+        f"{lx0['r_rel']:.3e}; tournament_select_sharded selected "
+        f"{sorted(lx0['selected'])} (the planted columns: "
+        f"{set(lx0['selected']) == planted}); tp_qr_sharded ‖QᵀQ − I‖_F "
+        f"{lx0['orth']:.3e}, ‖A − QR‖_F/‖A‖_F {resid:.3e}; rank 0's seconds "
+        + json.dumps({k: round(v, 4) for k, v in lx0["secs"].items()})
+        + f"; every rank the same R, Q and ids | {card}")
+    if set(lx0["selected"]) != planted or set(lx0["qr_cols"]) != planted:
+        fail(f"[sharded4] lx: selected {sorted(lx0['selected'])}, planted "
+             f"{sorted(planted)}")
+    if not (lx0["r_rel"] < 1e-8 and lx0["orth"] < LX_ORTH_TOL):
+        fail(f"[sharded4] lx: R {lx0['r_rel']:.3e}, Q {lx0['orth']:.3e}")
+    for r in ranks:
+        for name, runs in r["ablation"].items():
+            for run in runs:
+                calls = run["calls"]
+                if name == "coll" and (run["iters"] != ABLATION_ITERS or run["breakdown"]):
+                    fail(f"[sharded4] ablation: rank {r['rank']} ran {run['iters']} "
+                         f"iterations with the collectives, not {ABLATION_ITERS}")
+                if run["iters"] < 1:
+                    fail(f"[sharded4] ablation: rank {r['rank']} ran no iteration")
+                off = calls["all_reduce"] == 0 and calls["ring_exchange"] == 0
+                if off != (name == "nocoll"):
+                    fail(f"[sharded4] ablation: rank {r['rank']} {name} made the "
+                         f"collectives {calls}")
+    abl = ranks[0]["ablation"]
+    # ms an iteration of rank 0, each solve by its own count: without the
+    # collectives a rank's local algebra is wrong, and it may break down early
+    ms = {name: statistics.median(1e3 * run["secs"] / run["iters"] for run in runs)
+          for name, runs in abl.items()}
+    comm_frac = 1.0 - ms["nocoll"] / ms["coll"]
+    counts = [[run["iters"] for run in r["ablation"]["nocoll"]] for r in ranks]
+    log(f"[sharded4] ablation ({TIMING_KNOB}, results wrong by construction): the "
+        f"headline operator with block Jacobi, {ABLATION_ITERS} iterations a solve "
+        f"(tol 1e-30), in turns off, on, on, off: {ms['coll']:.3f} ms an iteration "
+        f"with the collectives, {ms['nocoll']:.3f} without; comm_frac "
+        f"{comm_frac:.3f} (rank 0; 4 ranks share one card through gloo: host round "
+        f"trips, not scaling); iterations without the collectives by rank "
+        f"{counts} (a rank whose wrapped local operator is indefinite breaks down); "
+        f"collectives a solve {abl['coll'][0]['calls']} / {abl['nocoll'][0]['calls']} "
+        f"| {card}")
+    lx = dict(lx0, resid=resid)
+    for k in ("r_sha", "q_sha"):
+        lx.pop(k)
+    return lx, {"iters": ABLATION_ITERS, "ms_per_iter": ms["coll"],
+                "ms_per_iter_nocoll": ms["nocoll"], "comm_frac": comm_frac,
+                "nocoll_iters_by_rank": counts, "runs": abl}
 
 
 def sharded_dryrun_phase(device="cuda:0"):
@@ -1935,7 +2095,7 @@ def sharded_dryrun_phase(device="cuda:0"):
             held = (path, dt) in DRYRUN_HELD
             log(f"[sharded_dryrun] {path} {dt} over {world} ranks: iters="
                 f"{rec['iters']} rounds={rec['refine_rounds']} relres="
-                f"{rec['relres']:.3e} in {rec['solve_s']:.2f} s (rank 0), B1 "
+                f"{rec['relres']:.3e} in {rec['secs']:.2f} s (rank 0), B1 "
                 f"launches {[r[key]['launches'] for r in ranks]}, "
                 f"{rec['nodes_a_shard']} nodes a shard, halo {rec['halo']}; JAX "
                 f"on a CPU at nshards {world}: {anchor}"
@@ -1985,6 +2145,7 @@ def _sharded_full_rank(rank, group, path, nel, device):
     from prealps_tpu_torch.parallel import mesh
     from prealps_tpu_torch.parallel.driver import DistributedECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
+    from prealps_tpu_torch.utils.timing import sync
 
     kw, layout, kernel = SHARDED_FULL[path]
     counter = getattr(spmm, kernel)
@@ -1999,17 +2160,17 @@ def _sharded_full_rank(rank, group, path, nel, device):
     ops = solver.operands
     before = _collective_calls()
     counter.launches = 0
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     x, info = solver.solve(b)
-    _sync(device)
+    sync(device)
     warm_s = time.perf_counter() - t0
     launches = counter.launches
     calls = {k: v - before[k] for k, v in _collective_calls().items()}
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     solver.solve(b)
-    _sync(device)
+    sync(device)
     timed_s = time.perf_counter() - t0
     on_card = torch.device(device).type == "cuda"
     # the busy share: the first PROFILE_ITERS iterations of a third solve
@@ -2023,7 +2184,7 @@ def _sharded_full_rank(rank, group, path, nel, device):
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             _, pinfo = solver.solve(b, max_refine_rounds=1)
-            _sync(device)
+            sync(device)
             wall_ms = 1e3 * (time.perf_counter() - t0)
         prof_rec = {"profile_device_ms": device_busy_ms(prof),
                     "profile_wall_ms": wall_ms, "profile_iters": int(pinfo["iters"]),
@@ -2145,6 +2306,7 @@ def _formats_rank(rank, group, names, device):
     from prealps_tpu_torch.parallel import mesh
     from prealps_tpu_torch.parallel.driver import DistributedECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
+    from prealps_tpu_torch.utils.timing import sync
 
     out = {}
     for name in names:
@@ -2155,10 +2317,10 @@ def _formats_rank(rank, group, names, device):
             s = DistributedECG.build(a, nshards=mesh.size_of(group), dtype=np.float64,
                                      device=device, group=group,
                                      opts=ECGOptions(**opts), **{**kw, **extra})
-            _sync(device)
+            sync(device)
             t0 = time.perf_counter()
             x, info = s.solve(b)
-            _sync(device)
+            sync(device)
             return s, x, info, time.perf_counter() - t0
 
         s, x, info, secs = run()
@@ -2218,12 +2380,6 @@ def sharded_formats_phase(device="cuda:0"):
     return out
 
 
-DLORASC_DRY = {   # dryrun_multichip's LORASC builds: keywords and ECG variant
-    "dry_lorasc": (dict(nshards=8), "odir_fused"),
-    "dry_lorasc_2level": (dict(mesh_shape=(4, 2), max_deflation=16), "odir_fused"),
-    "dry_lorasc_deflation": (dict(nshards=8, exact_schur=False, correction="deflate",
-                                  max_deflation=64), "omin"),
-}
 DLORASC_TIMEOUT = 900      # seconds the distributed LORASC spawn may take
 
 
@@ -2242,6 +2398,7 @@ def _dlorasc_rank(rank, group, device):
     from prealps_tpu_torch.parallel import mesh
     from prealps_tpu_torch.parallel.lorasc_driver import DistributedLorascECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
+    from prealps_tpu_torch.utils.timing import sync
 
     dev = torch.device(device)
     torch.cuda.set_device(dev)
@@ -2260,10 +2417,10 @@ def _dlorasc_rank(rank, group, device):
     build_peak = torch.cuda.max_memory_allocated(dev)
     for f in (mesh.all_reduce, mesh.all_gather, mesh.broadcast):
         f.calls = 0
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     x, info = s.solve(b)
-    _sync(dev)
+    sync(dev)
     wall["solve"] = solve_s = time.perf_counter() - t0
     calls = {f.__name__: f.calls for f in (mesh.all_reduce, mesh.all_gather,
                                             mesh.broadcast)}
@@ -2293,7 +2450,7 @@ def _dlorasc_rank(rank, group, device):
                                   ProfilerActivity.CUDA]) as prof:
             tp = time.perf_counter()
             _, pinfo = s.solve(b)
-            _sync(dev)
+            sync(dev)
             wall_ms = 1e3 * (time.perf_counter() - tp)
         large.update(profile_device_ms=device_busy_ms(prof), profile_wall_ms=wall_ms,
                      profile_iters=int(pinfo["iters"]),
@@ -2305,26 +2462,10 @@ def _dlorasc_rank(rank, group, device):
     del s, a, x
     torch.cuda.empty_cache()
 
-    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.dryrun import lorasc_paths
 
-    a, _ = sym_rac_scaling(elasticity3d(8, 8, 8))
-    a = a.astype(np.float32)
-    b = np.random.default_rng(0).standard_normal(a.shape[0]).astype(np.float32)
-    dry = {}
     t0 = time.perf_counter()
-    for path, (kw, variant) in DLORASC_DRY.items():
-        t0 = time.perf_counter()
-        s = DistributedLorascECG.build(
-            a, dtype=np.float32, device=device, group=group, **kw,
-            opts=ECGOptions(t=2, tol=1e-6, maxiter=6000, variant=variant))
-        x, info = s.solve(b)
-        dry[path] = {"iters": int(info["iters"]), "deflated": int(info["deflated"]),
-                     "refine_rounds": info["refine_rounds"],
-                     "breakdown": bool(info["breakdown"]),
-                     "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
-                     "mesh": [s.ngroups, s.nlocal], "ng_max": s.ng_max,
-                     "secs": time.perf_counter() - t0,
-                     "x_sha": hashlib.sha256(x.tobytes()).hexdigest()}
+    dry = lorasc_paths(group, device)
     wall["dryrun"] = time.perf_counter() - t0
     large["wall_s"] = wall
     return {"rank": rank, "large": large, "dry": dry}
@@ -2408,6 +2549,282 @@ def dlorasc_phase(device="cuda:0"):
                  peak_bytes_per_rank=[r["large"]["peak_bytes"] for r in ranks],
                  spawn_s=wall_s)
     return {"dlorasc_large": large, "dlorasc_dryrun": dry}
+
+
+# --- the communication-avoiding kernel tier ([lx]) -------------------------
+
+LX_T = 12                 # panel width of the chain, TSQR and CholQR
+LX_BS = 32                # spmsv_packed's square blocks
+LX_STEPS = 8              # s of the s-step basis [B, AB, ..., A^s B]
+LX_K = 24                 # columns TP-QR and TP-CUR select
+LX_FRACTIONS = (1 / 16, 1 / 4, 1.0)   # spmsv_packed's active block rows
+LX_DENSE_SWITCH = 0.5
+LX_SEED = 13
+LX_ORTH_TOL = 1e-4        # f32: ‖QᵀQ − I‖_F, ‖P̃ᵀAP̃ − I‖_F, R against torch.linalg.qr
+
+
+def _fro(x) -> float:
+    import torch
+
+    return float(torch.linalg.norm(x.double()))
+
+
+def _orth_err(q) -> float:
+    """‖QᵀQ − I‖_F of a panel, formed in f64."""
+    import torch
+
+    q = q.double()
+    return _fro(q.T @ q - torch.eye(q.shape[1], dtype=q.dtype, device=q.device))
+
+
+def lx_phase(dev, a, card):
+    """[lx]: the communication-avoiding kernel tier (ops/spmsv.py,
+    ops/tsqr.py, ops/cholqr.py, ops/tournament.py) on the headline
+    operator, symmetrically scaled as [general] scales it (n = 147,852),
+    stored as block-ELL bk 128 with its packed entries (B5) and as square
+    32-row blocks (spmsv_packed). Returns (record, B5's launches on the
+    path's run)."""
+    import numpy as np
+    import torch
+
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.ops import tournament
+    from prealps_tpu_torch.ops.cholqr import a_cholqr
+    from prealps_tpu_torch.ops.formats import (
+        BlockEllMatrix,
+        csr_to_block_ell,
+        pack_block_ell_entries,
+    )
+    from prealps_tpu_torch.ops.spmm import block_ell_spmm, block_ell_spmm_pallas
+    from prealps_tpu_torch.ops.spmsv import (
+        block_support_graph,
+        pack_multivector,
+        predict_c_support,
+        spmsv_chain,
+        spmsv_packed,
+        spmsv_packed_device,
+        unpack_multivector,
+    )
+    from prealps_tpu_torch.ops.tsqr import sign_fixed, tsqr
+    from prealps_tpu_torch.timing import device_ms
+    from prealps_tpu_torch.utils.timing import Timers, sync
+
+    t_phase = time.perf_counter()
+    n = a.shape[0]
+    a_s, _ = sym_rac_scaling(a)
+    bell = csr_to_block_ell(a_s, bm=8, bk=128, dtype=np.float32, device=dev)
+    bell.entries = pack_block_ell_entries(bell)
+    ab = csr_to_block_ell(a_s, bm=LX_BS, bk=LX_BS, dtype=np.float32, device=dev)
+    nb, s32 = ab.blocks.shape[:2]
+    offsets = np.minimum(np.arange(nb + 1) * LX_BS, n)
+    graph = block_support_graph(a_s, offsets)
+    absmat = BlockEllMatrix(bell.blocks.abs(), bell.blkcols, bell.shape)
+    ncols = bell.shape[1]
+    setup_s = time.perf_counter() - t_phase
+    log(f"[lx] operator: elasticity3d(36³) RAC-scaled, n={n}; block-ELL bk 128 "
+        f"({bell.entries.nnz} packed entries, B5) and {nb} row blocks of {LX_BS} "
+        f"(S {s32}, {ab.blocks.numel() * 4 / 1e9:.3f} GB of dense blocks); block "
+        f"graph nnz {graph.nnz}; set-up {setup_s:.2f} s | {card}")
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros((ncols - n, x.shape[1]))])
+
+    def b5(x):
+        return block_ell_spmm_pallas(bell, padded(x))[:n]
+
+    def plain(x):
+        return block_ell_spmm(bell, padded(x))[:n]
+
+    def abs_bound(x):
+        """KERNEL_TOL · max(|A|·|x|): chip_smoke's f32 kernel tolerance."""
+        return KERNEL_TOL * float(block_ell_spmm(absmat, padded(x.abs()))[:n].max())
+
+    rng = np.random.default_rng(LX_SEED)
+    b = torch.from_numpy(rng.standard_normal((n, LX_T)).astype(np.float32)).to(dev)
+    p = torch.from_numpy(rng.standard_normal((n, LX_T)).astype(np.float32)).to(dev)
+    struct0 = np.zeros(nb, dtype=bool)
+    struct0[: nb // 8] = True
+
+    # cuSOLVER's first calls (handles, workspaces) outside the timed steps
+    tsqr(p)
+    a_cholqr(p, p)
+    # the path: the s-step chain and A-CholQR, B5's count zeroed just before
+    # and read just after
+    block_ell_spmm_pallas.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    panels, structs = spmsv_chain(b5, b, struct0, graph, offsets, LX_STEPS,
+                                  dense_switch=LX_DENSE_SWITCH)
+    sync(dev)
+    chain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ap = b5(p)
+    pt, apt, _ = a_cholqr(p, ap)
+    a_pt = b5(pt)
+    sync(dev)
+    cholqr_s = time.perf_counter() - t0
+    launches = block_ell_spmm_pallas.launches
+    if dev.type == "cuda" and launches < LX_STEPS + 2:
+        fail(f"[lx] B5 launched {launches} times on the path, fewer than its "
+             f"{LX_STEPS + 2} products")
+
+    # every panel against the same chain through the plain product
+    plain_panels, plain_structs = spmsv_chain(plain, b, struct0, graph, offsets,
+                                              LX_STEPS, dense_switch=LX_DENSE_SWITCH)
+    b_masked = b.clone()
+    b_masked[int(offsets[nb // 8]):] = 0
+    chain_err = []
+    for j in range(1, LX_STEPS + 1):
+        prev = b_masked if j == 1 else plain_panels[j - 1]
+        err = float((panels[j] - plain_panels[j]).abs().max())
+        chain_err.append({"step": j, "max_abs_err": err, "err_bound": abs_bound(prev)})
+        if not bool(torch.isfinite(panels[j]).all()):
+            fail(f"[lx] chain step {j}: not finite")
+        if err > chain_err[-1]["err_bound"]:
+            fail(f"[lx] chain step {j}: max|B5 - plain| = {err:.3e} > "
+                 f"{chain_err[-1]['err_bound']:.3e}")
+        if not np.array_equal(structs[j], plain_structs[j]):
+            fail(f"[lx] chain step {j}: the supports differ")
+    fractions = [float(np.mean(s)) for s in structs]
+    dense_at = next((j for j in range(1, LX_STEPS + 1)
+                     if fractions[j] >= LX_DENSE_SWITCH), None)
+    # the exact support: rows outside the predicted block rows are zero
+    for j in range(1, LX_STEPS + 1):
+        rows = np.repeat(structs[j], np.diff(offsets))
+        outside = panels[j][torch.from_numpy(~rows).to(dev)]
+        if outside.numel() and float(outside.abs().max()) != 0.0:
+            fail(f"[lx] chain step {j}: nonzero rows outside the predicted support")
+    errs = [f"{c['max_abs_err']:.2e}/{c['err_bound']:.2e}" for c in chain_err]
+    log(f"[lx] spmsv_chain s={LX_STEPS} t={LX_T} from the first 1/8 of the row "
+        f"blocks, dense_switch {LX_DENSE_SWITCH}: support fractions "
+        f"{[round(f, 4) for f in fractions]}; dense from step "
+        f"{dense_at if dense_at is not None else 'none (never reached)'}; "
+        f"{chain_s:.3f} s; B5 launches on the path (chain + A-CholQR) {launches}; "
+        f"per step max|B5 − plain| / bound {errs} | {card}")
+
+    # spmsv_packed at three active fractions beside the dense-carrier B5
+    packed = []
+    for frac in LX_FRACTIONS:
+        nact = max(1, int(round(frac * nb)))
+        active = np.arange(nact)
+        bf = torch.zeros((nb * LX_BS, LX_T), dtype=torch.float32, device=dev)
+        hi = int(offsets[nact])
+        bf[:hi] = b[:hi]
+        b_ids, b_vals = pack_multivector(bf, LX_BS, active, cap=nact)
+        c_ids = predict_c_support(graph, active, nb)
+        c_ids_d, c_vals = spmsv_packed(ab, b_ids, b_vals, c_ids, len(c_ids))
+        c = unpack_multivector(c_ids_d, c_vals, nb)[:n]
+        y = b5(bf[:n])
+        err = float((c - y).abs().max())
+        err_bound = abs_bound(bf[:n])
+        if not bool(torch.isfinite(c).all()) or err > err_bound:
+            fail(f"[lx] spmsv_packed at {frac:.4f}: max|packed - B5| = {err:.3e} > "
+                 f"{err_bound:.3e}")
+        ms = device_ms(lambda: spmsv_packed_device(ab, b_ids, b_vals, c_ids_d))[0]
+        xpad = padded(bf[:n])
+        dense_ms = device_ms(lambda: block_ell_spmm_pallas(bell, xpad))[0]
+        cap_c = len(c_ids)
+        # the bound: the nonzero entries the product needs (A's in B's active
+        # columns, f32 value and int32 column each, and the row pointers of
+        # C's active rows), B's active rows read, C's active rows written;
+        # the format bound: this algorithm's traffic, C's active block rows
+        # of dense 32 × 32 blocks, every padded slot included
+        nnz = int(np.count_nonzero(a_s.tocsr().indices < hi))
+        c_rows = cap_c * LX_BS
+        nbytes = 8 * nnz + 4 * (c_rows + 1) + 4 * LX_T * (hi + c_rows)
+        format_nbytes = 4 * (cap_c * s32 * LX_BS * LX_BS + nact * LX_BS * LX_T
+                             + cap_c * LX_BS * LX_T)
+        rec = {"fraction": frac, "b_blocks": nact, "c_blocks": cap_c,
+               "c_fraction": cap_c / nb, "ms": ms, "dense_b5_ms": dense_ms,
+               "max_abs_err": err, "err_bound": err_bound, "nnz": nnz,
+               "bytes": nbytes, "format_bytes": format_nbytes,
+               **bound(nbytes, 2 * nnz * LX_T),
+               "format_bound_ms": bound(format_nbytes, 2 * cap_c * s32 * LX_BS
+                                        * LX_BS * LX_T)["bound_ms"]}
+        packed.append(rec)
+        log(f"[lx] spmsv_packed bs {LX_BS} t {LX_T}, B active {nact}/{nb} "
+            f"({frac:.4f}), C active {cap_c} ({cap_c / nb:.4f}): device "
+            f"{ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB: the {nnz} entries in B's active columns, B, "
+            f"C), format bound {rec['format_bound_ms']:.4f} ms ("
+            f"{format_nbytes / 1e6:.1f} MB: C's active rows of dense blocks, B, "
+            f"C); dense-carrier B5 on the same panel {dense_ms:.4f} ms; "
+            f"max|packed − B5| {err:.3e} (bound {err_bound:.3e}) | {card}")
+    base = packed[-1]["ms"]
+    log("[lx] spmsv_packed cost against the active fraction: "
+        + ", ".join(f"C {r['c_fraction']:.4f} -> {r['ms'] / base:.3f} of the full"
+                    for r in packed) + f" | {card}")
+
+    # TSQR and A-CholQR on a (n, 12) panel
+    sync(dev)
+    t0 = time.perf_counter()
+    q, r = tsqr(p)
+    sync(dev)
+    tsqr_s = time.perf_counter() - t0
+    r_ref = sign_fixed(torch.linalg.qr(p, mode="r").R)
+    tsqr_rec = {"orth": _orth_err(q), "r_rel": _fro(r - r_ref) / _fro(r_ref),
+                "recon": _fro(q @ r - p) / _fro(p), "secs": tsqr_s}
+    ptap = pt.double().T @ a_pt.double()
+    cholqr_rec = {"a_orth": _fro(ptap - torch.eye(LX_T, dtype=ptap.dtype, device=dev)),
+                  "ap_consistency": _fro(apt - a_pt) / _fro(a_pt), "secs": cholqr_s}
+    log(f"[lx] tsqr ({n} x {LX_T}, 8 leaves): ‖QᵀQ − I‖_F {tsqr_rec['orth']:.3e}, "
+        f"‖R − R_qr‖/‖R_qr‖ {tsqr_rec['r_rel']:.3e} (torch.linalg.qr's R, signs "
+        f"fixed), ‖QR − P‖/‖P‖ {tsqr_rec['recon']:.3e}, {tsqr_s:.4f} s; a_cholqr "
+        f"with B5's AP: ‖P̃ᵀAP̃ − I‖_F {cholqr_rec['a_orth']:.3e}, ‖ÃP − AP̃‖/‖AP̃‖ "
+        f"{cholqr_rec['ap_consistency']:.3e}, {cholqr_s:.4f} s (2 B5 products "
+        f"included) | {card}")
+    if not (tsqr_rec["orth"] < LX_ORTH_TOL and tsqr_rec["r_rel"] < LX_ORTH_TOL
+            and tsqr_rec["recon"] < LX_ORTH_TOL):
+        fail(f"[lx] tsqr off: {tsqr_rec}")
+    if not cholqr_rec["a_orth"] < LX_ORTH_TOL:
+        fail(f"[lx] a_cholqr off: {cholqr_rec}")
+
+    # TP-QR and TP-CUR on the s-step basis [B, AB, ..., A^8 B]
+    basis = torch.cat(panels, dim=1).contiguous()
+    sv = torch.linalg.svdvals(torch.linalg.qr(basis.double(), mode="r").R)
+    norm_b = float(torch.sqrt(torch.sum(sv ** 2)))
+    best = float(torch.sqrt(torch.sum(sv[LX_K:] ** 2))) / norm_b
+    tp = {}
+    for name in ("tp_qr", "tp_cur"):
+        steps = Timers(device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        out = getattr(tournament, name)(basis, LX_K, timers=steps)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        if name == "tp_qr":
+            qk, rk, cols = out
+            approx, rows = qk @ rk, None
+            orth = _orth_err(qk)
+        else:
+            c_k, u_k, r_k, cols, rows = out
+            approx, orth = c_k @ u_k @ r_k, None
+        err = _fro(basis - approx) / norm_b
+        rec = {"rel_err": err, "best_rank_k": best, "orth": orth, "secs": secs,
+               "cols": cols.tolist(), "rows": None if rows is None else rows.tolist(),
+               "steps_s": steps.as_dict(), "calls": dict(steps.count)}
+        tp[name] = rec
+        log(f"[lx] {name} of the s-step basis ({n} x {basis.shape[1]}), k {LX_K}: "
+            f"‖S − approx‖_F/‖S‖_F {err:.3e} (best rank {LX_K}: {best:.3e})"
+            + (f", ‖QᵀQ − I‖_F {orth:.3e}" if orth is not None else "")
+            + f"; {secs:.3f} s, by step (s, calls): "
+            + json.dumps({k: [round(v, 4), steps.count[k]] for k, v in steps.acc.items()})
+            + f" (pivoted_cholesky inside tournament_select) | {card}")
+        if not (np.isfinite(err) and err < 1.0):
+            fail(f"[lx] {name}: relative error {err:.3e}")
+        if len(set(rec["cols"])) != LX_K or (rows is not None
+                                             and len(set(rec["rows"])) != LX_K):
+            fail(f"[lx] {name}: repeated selections")
+        if orth is not None and not orth < LX_ORTH_TOL:
+            fail(f"[lx] {name}: ‖QᵀQ − I‖_F {orth:.3e}")
+    del bell, ab, absmat, basis, panels, plain_panels
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[lx] phase {secs:.1f} s | {card}")
+    return {"n": n, "setup_s": setup_s, "chain_fractions": fractions,
+            "dense_at_step": dense_at, "chain_s": chain_s, "chain_err": chain_err,
+            "launches": launches, "packed": packed, "tsqr": tsqr_rec,
+            "a_cholqr": cholqr_rec, **tp, "phase_s": secs, "card": card}, launches
 
 
 # --- the native host library and the general-matrix single-device API -----
@@ -2551,9 +2968,9 @@ def api_schur_phases(dev):
     the CLI's defaults through ``python -m prealps_tpu_torch.cli lorasc``
     on the card, -p lorasc (direct eigensolve) and -p presc (ssloc), in f64
     (held to JAX's CPU counts ±1, and their ECGSolver builds to JAX's
-    pairs) and in f32 (the card's default: logged beside JAX's counts, held
-    to convergence); then PRESC with the banded local Schur complements
-    (block_banded_schur on the card) through ECGSolver, f64."""
+    pairs) and, -p presc, in f32 (the card's default: logged beside JAX's
+    count, held to convergence); then PRESC with the banded local Schur
+    complements (block_banded_schur on the card) through ECGSolver, f64."""
     import numpy as np
 
     from prealps_tpu_torch.api import ECGSolver
@@ -2568,7 +2985,9 @@ def api_schur_phases(dev):
         anchor = API_ANCHORS[path]
         rec = {"n": a.shape[0]}
         if path != "api_presc_banded":
-            for dname in ("f64", "f32"):
+            # the f32 -p lorasc run (6,063 iterations, ~33 s, logged only) was
+            # cut to keep the script inside its time limit
+            for dname in ("f64",) if path == "api_lorasc" else ("f64", "f32"):
                 rc, line = _cli_json([
                     "-p", precond, "--size", _size_arg(problem), "--nparts",
                     str(kw["nparts"]), "-e", str(opts["t"]), "-t", str(opts["tol"]),
@@ -2927,6 +3346,10 @@ def main() -> int:
         "build_stages_s": gsolver.timings, "anchor_iters": GENERAL_ANCHOR_ITERS}
     del gsolver, gops
 
+    # --- 9a. the communication-avoiding kernel tier: spMSV, TSQR, CholQR,
+    # tournament pivoting on the same operator, B5 its product ---
+    lx_path, lx_launches = lx_phase(dev, a, smi)
+
     # --- 10. fmt="ell" through the device double-float rounds ---
     nel_e = 20
     a_e = elasticity3d(nel_e, nel_e, nel_e, heterogeneous=False)
@@ -3019,7 +3442,7 @@ def main() -> int:
                                csr=shard_csr))
     del table, shard_flat, shard_csr
     # --- 30-31. over spawned ranks sharing the card through gloo ---
-    sharded4 = sharded4_phase(nel, x_main)
+    sharded4 = sharded4_phase(nel, x_main, smi)
     dryrun = sharded_dryrun_phase()
     # --- 32-33. the distributed LORASC driver over 8 spawned ranks ---
     dlorasc = dlorasc_phase()
@@ -3037,7 +3460,8 @@ def main() -> int:
         "lane_checks": b2a + b2b, "lane_bf16_checks": b2a_bf16 + b2b_bf16,
         "b3_checks": b3, "b4_checks": b4,
         "dia_checks": b1_dia + b2b_dia, "main_path": main_path,
-        "general_path": general_path, "ell_path": ell_path, "bj_path": bj_path,
+        "general_path": general_path, "lx": lx_path, "ell_path": ell_path,
+        "bj_path": bj_path,
         "lorasc_path": lorasc_path, **presc_paths, "dia_path": dia_path,
         "auto_path": auto_path, "spmm_sweep": spmm_recs, **a1_paths,
         "sharded_nccl1": nccl1, "sharded4": sharded4, "sharded_dryrun": dryrun,
@@ -3090,7 +3514,7 @@ def main() -> int:
     # B5's count on each path's solve: [general]'s, and each sharded rank's
     b5 = entry("block_ell_spmm_pallas", "block_ell.cu", "ops/spmm.py:97", glaunches,
                b5_checks)
-    b5["path_launches"] = {"general": glaunches,
+    b5["path_launches"] = {"general": glaunches, "lx": lx_launches,
                            "sharded_general4": sharded_general4["launches"]}
     kernels = {"kernels": [
         b1,

@@ -12,6 +12,7 @@ each piece has an obvious counterpart:
 * ``direct``   device block-Jacobi assembly and inversion
 * ``precond``  the two-level block-Jacobi preconditioner
 * ``parallel`` the ``DistributedECG`` driver (one GPU)
+* ``utils``    host phase timers, profiler traces, debug printing
 
 The device is always explicit: nothing here picks CUDA or CPU by itself.
 """

@@ -15,6 +15,8 @@ CUDA where there is no card raises.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -37,3 +39,9 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' explicitly to run on the host")
     return dev
+
+
+# The reference's compile-time debug flag (make.inc USE_DEBUG) as an
+# environment knob, read once at import as in prealps_tpu/config.py:66-67:
+# utils/debug.py prints only when it is set.
+DEBUG = bool(int(os.environ.get("PREALPS_TPU_DEBUG", "0")))

@@ -26,12 +26,10 @@ import tempfile
 
 import numpy as np
 
-PATHS = {   # the dry run's builds: keywords and ECG variant (chip_smoke's DLORASC_DRY)
-    "dry_lorasc": (dict(nshards=8), "odir_fused"),
-    "dry_lorasc_2level": (dict(mesh_shape=(4, 2), max_deflation=16), "odir_fused"),
-    "dry_lorasc_deflation": (dict(nshards=8, exact_schur=False, correction="deflate",
-                                  max_deflation=64), "omin"),
-}
+from prealps_tpu_torch.dryrun import LORASC_PATHS, lorasc_build_args
+
+# the dry run's LORASC builds over 8 ranks: keywords and ECG variant
+PATHS = {name: lorasc_build_args(name, 8) for name in LORASC_PATHS}
 
 
 def moved(obj, device):

@@ -10,14 +10,18 @@ from __future__ import annotations
 
 import torch
 
-from prealps_tpu_torch.parallel.mesh import all_reduce
+from prealps_tpu_torch.parallel.mesh import all_reduce, timing_no_collectives
 
 
 def psum(x, group=None):
     """Cross-shard sum of a local partial result: an all-reduce over the
     process group (``parallel/mesh.py::all_reduce``, on a contiguous copy),
-    and the identity without one (one shard), as JAX's ``psum(x, None)``."""
-    return x if group is None else all_reduce(x, group)
+    and the identity without one (one shard), as JAX's ``psum(x, None)``.
+    Also the identity under the timing ablation
+    (``mesh.timing_no_collectives``: wrong results by construction)."""
+    if group is None or timing_no_collectives():
+        return x
+    return all_reduce(x, group)
 
 
 def chol_masked(c: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -55,7 +59,7 @@ def left_trit_solve(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(u.mT, b, upper=False)
 
 
-def pivoted_cholesky(c: torch.Tensor, tol: float):
+def pivoted_cholesky(c: torch.Tensor, tol: float, steps: int | None = None):
     """Rank-revealing upper Cholesky with diagonal pivoting (dpstrf analog).
 
     Returns (U, piv, rank): C[piv][:, piv] ≈ UᵀU with U upper triangular and
@@ -64,6 +68,12 @@ def pivoted_cholesky(c: torch.Tensor, tol: float):
     loop, so it picks the same pivots: the largest remaining diagonal, the
     first one on ties (``argmax``). t steps of small device operations, no
     host synchronisation; rank is a 0-d tensor.
+
+    ``steps`` (default t) stops the loop early: a step never moves an
+    earlier pivot, so ``piv[:steps]`` is then exactly the full loop's, and
+    U and rank cover those steps only. Column selection
+    (``ops/tournament.py::qrcp_select``) needs only its k pivots of a
+    candidate Gram that may be thousands wide.
     """
     t = c.shape[0]
     dev = c.device
@@ -76,7 +86,7 @@ def pivoted_cholesky(c: torch.Tensor, tol: float):
     rank = torch.zeros((), dtype=torch.int32, device=dev)
     neg_inf = torch.tensor(float("-inf"), dtype=c.dtype, device=dev)
     zero = torch.zeros((), dtype=c.dtype, device=dev)
-    for k in range(t):
+    for k in range(t if steps is None else min(steps, t)):
         d = torch.diagonal(a)
         j = torch.argmax(torch.where(idx >= k, d, neg_inf))
         # swap rows/cols k <-> j (perm[k] = j, then perm[j] = k)

@@ -75,7 +75,13 @@ from prealps_tpu_torch.ops.formats import (
     EllMatrix,
     StencilBsrTMatrix,
 )
-from prealps_tpu_torch.parallel.mesh import all_gather, rank_of, ring_exchange, size_of
+from prealps_tpu_torch.parallel.mesh import (
+    all_gather,
+    rank_of,
+    ring_exchange,
+    size_of,
+    timing_no_collectives,
+)
 
 
 def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -309,9 +315,12 @@ def extend_ring(xf: torch.Tensor, halo: int, group) -> torch.Tensor:
     extension, nodes s·nrb − halo to (s + 1)·nrb + halo (mod the node
     count): the JAX driver's all-gather-and-roll branch (:749-754), which
     also holds where the window is longer than the panel. One shard (or no
-    group) is ``extend_wrap``."""
+    group) is ``extend_wrap``, and so is every shard under the timing
+    ablation (``mesh.timing_no_collectives``: the JAX driver's
+    prealps_tpu/parallel/driver.py:727-733; wrong results by construction,
+    no communication)."""
     world = size_of(group)
-    if world == 1:
+    if world == 1 or timing_no_collectives():
         return extend_wrap(xf, halo)
     nrb = xf.shape[-1]
     if halo <= nrb:

@@ -138,7 +138,6 @@ from prealps_tpu_torch.direct.device_bj import (
     build_device_block_jacobi_grouped,
     csr_slab_groups,
 )
-from prealps_tpu_torch.ops.blockops import psum
 from prealps_tpu_torch.ops.doublefloat import df_add
 from prealps_tpu_torch.ops.formats import (
     BlockEllMatrix,
@@ -166,6 +165,7 @@ from prealps_tpu_torch.ops.spmm import (
 )
 from prealps_tpu_torch.parallel.mesh import (
     all_gather,
+    all_reduce,
     all_to_all,
     backend_of,
     check_backend_device,
@@ -183,6 +183,7 @@ from prealps_tpu_torch.precond.twolevel import (
 )
 from prealps_tpu_torch.solvers.ecg import ECGOptions, ECGResult, ecg_solve
 from prealps_tpu_torch.solvers.refine import INNER_TOL, STALL_RATIO, STALL_WINDOW
+from prealps_tpu_torch.utils.timing import sync
 
 MAX_REFINE_ROUNDS = 8
 Q_MODES = 6          # rigid-body coarse modes per block (3-D elasticity)
@@ -551,11 +552,6 @@ class StencilNtOperands(_RowMajor):
         return y.reshape(x.shape)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 Operands = Union[StencilOperands, DiaLaneOperands, EllOperands,
                  BlockEllOperands, DiaOperands, StencilNtOperands]
 LANE_FORMATS = ("stencil", "dia")
@@ -743,7 +739,7 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
         .transpose(1, 2, 3, 0).reshape(s_off * br * br, nrb_loc)
     )).to(device)
     del blocks_host
-    _sync(device)
+    sync(device)
     stage("fmt_convert")
 
     ops = StencilOperands(blocks_flat=blocks_flat, offsets=offsets, br=br)
@@ -774,7 +770,7 @@ def _stencil_operands(a, kind, br, block_size, grid, scale_d, dtype, device,
         ops.ac_inv = torch.from_numpy(ac_inv).to(device)
     elif kind == "chebyshev":
         _chebyshev(ops, a_pad, *cheb, dtype, device)
-    _sync(device)
+    sync(device)
     stage("precond")
     return layout, ops
 
@@ -806,7 +802,7 @@ def _dia_lane_operands(a, kind, block_size, grid, dtype, device, stage,
     if mat.rem is not None:
         ops.rem_vals, ops.rem_cols = mat.rem.vals, mat.rem.cols
     ops.group, ops.shard = group, shard
-    _sync(device)
+    sync(device)
     stage("fmt_convert")
 
     if kind == "bj_device":
@@ -816,7 +812,7 @@ def _dia_lane_operands(a, kind, block_size, grid, dtype, device, stage,
         _device_block_jacobi(ops, diags_t, a_pad, mbn, dedupe, bj_dtype)
     elif kind == "chebyshev":
         _chebyshev(ops, a_pad, *cheb, dtype, device)
-    _sync(device)
+    sync(device)
     stage("precond")
     return layout, ops
 
@@ -852,7 +848,7 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
         mat, send_idx = _dia_shard(a_pad, layout, shard, dtype, device)
     else:
         mat, send_idx = _ell_shard(a_pad, layout, shard, dtype, device)
-    _sync(device)
+    sync(device)
     stage("fmt_convert")
 
     bj = None
@@ -873,7 +869,7 @@ def _general_operands(a, fmt, kind, br, block_size, nblocks_per_shard,
     ops.group, ops.shard = group, shard
     if kind == "chebyshev":
         _chebyshev(ops, a_pad, *cheb, dtype, device)
-    _sync(device)
+    sync(device)
     stage("precond")
     return layout, ops
 
@@ -1171,7 +1167,10 @@ class DistributedECG:
             return df_add((rh, rl), (-y2, torch.zeros_like(y2)))
 
         def gnorm(v):
-            return torch.sqrt(psum(torch.sum(v * v), self.group))
+            # a direct all-reduce, as the JAX driver's lax.psum (:1062): the
+            # timing ablation leaves the rounds' norms global
+            s = torch.sum(v * v)
+            return torch.sqrt(s if self.group is None else all_reduce(s, self.group))
 
         normb = gnorm(b_hi)
         tol_s = torch.tensor(self.target_tol, dtype=b_hi.dtype,

@@ -83,6 +83,7 @@ from prealps_tpu_torch.parallel.mesh import (
 )
 from prealps_tpu_torch.solvers.ecg import ECGOptions, ecg_solve
 from prealps_tpu_torch.solvers.refine import INNER_TOL, STALL_WINDOW, refine_solve
+from prealps_tpu_torch.utils.timing import sync
 
 # operand names by how the JAX build shards them (its ``specs``)
 FLAT_ROWS = ("ell_vals", "ell_cols", "w_lift")               # P((AXIS, LOC))
@@ -484,7 +485,7 @@ class DistributedLorascECG:
                 raise FloatingPointError(
                     "separator operator (Agg or exact Schur) is not SPD")
             ops["agg_fac"] = agg_fac
-        _sync(device)
+        sync(device)
         timings["factor"] = time.perf_counter() - mark
         tdt = ops["ell_vals"].dtype
         ops["e_mat"] = torch.zeros((plan["ng_pad"], 1), dtype=tdt, device=device)
@@ -501,7 +502,7 @@ class DistributedLorascECG:
             mark = time.perf_counter()
             solver._deflate(deflation_tol, max_deflation, ncv, eig_resid_tol,
                             restarts, correction, share)
-            _sync(device)
+            sync(device)
             timings["lanczos"] = time.perf_counter() - mark
         return solver
 
@@ -756,8 +757,3 @@ class DistributedLorascECG:
         info = {"iters": int(res.iters), "res": float(res.res),
                 "normb": float(res.normb), "breakdown": bool(res.breakdown)}
         return x, info
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

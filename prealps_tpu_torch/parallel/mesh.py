@@ -7,7 +7,9 @@ device mesh; here one process runs each shard (SPMD), joined by a
 
 * ``init_group`` joins a process to a group and ``shard_device`` names its
   device: ``device="cuda"`` is ``cuda:{rank}`` (one host, one card a rank)
-  and raises where that card is absent. NCCL needs a card of its own for
+  and raises where that card is absent; ``rank_device`` picks the device
+  to hand ranks spawned on one host (``cuda:0``, shared, where the host has
+  fewer cards than ranks). NCCL needs a card of its own for
   each rank, so ranks that share one card name it (``"cuda:0"``) and a
   ``gloo`` group; ``init_group`` refuses an NCCL group of several ranks on
   one card before it joins. Nothing here picks a backend or a device.
@@ -32,6 +34,12 @@ device mesh; here one process runs each shard (SPMD), joined by a
   (its point-to-point operations take CPU tensors), an NCCL group moves
   device tensors as they are. Each collective counts its calls
   (``all_reduce.calls``, ...).
+* ``timing_no_collectives`` reads the timing ablation's knob,
+  ``PREALPS_TIMING_NO_COLLECTIVES``: with it set, ``ops/blockops.py::psum``
+  is the identity and ``ops/spmm.py::extend_ring`` wraps the shard's own
+  panel, so a solve runs its local work alone. Results are wrong by
+  construction; ``examples/weak_scaling.py`` and chip_smoke's ``[sharded4]``
+  use it to split an iteration's time into compute and communication.
 
 Every rank must issue the same collectives in the same order, so every
 decision a rank takes on the host is taken on replicated values: all-reduced
@@ -42,12 +50,17 @@ from __future__ import annotations
 
 import datetime
 import multiprocessing as mp
+import os
+import pickle
 import queue
+import tempfile
 import time
 import traceback
 
 import torch
 import torch.distributed as dist
+
+from prealps_tpu_torch.config import resolve_device
 
 
 def shard_device(device, rank: int = 0) -> torch.device:
@@ -69,6 +82,25 @@ def shard_device(device, rank: int = 0) -> torch.device:
             f"{torch.cuda.device_count()} card(s); ranks that share a card "
             "name it (device='cuda:0') and a gloo group")
     return dev
+
+
+SHARED_NOTE = ("ranks share one card through gloo: host round trips between "
+               "processes, not scaling")
+
+
+def rank_device(device, world: int) -> tuple:
+    """(the device to give every rank, whether the ranks share one card)
+    for a gloo group of ``world`` ranks on one host: ``"cuda"`` stays
+    ``"cuda"`` (``cuda:{rank}``, see ``shard_device``) where the host has a
+    card a rank, else every rank shares ``cuda:0``; an explicit device is
+    kept. Raises if the card is absent. Times taken by ranks that share a
+    card time host round trips, not scaling (``SHARED_NOTE``)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return device, False
+    if dev.index is None and torch.cuda.device_count() >= world:
+        return "cuda", False
+    return (device if dev.index is not None else "cuda:0"), world > 1
 
 
 def check_backend_device(backend: str, world: int, device, rank: int) -> None:
@@ -110,6 +142,20 @@ def init_group(backend: str, rank: int | None = None, world: int | None = None,
     return dist.group.WORLD
 
 
+def timing_no_collectives() -> bool:
+    """The timing ablation (``PREALPS_TIMING_NO_COLLECTIVES=1``), read at
+    every call: the cross-shard sums of ``ops/blockops.py::psum`` and the
+    ring halo of ``ops/spmm.py::extend_ring`` become local no-ops, so an
+    iteration runs exactly its local compute. Results are WRONG by
+    construction: it exists only to time a solve without its
+    communication (the JAX package's ``ops/blockops.py:20-28``) and is
+    never on by default. The other collectives (all-gathers, all-to-alls,
+    broadcasts) still run. Ranks started by ``spawn`` inherit it only if
+    it is set before the spawn; a rank that sets it itself unsets it
+    before its next solve."""
+    return bool(int(os.environ.get("PREALPS_TIMING_NO_COLLECTIVES", "0")))
+
+
 def rank_of(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
@@ -144,11 +190,14 @@ def mesh_groups(group, shape: tuple):
     return rank // l_n, rank % l_n, local
 
 
-def _rank_main(fn, rank, world, args, backend, init_method, timeout,
-               threads, results):
-    """One spawned rank: join the group, run ``fn(rank, group, *args)``,
-    hand back its result or its traceback."""
+def _rank_main(job, rank, world, backend, init_method, timeout, threads,
+               results):
+    """One spawned rank: read (fn, args) from the file ``job``, join the
+    group, run ``fn(rank, group, *args)``, hand back its result or its
+    traceback."""
     try:
+        with open(job, "rb") as f:
+            fn, args = pickle.load(f)
         torch.set_num_threads(threads)
         group = init_group(backend, rank, world, init_method, timeout)
         out = (rank, True, fn(rank, group, *args))
@@ -166,18 +215,26 @@ def spawn(fn, nprocs: int, args: tuple = (), *, init_method: str,
     pickle (``fn`` a module-level function), and so must the results.
     Raises RuntimeError if a rank fails or exits without a result, and
     TimeoutError if the ranks have not all finished within ``timeout``
-    seconds; either way every rank still running is killed first."""
+    seconds; either way every rank still running is killed first.
+
+    ``fn`` and ``args`` reach the ranks through one temporary file, not
+    through each process's start: a start whose data outgrows the pipe's
+    buffer waits until the new process reads it, so large arguments
+    started the ranks one after another."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    fd, job = tempfile.mkstemp(prefix="prealps_spawn_", suffix=".pkl")
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, nprocs, args, backend, init_method,
-                               timeout, threads, results))
+                         args=(job, r, nprocs, backend, init_method, timeout,
+                               threads, results))
              for r in range(nprocs)]
-    for p in procs:
-        p.start()
     done, errors = {}, {}
     deadline = time.monotonic() + timeout
     try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
+        for p in procs:
+            p.start()
         while len(done) < nprocs and not errors:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -199,11 +256,14 @@ def spawn(fn, nprocs: int, args: tuple = (), *, init_method: str,
             if p.is_alive() and (errors or len(done) < nprocs):
                 p.kill()
         for p in procs:
+            if p.pid is None:        # never started
+                continue
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
                 p.join(timeout=30)
         results.close()
+        os.unlink(job)
     if errors:
         raise RuntimeError("\n".join(f"rank {r} of {nprocs} failed: {msg}"
                                      for r, msg in sorted(errors.items())))

@@ -61,6 +61,7 @@ from prealps_tpu_torch.ops.lanczos import (
     resolve_block_policy,
 )
 from prealps_tpu_torch.ops.spmm import stencil_bsr_spmm_t
+from prealps_tpu_torch.utils.timing import sync
 
 
 # ---------------------------------------------------------------------------
@@ -635,11 +636,6 @@ def _host_refine_pairs(a: sp.csr_matrix, plan: ArrowBandPlan,
     return lam[sel], e / bn[None, :]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _torch_dtype(dtype) -> torch.dtype:
     return {np.dtype(np.float32): torch.float32,
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
@@ -699,7 +695,7 @@ def build_scalable_lorasc(
 
     def _mark(stage):
         nonlocal t0
-        _sync(device)
+        sync(device)
         now = time.perf_counter()
         timings[stage] = round(now - t0, 2)
         t0 = now

@@ -413,9 +413,11 @@ def test_sharded_formats_problems_are_the_jax_tests():
 def test_lorasc_anchor_cases_are_the_dryrun_builds(path, mesh):
     """The distributed LORASC anchors' cases: ``__graft_entry__``'s nel-8
     problem in f32, t 2 to 1e-6, omin on the deflation path, the mesh as
-    ``nshards`` or ``mesh_shape``, and chip_smoke's builds the same."""
-    import chip_smoke
+    ``nshards`` or ``mesh_shape``, and the port's dry-run builds
+    (``prealps_tpu_torch/dryrun.py``, which chip_smoke's [dlorasc_dryrun]
+    runs) the same, on the same problem."""
     from __graft_entry__ import _problem as graft_problem
+    from prealps_tpu_torch import dryrun
 
     (a, b), kw = lorasc_case(path, mesh)
     a_j, b_j = graft_problem(nel=DRYRUN_NEL, dtype=np.float32)
@@ -425,8 +427,11 @@ def test_lorasc_anchor_cases_are_the_dryrun_builds(path, mesh):
     assert opts == dict(t=2, tol=1e-6, maxiter=6000,
                         variant="omin" if path == "dry_lorasc_deflation" else "odir_fused")
     assert kw.pop("dtype") == np.float32
-    smoke_kw, variant = chip_smoke.DLORASC_DRY[path]
+    smoke_kw, variant = dryrun.lorasc_build_args(path, mesh[0] * mesh[1])
     assert kw == smoke_kw and variant == opts["variant"]
+    a_t, b_t = dryrun.problem(np.float32)
+    assert (a_t != a_j).nnz == 0
+    np.testing.assert_array_equal(b_t, b_j)
 
 
 if __name__ == "__main__":

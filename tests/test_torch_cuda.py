@@ -1088,3 +1088,138 @@ def test_native_library_on_the_card_machine(cuda_device):
     assert native.available(), native.build_info
     part = partition.kway_partition(elasticity3d(6, 5, 5), 4)
     assert sorted(set(part.tolist())) == [0, 1, 2, 3]
+
+
+# --- the communication-avoiding tier (ops/tsqr, cholqr, tournament, spmsv) ---
+
+def _lx_panel(m, t, seed, device, dtype=torch.float64):
+    x = np.random.default_rng(seed).standard_normal((m, t))
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def test_tsqr_and_cholqr_on_card_match_cpu(cuda_device):
+    """f64 on cuSOLVER against the CPU's LAPACK: R, Q and the CholQR
+    factors within 1e-10; the f32 TSQR orthonormal to f32 rounding."""
+    from prealps_tpu_torch.ops import cholqr as tc
+    from prealps_tpu_torch.ops import tsqr as tq
+
+    x = _lx_panel(3000, 12, 0, "cpu")
+    xc = x.to(cuda_device)
+    np.testing.assert_allclose(tq.tsqr_r(xc).cpu().numpy(), tq.tsqr_r(x).numpy(),
+                               rtol=1e-10, atol=1e-10)
+    for got, want in zip(tq.tsqr(xc), tq.tsqr(x)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+    for got, want in zip(tc.cholqr2(xc), tc.cholqr2(x)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+    a = torch.from_numpy(elasticity3d(5, 4, 4).toarray())
+    p = _lx_panel(a.shape[0], 6, 1, "cpu")
+    got = tc.a_cholqr(p.to(cuda_device), (a @ p).to(cuda_device))
+    for g, w in zip(got, tc.a_cholqr(p, a @ p)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-9, atol=1e-10)
+    q, _ = tq.tsqr(xc.float())
+    eye = torch.eye(12, device=cuda_device)
+    assert float((q.T @ q - eye).abs().max()) < 1e-5
+
+
+def test_tournament_on_card_matches_cpu(cuda_device):
+    """The same selections on the card and the host (f64), and TP-QR /
+    TP-CUR approximations as good; the f32 panel's pivoting runs in f64 on
+    the card too."""
+    from prealps_tpu_torch.ops import tournament as tt
+
+    rng = np.random.default_rng(42)
+    a = rng.standard_normal((300, 10)) @ rng.standard_normal((10, 60))
+    a += 1e-6 * rng.standard_normal(a.shape)
+    ah = torch.from_numpy(a)
+    ac = ah.to(cuda_device)
+    assert tt.tournament_select(ac, 10).tolist() == tt.tournament_select(ah, 10).tolist()
+    q, r, cols = tt.tp_qr(ac, 10)
+    assert cols.tolist() == tt.tp_qr(ah, 10)[2].tolist()
+    assert float(torch.linalg.norm(q @ r - ac) / torch.linalg.norm(ac)) < 1e-4
+    c, u, rr, cols, rows = tt.tp_cur(ac, 10)
+    ch = tt.tp_cur(ah, 10)
+    assert cols.tolist() == ch[3].tolist() and rows.tolist() == ch[4].tolist()
+    assert float(torch.linalg.norm(c @ u @ rr - ac) / torch.linalg.norm(ac)) < 1e-4
+    sel32 = tt.tournament_select(ac.float(), 10)
+    assert len(set(sel32.tolist())) == 10
+
+
+def test_spmsv_packed_on_card_matches_cpu_without_a_sync(cuda_device):
+    """spmsv_packed in f32 on the card against the CPU, and its device part
+    issues no synchronising operation (chip_smoke times it by device
+    time)."""
+    from prealps_tpu_torch.ops import spmsv as ts
+
+    a = elasticity3d(6, 6, 6, heterogeneous=False)
+    bs = 32
+    ab_h = tfmt.csr_to_block_ell(a, bm=bs, bk=bs, dtype=np.float32)
+    ab_c = tfmt.csr_to_block_ell(a, bm=bs, bk=bs, dtype=np.float32, device=cuda_device)
+    nb = ab_h.blocks.shape[0]
+    g = ts.block_support_graph(a, np.minimum(np.arange(nb + 1) * bs, a.shape[0]))
+    active = np.array([1, 4, 9])
+    b = _lx_panel(nb * bs, 12, 3, "cpu", torch.float32)
+    out = {}
+    for name, ab, dev in (("cpu", ab_h, "cpu"), ("cuda", ab_c, cuda_device)):
+        ids, vals = ts.pack_multivector(b.to(dev), bs, active, cap=5)
+        c_ids = ts.predict_c_support(g, active, nb)
+        c_ids_d, c_vals = ts.spmsv_packed(ab, ids, vals, c_ids, len(c_ids) + 2)
+        out[name] = ts.unpack_multivector(c_ids_d, c_vals, nb).cpu()
+        if name == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode(2)
+            try:
+                ts.spmsv_packed_device(ab, ids, vals, c_ids_d)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= KERNEL_TOL * scale
+
+
+def test_spmsv_chain_through_b5_matches_plain(cuda_device):
+    """The dense-carrier s-step chain with B5 as A's product against the
+    same chain through block_ell_spmm: one launch a step, the supports
+    equal, every panel within KERNEL_TOL of |A|·|x|."""
+    from prealps_tpu_torch.ops import spmsv as ts
+
+    a = elasticity3d(8, 8, 8, heterogeneous=False)
+    n = a.shape[0]
+    mat = tfmt.csr_to_block_ell(a, bm=8, bk=128, dtype=np.float32, device=cuda_device)
+    mat.entries = tfmt.pack_block_ell_entries(mat)
+    absmat = tfmt.BlockEllMatrix(mat.blocks.abs(), mat.blkcols, mat.shape)
+    pad = mat.shape[1] - n
+
+    def product(fn, m):
+        return lambda x: fn(m, torch.cat([x, x.new_zeros((pad, x.shape[1]))]))[:n]
+
+    offsets = np.linspace(0, n, 17).astype(np.int64)
+    g = ts.block_support_graph(a, offsets)
+    s0 = np.zeros(16, dtype=bool)
+    s0[:2] = True
+    b = _lx_panel(n, 12, 4, cuda_device, torch.float32)
+    before = tspmm.block_ell_spmm_pallas.launches
+    pk, sk = ts.spmsv_chain(product(tspmm.block_ell_spmm_pallas, mat), b, s0, g,
+                            offsets, 5)
+    assert tspmm.block_ell_spmm_pallas.launches == before + 5
+    pp, sp_ = ts.spmsv_chain(product(tspmm.block_ell_spmm, mat), b, s0, g, offsets, 5)
+    prev = b.clone()
+    prev[offsets[2]:] = 0
+    for j in range(1, 6):
+        assert np.array_equal(sk[j], sp_[j])
+        scale = product(tspmm.block_ell_spmm, absmat)(prev.abs())
+        assert bool(((pk[j] - pp[j]).abs() <= KERNEL_TOL * scale + 1e-30).all())
+        prev = pp[j]
+
+
+def test_dryrun_multichip_on_card(cuda_device):
+    """``dryrun.py::dryrun_multichip`` over 8 ranks sharing the card (gloo,
+    f32): the six paths converge by their true residual, every rank the
+    same x, LORASC the fewest iterations, the deflation path deflating."""
+    from prealps_tpu_torch.dryrun import NAMES, dryrun_multichip
+
+    out = dryrun_multichip(8, device="cuda:0", backend="gloo")
+    assert set(out) == set(NAMES)
+    assert all(rec["relres"] < 1e-4 and rec["finite"] for rec in out.values())
+    assert out["dry_lorasc_deflation"]["deflated"] >= 1

@@ -449,3 +449,96 @@ def cli_runs(rank, group, runs):
             rc = cli.COMMANDS[command](argv)
         out.append((rc, buf.getvalue()))
     return out
+
+
+def _low_rank_plus_noise(rng, m, n, rank, noise=1e-6):
+    """tests/test_tournament_dist.py's generator."""
+    u = rng.standard_normal((m, rank))
+    v = rng.standard_normal((rank, n))
+    scale = np.logspace(0, -3, rank)[:, None]
+    return u @ (scale * v) + noise * rng.standard_normal((m, n))
+
+
+def lx_inputs():
+    """The sharded LX cases' global inputs, each JAX test's from its own
+    default_rng(42): (the TSQR panel, selection cases name -> (a, k), TP-QR
+    cases, the planted columns of "dominant")."""
+    tsqr_x = np.random.default_rng(42).standard_normal((512, 4))
+    rng = np.random.default_rng(42)
+    dominant = _low_rank_plus_noise(rng, 96, 64, rank=6)
+    pos = np.array([0, 11, 22, 33, 44, 55])
+    dominant[:, pos] = rng.standard_normal((96, 6)) * 50.0
+    quality = _low_rank_plus_noise(np.random.default_rng(42), 80, 48, rank=16,
+                                   noise=1e-3)
+    qr = _low_rank_plus_noise(np.random.default_rng(42), 120, 64, rank=10,
+                              noise=1e-9)
+    return tsqr_x, {"dominant": (dominant, 6), "quality": (quality, 8)}, \
+        {"tp_qr": (qr, 10)}, pos
+
+
+def lx_sharded(rank, group):
+    """The sharded communication-avoiding kernels on this rank's part of
+    ``lx_inputs``: ``tsqr_r_distributed`` on its rows of the TSQR panel,
+    ``tournament_select_sharded`` on its columns of each selection case and
+    ``tp_qr_sharded`` on each TP-QR case; returns their results as numpy,
+    with the collective counts of the whole job."""
+    from prealps_tpu_torch.ops.tournament import tournament_select_sharded, tp_qr_sharded
+    from prealps_tpu_torch.ops.tsqr import tsqr_r_distributed
+
+    tsqr_x, select_cases, qr_cases, _ = lx_inputs()
+    world = mesh.size_of(group)
+    mesh.all_gather.calls = 0
+
+    def rows(x):
+        m = x.shape[0] // world
+        return torch.from_numpy(np.ascontiguousarray(x[rank * m:(rank + 1) * m]))
+
+    def cols(a):
+        n = a.shape[1] // world
+        return torch.from_numpy(np.ascontiguousarray(a[:, rank * n:(rank + 1) * n]))
+
+    out = {"tsqr_r": tsqr_r_distributed(rows(tsqr_x), group).numpy()}
+    for name, (a, k) in select_cases.items():
+        out[name] = tournament_select_sharded(cols(a), group, k).numpy()
+    for name, (a, k) in qr_cases.items():
+        q, r_loc, c = tp_qr_sharded(cols(a), group, k)
+        out[name] = (q.numpy(), r_loc.numpy(), c.numpy())
+    out["all_gather_calls"] = mesh.all_gather.calls
+    return out
+
+
+def ablation(rank, group, world, case):
+    """The timing ablation (``PREALPS_TIMING_NO_COLLECTIVES``) on a
+    ``world``-rank subgroup of ``group`` (ranks below ``world``; the others
+    only join the subgroup's creation): one build on elasticity3d(6, 5, 5)
+    with b = default_rng(0), then solves with the knob unset, set to 0 and
+    set to 1 (unset again after). Returns the three x, their iteration
+    counts and the collective calls of each solve."""
+    import os
+
+    import torch.distributed as dist
+
+    from prealps_tpu_torch.core.generators import elasticity3d
+
+    a = elasticity3d(6, 5, 5)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+
+    sub = dist.new_group([dist.get_global_rank(group, r) for r in range(world)])
+    if rank >= world:
+        return None
+    kw = dict(case)
+    opts = ECGOptions(**kw.pop("opts"))
+    s = DistributedECG.build(a, nshards=world, opts=opts, device="cpu", group=sub, **kw)
+    counters = (mesh.all_reduce, mesh.all_gather, mesh.ring_exchange, mesh.all_to_all)
+    out = {}
+    for name, knob in (("plain", None), ("off", "0"), ("on", "1")):
+        for f in counters:
+            f.calls = 0
+        if knob is not None:
+            os.environ["PREALPS_TIMING_NO_COLLECTIVES"] = knob
+        try:
+            x, info = s.solve(b)
+        finally:
+            os.environ.pop("PREALPS_TIMING_NO_COLLECTIVES", None)
+        out[name] = (x, int(info["iters"]), {f.__name__: f.calls for f in counters})
+    return out

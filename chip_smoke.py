@@ -138,6 +138,19 @@ Phases (any failure exits nonzero before a result is printed):
     launched >= 2 × iterations) and three timed solves; then
     ``a_store="bf16_all"``, which must reproduce the JAX package's pinned
     failure (breakdown, or relres > 1e-3);
+19a. ``[lorasc_f64]`` the same het operator in f64: the f64 deflation
+    study's row at max_deflation 256 (``examples/deflation_study_f64.py``:
+    8 box parts, t 12 odir_fused to 1e-5, the build's defaults, one ECG
+    solve with no refinement) built by ``StencilLorascECG.build(a,
+    dtype=np.float64, device=...)``; every operand f64; build stages, pairs
+    beside the JAX package's 97, peak device memory; ``[kernel]`` lines of
+    B2a's f64 instance at t 12, 1 and nev (256) and of B2b's at t 1,
+    each within F64_KERNEL_TOL of its plain f64 version, with its device
+    time, its bound at 8 bytes an entry and ``torch.sparse.mm`` of the f64
+    CSR; the solve with B2a's counts zeroed (iterations within 5 % of
+    LORASC_F64_ANCHOR_ITERS, the JAX package's f64 solve on a CPU; B2a
+    launches >= 3 × iterations, every one the f64 instance), three timed
+    solves and one under torch.profiler (chiprun_out/profile_lorasc_f64.txt);
 20. ``[dia]`` fmt="dia" on lane-major panels at full size: elasticity3d 36³,
     its promoted diagonals (97 after RAC scaling, plus an ELL remainder) as
     a br = 1 stencil, device block Jacobi (1024-row blocks) from the
@@ -277,7 +290,7 @@ storage rounding); its bound counts two bytes a block entry. Every ``[kernel]`` 
 version's CUDA-event times, its bound (the larger of the bytes the
 product needs -- each input read once, each output written once, the
 stencil panel without its halo columns, B6's inverses unpadded -- over
-3.35 TB/s and its flops over 67 TFLOP/s f32) and, at each kernel's
+3.35 TB/s and its flops over 67 TFLOP/s f32, 34 TFLOP/s f64) and, at each kernel's
 first shape, the library yardstick: ``torch.sparse.mm`` of the same
 operator as a CSR matrix on the row-major (n, t) panel (cuSPARSE SpMM), and
 for B6 ``torch.bmm`` of the unpadded inverses.
@@ -294,7 +307,8 @@ B1's, B2a's, B2b's and B5's entries also list their count on every path's
 solve under ``path_launches`` (B1's and B5's also each sharded rank's,
 B5's also [lx]'s chain and A-CholQR),
 B2a's that of its bf16 instance under
-``bf16_launches``), and last ``{"ok": true, "device": {...}}``.
+``bf16_launches`` and of its f64 instance under ``f64_launches``), and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -302,12 +316,12 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-5          # max |y_kernel - y_plain| <= KERNEL_TOL * max(|B|·|x|)
+F64_KERNEL_TOL = 1e-13     # the same for the f64 instance (f64 sums, another order)
 SOLVE_TOL = 1e-5
 TPU_ANCHOR_ITERS = 130     # iterations of the same solve in the JAX package's record
 # the general path (block-ELL, host block Jacobi, nt, f32, tol 1e-5): the JAX
@@ -333,6 +347,16 @@ PRESC_ANCHOR_PAIRS = 61
 # iterations; SALOC at this size 2 pairs and 317 iterations
 PRESC_DEEP_READING = 229
 SALOC_READING = (2, 317)
+# [lorasc_f64]: the f64 deflation study's row at max_deflation 256
+# (prealps_tpu_torch/examples/deflation_study_f64.py: het 36³, 8 box parts,
+# t 12 odir_fused to 1e-5, the build's defaults, f64, no refinement): the
+# JAX StencilLorascECG on a CPU (python -m tests.test_torch_anchors --path
+# lorasc_f64 --nel 36): 54 iterations, 97 pairs, relres 6.99e-6 (the JAX
+# study's record, docs/PERFORMANCE.md:472-492, had 70 and 75 pairs at 256
+# from an older package; its 512 row is 54 and 97)
+LORASC_F64_DEFLATION = 256
+LORASC_F64_ANCHOR_ITERS = 54
+LORASC_F64_ANCHOR_PAIRS = 97
 # fmt="dia" on lane-major panels (elasticity3d 36³, bj, t 12, f32, tol 1e-5):
 # the JAX package's run of the same build on a CPU
 # (python -m tests.test_torch_anchors --nel 36: 182 iterations in 2 host
@@ -472,6 +496,7 @@ SHARDED_TIMEOUT = 420      # seconds a spawn of ranks may take before they are k
 # (NVIDIA's data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12          # f64 outside the tensor cores
 
 
 def sharded_formats_problem(name, elasticity3d):
@@ -518,13 +543,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def event_ms(fn, reps: int = 20, batches: int = 5, warm: int = 3):
     """CUDA-event time of one fn() call in ms: each of ``batches`` samples is
     ``reps`` calls back to back between two events, divided by ``reps`` (so
@@ -548,12 +566,13 @@ def event_ms(fn, reps: int = 20, batches: int = 5, warm: int = 3):
     return statistics.median(times), times
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, flops_rate: float = F32_FLOPS) -> dict:
     """The least time the card could take for a call: the larger of its
     bytes (each input read once, each output written once) over the HBM
-    rate and its operations over the f32 rate."""
+    rate and its operations over the rate of their type (f32 unless
+    ``flops_rate`` says otherwise)."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F32_FLOPS
+    by_ops = 1e3 * flops / flops_rate
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -635,7 +654,7 @@ def library_ms(csr, t, seed):
     import torch
 
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
-        (csr.shape[1], t)).astype(np.float32)).to(csr.device)
+        (csr.shape[1], t))).to(device=csr.device, dtype=csr.dtype)
     ms, _ = event_ms(lambda: torch.sparse.mm(csr, x), reps=10)
     return ms
 
@@ -720,11 +739,15 @@ def in_turns(kernel_fn, plain_fn, nbytes, reps=20):
             "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
 
 
-def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
+def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None,
+               device_time=False):
     """B2a (B2b with ``ext``, B3 with ``b3``) against its plain version on
     the card at width t; returns a record. On bf16 blocks (B2a, B2b) the
     kernel's output must also be bitwise the f32 instance's on the widened
-    blocks (the same sums in the same order)."""
+    blocks (the same sums in the same order). On f64 blocks the panel is
+    f64 (the f64 instance), held within F64_KERNEL_TOL, its bound at 8
+    bytes an entry and the f64 rate. With ``device_time`` the record adds
+    the kernel's device time (``timing.py::device_ms``)."""
     import numpy as np
     import torch
 
@@ -739,8 +762,10 @@ def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
 
     s_max, br, _, nrb = a_t.blocks_t.shape
     halo = max(abs(o) for o in a_t.offsets)
+    f64 = a_t.blocks_t.dtype == torch.float64
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
-        (t, br, nrb)).astype(np.float32)).to(a_t.blocks_t.device)
+        (t, br, nrb))).to(device=a_t.blocks_t.device,
+                          dtype=torch.float64 if f64 else torch.float32)
     x_ext = extend_wrap(x, halo).contiguous()
 
     def product(mat):
@@ -759,10 +784,10 @@ def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
     scale = stencil_scan_accumulate(wide.abs(), a_t.offsets, x_ext.abs(), halo)
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    err_bound = KERNEL_TOL * float(scale.max())
+    err_bound = (F64_KERNEL_TOL if f64 else KERNEL_TOL) * float(scale.max())
     del scale, y_p
-    if not bool(torch.isfinite(y_k).all()):
-        fail(f"{name}: kernel output not finite")
+    if not bool(torch.isfinite(y_k).all()) or y_k.dtype != x.dtype:
+        fail(f"{name}: kernel output not finite or not {x.dtype}")
     if err > err_bound:
         fail(f"{name}: max|kernel - plain| = {err:.3e} > {err_bound:.3e}")
     if bf16 and not torch.equal(
@@ -771,13 +796,16 @@ def check_lane(name, a_t, t, seed, ext=False, b3=False, csr=None):
              "widened blocks")
     del wide
     nbytes = (a_t.blocks_t.element_size() * a_t.blocks_t.numel()
-              + 4 * (x.numel() + y_k.numel()))
+              + x.element_size() * (x.numel() + y_k.numel()))
     rec = {"shape": name, "br": br, "t": t, "S": s_max, "nrb": nrb, "halo": halo,
-           "blocks_dtype": "bf16" if bf16 else "f32",
+           "blocks_dtype": "bf16" if bf16 else "f64" if f64 else "f32",
            "max_abs_err": err, "err_bound": err_bound,
            **in_turns(kernel, plain, nbytes, reps=5 if t > 12 else 20),
-           **bound(nbytes, 2 * s_max * br * br * t * nrb),
+           **bound(nbytes, 2 * s_max * br * br * t * nrb,
+                   F64_FLOPS if f64 else F32_FLOPS),
            "library_ms": None if csr is None else library_ms(csr, t, seed)}
+    if device_time:
+        rec["device_ms"] = kernel_device_ms(kernel)
     log_kernel(name, f"br={br} t={t} S={s_max} nrb={nrb}", rec)
     return rec
 
@@ -820,15 +848,6 @@ def check_planar(name, blocks_t, offsets, t, seed, csr=None):
            "library_ms": None if csr is None else library_ms(csr, t, seed)}
     log_kernel(name, f"br={br} t={t} S={s_max} nrb={nrb}", rec)
     return rec
-
-
-def device_busy_ms(prof) -> float:
-    """Device time of a profiled window: the sum of the device events' self
-    time, as torch's own table totals it."""
-    from torch.autograd import DeviceType
-
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
 def check_block_ell(name, mat, t, seed):
@@ -942,12 +961,16 @@ def check_bj_apply(inv_f, br, t, seed):
 
 
 def profile_solve(solver, b, name):
-    """One solve under torch.profiler; the table goes to chiprun_out/.
-    Returns (device ms, wall ms) of the profiled solve."""
+    """One solve under torch.profiler, the device's activity only (with the
+    host's operator events too, reading the trace of one LORASC-family
+    solve took 45-105 s); the table goes to chiprun_out/. Returns (device
+    ms, wall ms) of the profiled solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from prealps_tpu_torch.timing import device_busy_ms
+
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solver.solve(b)
         torch.cuda.synchronize()
@@ -1147,6 +1170,87 @@ def lorasc_solve(solver, a, b, tag):
     return (info, stencil_bsr_spmm_t_pallas_bs.launches,
             stencil_pallas_bs_ext.launches,
             stencil_bsr_spmm_t_pallas_bs.bf16_launches, secs)
+
+
+def lorasc_f64_phase(dev, a, b, nel=36):
+    """[lorasc_f64]: the f64 deflation study's row at LORASC_F64_DEFLATION
+    on the het operator ``a`` (``examples/deflation_study_f64.py``), through
+    the user's entry point ``StencilLorascECG.build(a, dtype=np.float64,
+    device=...)``: every operand f64, one ECG solve (no refinement), every
+    operator product B2a's f64 instance. Returns (B2a checks, B2b checks,
+    path record)."""
+    import torch
+
+    from prealps_tpu_torch.examples import deflation_study_f64 as study
+    from prealps_tpu_torch.ops.spmm import (
+        stencil_bsr_spmm_t_pallas_bs,
+        stencil_pallas_bs_ext,
+    )
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+    from prealps_tpu_torch.solvers.ecg import ECGOptions
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = StencilLorascECG.build(a, opts=ECGOptions(**study.OPTS), device=dev,
+                                    **study.build_kwargs(nel, LORASC_F64_DEFLATION))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    pc = solver.precond
+    ops = pc.operands
+    a_t = ops["a_stencil"]
+    if (solver.a_scaled is not None or "a_lo_blocks" in ops
+            or any(v.dtype != torch.float64 for k, v in ops.items()
+                   if isinstance(v, torch.Tensor) and v.is_floating_point())
+            or a_t.blocks_t.dtype != torch.float64):
+        fail("[lorasc_f64] the build is not f64 throughout, or refines")
+    log(f"[lorasc_f64] built in {build_s:.2f} s, stages (s): "
+        f"{json.dumps(pc.timings)}; ng={pc.plan.ng} nev={pc.nev} deflated="
+        f"{pc.deflated} (the JAX package's f64 build: {LORASC_F64_ANCHOR_PAIRS}); "
+        f"peak device memory {peak_gb:.2f} GB")
+    csr = stencil_csr(a_t.blocks_t, a_t.offsets)
+    b2a = [check_lane(f"lorasc_f64 {what} (br3,t{t},f64)", a_t, t, seed=130 + t,
+                      csr=csr, device_time=True)
+           for what, t in (("ECG + apply", 12), ("single vector", 1),
+                           ("Rayleigh-Ritz nev", pc.nev))]
+    b2b = [check_lane("lorasc_f64 pre-extended (br3,t1,f64)", a_t, 1, seed=141,
+                      ext=True, csr=csr, device_time=True)]
+    del csr
+
+    stencil_bsr_spmm_t_pallas_bs.launches = 0
+    stencil_bsr_spmm_t_pallas_bs.f64_launches = 0
+    stencil_pallas_bs_ext.launches = 0
+    info, _, warm_s = checked_solve(solver, a, b, "lorasc_f64")
+    la = stencil_bsr_spmm_t_pallas_bs.launches
+    la64 = stencil_bsr_spmm_t_pallas_bs.f64_launches
+    lb = stencil_pallas_bs_ext.launches
+    iters = int(info["iters"])
+    log(f"[lorasc_f64] warm solve {warm_s:.3f} s: iters={iters} relres="
+        f"{info['relres']:.3e} breakdown={info['breakdown']} B2a launches={la} "
+        f"(f64 instance {la64}), B2b launches={lb} (no refinement finish in f64); "
+        f"the JAX package's f64 solve on a CPU: {LORASC_F64_ANCHOR_ITERS} iterations")
+    if la < 3 * iters or la64 != la:
+        fail(f"[lorasc_f64] B2a launched {la} times ({la64} f64) for {iters} "
+             "iterations (< 3×, or not all f64)")
+    if not within(iters, LORASC_F64_ANCHOR_ITERS):
+        fail(f"[lorasc_f64] {iters} iterations, outside {LORASC_F64_ANCHOR_ITERS} ± "
+             f"{100 * ANCHOR_BAND:.0f} %")
+    timed = timed_solves(solver, b, iters, "lorasc_f64")
+    solve_s = statistics.median(timed)
+    busy_ms, wall_ms = profile_solve(solver, b, "lorasc_f64")
+    log(f"[lorasc_f64] timed solves (s): {[round(v, 4) for v in timed]}; median "
+        f"{solve_s:.4f} s, {1e3 * solve_s / iters:.3f} ms/iteration; device busy "
+        f"{busy_ms:.1f} ms a solve ({100 * busy_ms / (1e3 * solve_s):.0f} % of the "
+        "median)")
+    path = {"n": a.shape[0], "max_deflation": LORASC_F64_DEFLATION, "nev": pc.nev,
+            "deflated": pc.deflated, "build_s": build_s, "build_stages_s": pc.timings,
+            "peak_GB": peak_gb, "iters": iters, "relres": info["relres"],
+            "solve_s": timed, "ms_per_iter": 1e3 * solve_s / iters,
+            "b2a_launches": la, "b2a_f64_launches": la64, "b2b_launches": lb,
+            "profile_device_ms": busy_ms, "profile_wall_ms": wall_ms,
+            "anchors": {"iters": LORASC_F64_ANCHOR_ITERS,
+                        "pairs": LORASC_F64_ANCHOR_PAIRS}}
+    return b2a, b2b, path
 
 
 def presc_phases(dev, a, b, lorasc_iters, nel=36):
@@ -1831,6 +1935,8 @@ def _sharded_headline_rank(rank, group, nel, timed, device):
     if rank == 0 and torch.device(device).type == "cuda":
         from torch.profiler import ProfilerActivity, profile as tprofile
 
+        from prealps_tpu_torch.timing import device_busy_ms
+
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2180,6 +2286,8 @@ def _sharded_full_rank(rank, group, path, nel, device):
     if rank == 0 and on_card:
         from torch.profiler import ProfilerActivity, profile as tprofile
 
+        from prealps_tpu_torch.timing import device_busy_ms
+
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2445,6 +2553,8 @@ def _dlorasc_rank(rank, group, device):
     s.opts = replace(s.opts, maxiter=PROFILE_ITERS)
     if rank == 0:
         from torch.profiler import ProfilerActivity, profile as tprofile
+
+        from prealps_tpu_torch.timing import device_busy_ms
 
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
@@ -3163,6 +3273,7 @@ def main() -> int:
     )
     from prealps_tpu_torch.parallel.driver import DistributedECG
     from prealps_tpu_torch.solvers.ecg import ECGOptions
+    from prealps_tpu_torch.timing import card_line
 
     strict_fp32()
     dev = torch.device("cuda", 0)
@@ -3418,6 +3529,8 @@ def main() -> int:
     # --- 16-19. PRESC, SALOC and the bf16 stores, with B2a's bf16 instance ---
     b2a_bf16, b2b_bf16, presc_paths = presc_phases(dev, a_het, b_het,
                                                    lorasc_path["iters"], nel)
+    # --- 19a. the same operator in f64 (the f64 deflation study's row) ---
+    b2a_f64, b2b_f64, lorasc_f64_path = lorasc_f64_phase(dev, a_het, b_het, nel)
     del a_het, b_het
 
     # --- 20-22. fmt="dia", fmt="auto" and the SpMM format sweep ---
@@ -3458,6 +3571,7 @@ def main() -> int:
     log("[summary] " + json.dumps({
         "checks": checks, "block_ell_checks": b5_checks, "bj_apply_checks": b6,
         "lane_checks": b2a + b2b, "lane_bf16_checks": b2a_bf16 + b2b_bf16,
+        "lane_f64_checks": b2a_f64 + b2b_f64, "lorasc_f64_path": lorasc_f64_path,
         "b3_checks": b3, "b4_checks": b4,
         "dia_checks": b1_dia + b2b_dia, "main_path": main_path,
         "general_path": general_path, "lx": lx_path, "ell_path": ell_path,
@@ -3498,17 +3612,19 @@ def main() -> int:
                            "sharded_dia4": sharded_dia4["launches"],
                            **{f"sharded_dryrun_{k}": v["launches"]
                               for k, v in dryrun.items() if "stencil" in k}}
-    # B2a's and B2b's counts on each LORASC-family path's solve, and of the
-    # bf16-block instance on [lorasc_bf16]'s
-    lorasc_family = {"lorasc": lorasc_path, **presc_paths}
+    # B2a's and B2b's counts on each LORASC-family path's solve, of the
+    # bf16-block instance on [lorasc_bf16]'s and of the f64 instance on
+    # [lorasc_f64]'s
+    lorasc_family = {"lorasc": lorasc_path, **presc_paths, "lorasc_f64": lorasc_f64_path}
     b2a_rec = entry("stencil_bsr_spmm_t_pallas_bs", "stencil.cu", "ops/spmm.py:511",
-                    la, b2a + b2a_bf16)
+                    la, b2a + b2a_bf16 + b2a_f64)
     b2a_rec["path_launches"] = {k: v["b2a_launches"] for k, v in lorasc_family.items()
                                 if "b2a_launches" in v}
     b2a_rec["bf16_launches"] = {"lorasc_bf16":
                                 presc_paths["lorasc_bf16"]["b2a_bf16_launches"]}
+    b2a_rec["f64_launches"] = {"lorasc_f64": lorasc_f64_path["b2a_f64_launches"]}
     b2b_rec = entry("stencil_pallas_bs_ext", "stencil.cu", "ops/spmm.py:695", lb,
-                    b2b + b2b_bf16 + b2b_dia)
+                    b2b + b2b_bf16 + b2b_dia + b2b_f64)
     b2b_rec["path_launches"] = {k: v["b2b_launches"] for k, v in lorasc_family.items()
                                 if "b2b_launches" in v}
     # B5's count on each path's solve: [general]'s, and each sharded rank's

@@ -29,7 +29,8 @@
 //
 // The output y has the panel's row map over nrb columns. Four combinations
 // are built, the ones the layouts above use, with f32 blocks; the two
-// lane-major s-major ones (B2a / B3, B2b) also with bf16 blocks (below).
+// lane-major s-major ones (B2a / B3, B2b) also with bf16 blocks and in f64
+// (below).
 //
 // What bounds it: bytes. At the headline operator (S = 27, br = 3, t = 12,
 // nrb = 49,360) one call must read the block table once (48.0 MB) and the
@@ -97,6 +98,21 @@
 // iteration operator. At the het LORASC operator (nrb = 49,284, S = 27,
 // br = 3) the bf16 table halves the block bytes: t = 12 needs 38.1 MB
 // (11.4 us at 3.35 TB/s) against the f32 instance's 62.1 MB (18.5 us).
+//
+// Value type. The JAX package runs the lane-major product in f64 too (its
+// f64 tests and its f64 deflation study take the XLA route,
+// stencil_bsr_spmm_t). The value type TV of the panel, the sums and y is a
+// template parameter of the body beside TB: float (the f32 and bf16
+// instances above, unchanged), or double with double blocks, whose sums are
+// fma in the same order (s, then k, one thread an output). f64 is
+// instantiated for the lane-major maps (wrap and pre-extended): the f64
+// StencilLorascECG runs B2a, and B2b's f64 instance runs a halo-overlap
+// shard product. An f64 entry is twice the bytes and registers of an f32
+// one; this first f64 instance keeps the plain loop (no prefetch) at every
+// width but t = 4, where one offset ahead fits: ptxas reports no spill at
+// br = 3 (128 registers at t = 12, 168 at t = 16). Whether a prefetch pays
+// in f64 is untried. At the het operator (nrb = 49,284, S = 27, br = 3)
+// t = 12 needs 124.2 MB: 37.1 us at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,13 +143,22 @@ __device__ __forceinline__ size_t row_of(int j, int k, int br, int t) {
 
 // One block entry, as stored (the prefetch keeps it in this type) ...
 __device__ __forceinline__ float load_blk(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double load_blk(const double* p) { return __ldg(p); }
 __device__ __forceinline__ __nv_bfloat16 load_blk(const __nv_bfloat16* p) {
   return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 // ... and widened to f32 where it is used (exact for bf16).
 __device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+// b * x + acc, one rounding, in the value type
+__device__ __forceinline__ float fma_v(float b, float x, float acc) {
+  return fmaf(b, x, acc);
+}
+__device__ __forceinline__ double fma_v(double b, double x, double acc) {
+  return fma(b, x, acc);
 }
 
 template <bool PLANAR>
@@ -150,11 +175,11 @@ __device__ __forceinline__ size_t blk_of(int s, int m, int k, int br,
 // next D offsets are loaded into registers while the current D are summed
 // (the loop is unrolled by two, so the two register sets alternate without
 // copies); with D = 0 each offset's values are loaded as it is summed.
-template <typename TB, int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP,
-          bool PLANAR>
+template <typename TB, typename TV, int BR, int JG, int D, bool WHOLE,
+          bool KMAJOR, bool WRAP, bool PLANAR>
 __global__ void __launch_bounds__(128)
-stencil_pipe(const TB* __restrict__ blocks, const float* __restrict__ x,
-             float* __restrict__ y, const StencilOffsets offs, int n_off,
+stencil_pipe(const TB* __restrict__ blocks, const TV* __restrict__ x,
+             TV* __restrict__ y, const StencilOffsets offs, int n_off,
              int t_run, int nrb, int ncol, int lead, int nchunks) {
   constexpr int BB = BR * BR;
   constexpr int NX = BR * JG;
@@ -165,11 +190,11 @@ stencil_pipe(const TB* __restrict__ blocks, const float* __restrict__ x,
   if (r >= nrb) return;
   const int j0 = chunk * JG;
   const int nj = WHOLE ? JG : min(JG, t - j0);
-  float acc[NX];  // acc[m*JG + jj]
+  TV acc[NX];  // acc[m*JG + jj]
 #pragma unroll
-  for (int i = 0; i < NX; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NX; ++i) acc[i] = TV(0);
 
-  auto load = [&](int s, TB (&b)[BB], float (&xv)[NX]) {
+  auto load = [&](int s, TB (&b)[BB], TV (&xv)[NX]) {
     const size_t col = (size_t)col_of<WRAP>(r, offs.v[s], nrb, lead);
 #pragma unroll
     for (int m = 0; m < BR; ++m)
@@ -182,9 +207,9 @@ stencil_pipe(const TB* __restrict__ blocks, const float* __restrict__ x,
       for (int jj = 0; jj < JG; ++jj)
         xv[k * JG + jj] =
             jj < nj ? __ldg(x + row_of<KMAJOR>(j0 + jj, k, BR, t) * ncol + col)
-                    : 0.0f;
+                    : TV(0);
   };
-  auto sum = [&](const TB (&b)[BB], const float (&xv)[NX]) {
+  auto sum = [&](const TB (&b)[BB], const TV (&xv)[NX]) {
 #pragma unroll
     for (int k = 0; k < BR; ++k)
 #pragma unroll
@@ -192,26 +217,26 @@ stencil_pipe(const TB* __restrict__ blocks, const float* __restrict__ x,
 #pragma unroll
         for (int m = 0; m < BR; ++m)
           acc[m * JG + jj] =
-              fmaf(widen(b[m * BR + k]), xv[k * JG + jj], acc[m * JG + jj]);
+              fma_v(widen(b[m * BR + k]), xv[k * JG + jj], acc[m * JG + jj]);
   };
 
   if constexpr (D == 0) {
     for (int s = 0; s < n_off; ++s) {
       TB b[BB];
-      float xv[NX];
+      TV xv[NX];
       load(s, b, xv);
       sum(b, xv);
     }
   } else {
     TB bc[D][BB];
-    float xc[D][NX];
+    TV xc[D][NX];
 #pragma unroll
     for (int d = 0; d < D; ++d)
       if (d < n_off) load(d, bc[d], xc[d]);
 #pragma unroll 2
     for (int s0 = 0; s0 < n_off; s0 += D) {
       TB bn[D][BB];
-      float xn[D][NX];
+      TV xn[D][NX];
 #pragma unroll
       for (int d = 0; d < D; ++d)
         if (s0 + D + d < n_off) load(s0 + D + d, bn[d], xn[d]);
@@ -236,28 +261,28 @@ stencil_pipe(const TB* __restrict__ blocks, const float* __restrict__ x,
 
 // Any br: blockIdx.y = tile * br + m; the thread sums output row m of
 // panel columns [tile*TT, tile*TT + TT) ∩ [0, t).
-template <typename TB, bool KMAJOR, bool WRAP, bool PLANAR>
+template <typename TB, typename TV, bool KMAJOR, bool WRAP, bool PLANAR>
 __global__ void __launch_bounds__(128)
-stencil_any_br(const TB* __restrict__ blocks, const float* __restrict__ x,
-               float* __restrict__ y, const StencilOffsets offs, int n_off,
+stencil_any_br(const TB* __restrict__ blocks, const TV* __restrict__ x,
+               TV* __restrict__ y, const StencilOffsets offs, int n_off,
                int br, int t, int nrb, int ncol, int lead) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nrb) return;
   const int m = blockIdx.y % br;
   const int j0 = (blockIdx.y / br) * TT;
   const int nj = min(TT, t - j0);
-  float acc[TT];
+  TV acc[TT];
 #pragma unroll
-  for (int jj = 0; jj < TT; ++jj) acc[jj] = 0.0f;
+  for (int jj = 0; jj < TT; ++jj) acc[jj] = TV(0);
   for (int s = 0; s < n_off; ++s) {
     const size_t col = (size_t)col_of<WRAP>(r, offs.v[s], nrb, lead);
     for (int k = 0; k < br; ++k) {
-      const float bv =
+      const TV bv =
           widen(load_blk(blocks + blk_of<PLANAR>(s, m, k, br, n_off) * nrb + r));
 #pragma unroll
       for (int jj = 0; jj < TT; ++jj)
         if (jj < nj)
-          acc[jj] = fmaf(
+          acc[jj] = fma_v(
               bv, __ldg(x + row_of<KMAJOR>(j0 + jj, k, br, t) * ncol + col),
               acc[jj]);
     }
@@ -267,15 +292,15 @@ stencil_any_br(const TB* __restrict__ blocks, const float* __restrict__ x,
     if (jj < nj) y[row_of<KMAJOR>(j0 + jj, m, br, t) * nrb + r] = acc[jj];
 }
 
-template <typename TB, int BR, int JG, int D, bool WHOLE, bool KMAJOR, bool WRAP,
-          bool PLANAR>
-static cudaError_t launch_pipe(const TB* blocks, const float* x, float* y,
+template <typename TB, typename TV, int BR, int JG, int D, bool WHOLE,
+          bool KMAJOR, bool WRAP, bool PLANAR>
+static cudaError_t launch_pipe(const TB* blocks, const TV* x, TV* y,
                                const StencilOffsets& offs, int n_off, int t,
                                int nrb, int ncol, int lead, cudaStream_t st) {
   const int nchunks = (t + JG - 1) / JG;
   const long long ntiles = (nrb + 127) / 128;
   if (ntiles * nchunks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  stencil_pipe<TB, BR, JG, D, WHOLE, KMAJOR, WRAP, PLANAR>
+  stencil_pipe<TB, TV, BR, JG, D, WHOLE, KMAJOR, WRAP, PLANAR>
       <<<dim3((unsigned)(ntiles * nchunks)), 128, 0, st>>>(
           blocks, x, y, offs, n_off, t, nrb, ncol, lead, nchunks);
   return cudaSuccess;
@@ -286,13 +311,15 @@ static cudaError_t launch_pipe(const TB* blocks, const float* x, float* y,
 // plain loop runs at 65-80 % of the bound), three offsets ahead at t = 4,
 // two at t = 8, one at t = 12 and 16 (the depths that timed fastest).
 // Other widths (the LORASC build's nev and lift width) take chunks of 8
-// columns, one offset ahead; any other br stencil_any_br.
-template <typename TB, bool KMAJOR, bool WRAP, bool PLANAR>
-static cudaError_t launch(const TB* blocks, const float* x, float* y,
+// columns, one offset ahead; any other br stencil_any_br. The f64 instance
+// (TV double) has the same widths with no prefetch but one offset ahead at
+// t = 4, its chunks of 8 columns with none (see the note on the value type).
+template <typename TB, typename TV, bool KMAJOR, bool WRAP, bool PLANAR>
+static cudaError_t launch(const TB* blocks, const TV* x, TV* y,
                           const StencilOffsets& offs, int n_off, int br, int t,
                           int nrb, int ncol, int lead, cudaStream_t st) {
 #define PREALPS_PIPE(BR_, JG_, D_, WHOLE_)                                 \
-  return launch_pipe<TB, BR_, JG_, D_, WHOLE_, KMAJOR, WRAP, PLANAR>(      \
+  return launch_pipe<TB, TV, BR_, JG_, D_, WHOLE_, KMAJOR, WRAP, PLANAR>(  \
       blocks, x, y, offs, n_off, t, nrb, ncol, lead, st)
 #define PREALPS_WIDTHS(BR_)                        \
   switch (t) {                                     \
@@ -303,22 +330,54 @@ static cudaError_t launch(const TB* blocks, const float* x, float* y,
     case 16: PREALPS_PIPE(BR_, 16, 1, true);       \
     default: PREALPS_PIPE(BR_, 8, 1, false);       \
   }
-  if (br == 3) PREALPS_WIDTHS(3);
-  if (br == 1) PREALPS_WIDTHS(1);
+#define PREALPS_WIDTHS_F64(BR_)                    \
+  switch (t) {                                     \
+    case 1: PREALPS_PIPE(BR_, 1, 0, true);         \
+    case 4: PREALPS_PIPE(BR_, 4, 1, true);         \
+    case 8: PREALPS_PIPE(BR_, 8, 0, true);         \
+    case 12: PREALPS_PIPE(BR_, 12, 0, true);       \
+    case 16: PREALPS_PIPE(BR_, 16, 0, true);       \
+    default: PREALPS_PIPE(BR_, 8, 0, false);       \
+  }
+  if constexpr (sizeof(TV) == 8) {
+    if (br == 3) PREALPS_WIDTHS_F64(3);
+    if (br == 1) PREALPS_WIDTHS_F64(1);
+  } else {
+    if (br == 3) PREALPS_WIDTHS(3);
+    if (br == 1) PREALPS_WIDTHS(1);
+  }
+#undef PREALPS_WIDTHS_F64
 #undef PREALPS_WIDTHS
 #undef PREALPS_PIPE
   if ((long long)br * ((t + TT - 1) / TT) > 65535) return cudaErrorInvalidValue;
   const dim3 grid((nrb + 127) / 128, br * ((t + TT - 1) / TT));
-  stencil_any_br<TB, KMAJOR, WRAP, PLANAR><<<grid, 128, 0, st>>>(
+  stencil_any_br<TB, TV, KMAJOR, WRAP, PLANAR><<<grid, 128, 0, st>>>(
       blocks, x, y, offs, n_off, br, t, nrb, ncol, lead);
   return cudaSuccess;
+}
+
+// The lane-major maps, wrap (B2a / B3) or pre-extended (B2b).
+template <typename TB, typename TV>
+static cudaError_t launch_lane(const void* blocks, const void* x, void* y,
+                               const StencilOffsets& offs, int n_off, int br,
+                               int t, int nrb, int ncol, int lead, int wrap,
+                               cudaStream_t st) {
+  const TB* b = static_cast<const TB*>(blocks);
+  const TV* xv = static_cast<const TV*>(x);
+  TV* yv = static_cast<TV*>(y);
+  if (wrap)
+    return launch<TB, TV, false, true, false>(b, xv, yv, offs, n_off, br, t,
+                                              nrb, ncol, lead, st);
+  return launch<TB, TV, false, false, false>(b, xv, yv, offs, n_off, br, t,
+                                             nrb, ncol, lead, st);
 }
 
 extern "C" {
 
 // The one entry point of every stencil layout.
-//   blocks_dtype: 0 for float blocks, 1 for bf16 blocks (lane-major maps
-//           only: not kmajor, not planar); the panel and y are float;
+//   blocks_dtype: 0 for float blocks, 1 for bf16 blocks, the panel and y
+//           float; 2 for double blocks, the panel and y double; 1 and 2 on
+//           the lane-major maps only (not kmajor, not planar);
 //   kmajor: the panel is (br*t, ncol) with row k*t + j (else (t, br, ncol),
 //           row j*br + k); y has the same row map over nrb columns;
 //   wrap:   columns wrap mod nrb (ncol = nrb, lead = 0); else the panel
@@ -328,8 +387,8 @@ extern "C" {
 // and returns cudaGetLastError() of the launch; does not synchronise or
 // allocate. The library links its own CUDA runtime, so the card is set here
 // rather than inherited from the caller's runtime.
-int prealps_stencil(const void* blocks, int blocks_dtype, const float* x,
-                    float* y, const int* offsets_host, int n_off, int br, int t,
+int prealps_stencil(const void* blocks, int blocks_dtype, const void* x,
+                    void* y, const int* offsets_host, int n_off, int br, int t,
                     int nrb, int ncol, int lead, int kmajor, int wrap,
                     int planar, int device, void* stream) {
   cudaError_t set = cudaSetDevice(device);
@@ -337,8 +396,8 @@ int prealps_stencil(const void* blocks, int blocks_dtype, const float* x,
   if (n_off < 1 || n_off > PREALPS_STENCIL_MAX_OFFSETS || br < 1 || t < 1 ||
       nrb < 1 || lead < 0 || ncol < nrb + 2 * lead ||
       (wrap && (lead != 0 || ncol != nrb)) || (kmajor && (wrap || planar)) ||
-      (planar && !wrap) || blocks_dtype < 0 || blocks_dtype > 1 ||
-      (blocks_dtype == 1 && (kmajor || planar)))
+      (planar && !wrap) || blocks_dtype < 0 || blocks_dtype > 2 ||
+      (blocks_dtype != 0 && (kmajor || planar)))
     return (int)cudaErrorInvalidValue;
   StencilOffsets offs;
   for (int i = 0; i < PREALPS_STENCIL_MAX_OFFSETS; ++i)
@@ -353,31 +412,25 @@ int prealps_stencil(const void* blocks, int blocks_dtype, const float* x,
   cudaStream_t st = (cudaStream_t)stream;
   // the maps the repository's layouts use: B1 (k-major, extended), B4
   // (lane-major, wrap, plane-major), B2a / B3 and B2b (lane-major, s-major),
-  // the last two also with bf16 blocks
+  // the last two also with bf16 blocks and in f64
   cudaError_t e;
-  if (blocks_dtype == 1) {
-    const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(blocks);
-    if (wrap)
-      e = launch<__nv_bfloat16, false, true, false>(bb, x, y, offs, n_off, br,
-                                                    t, nrb, ncol, lead, st);
-    else
-      e = launch<__nv_bfloat16, false, false, false>(bb, x, y, offs, n_off, br,
-                                                     t, nrb, ncol, lead, st);
-    return (int)(e != cudaSuccess ? e : cudaGetLastError());
-  }
-  const float* bf = static_cast<const float*>(blocks);
-  if (kmajor)
-    e = launch<float, true, false, false>(bf, x, y, offs, n_off, br, t, nrb,
-                                          ncol, lead, st);
+  if (blocks_dtype == 1)
+    e = launch_lane<__nv_bfloat16, float>(blocks, x, y, offs, n_off, br, t, nrb,
+                                          ncol, lead, wrap, st);
+  else if (blocks_dtype == 2)
+    e = launch_lane<double, double>(blocks, x, y, offs, n_off, br, t, nrb, ncol,
+                                    lead, wrap, st);
+  else if (kmajor)
+    e = launch<float, float, true, false, false>(
+        static_cast<const float*>(blocks), static_cast<const float*>(x),
+        static_cast<float*>(y), offs, n_off, br, t, nrb, ncol, lead, st);
   else if (planar)
-    e = launch<float, false, true, true>(bf, x, y, offs, n_off, br, t, nrb,
-                                         ncol, lead, st);
-  else if (wrap)
-    e = launch<float, false, true, false>(bf, x, y, offs, n_off, br, t, nrb,
-                                          ncol, lead, st);
+    e = launch<float, float, false, true, true>(
+        static_cast<const float*>(blocks), static_cast<const float*>(x),
+        static_cast<float*>(y), offs, n_off, br, t, nrb, ncol, lead, st);
   else
-    e = launch<float, false, false, false>(bf, x, y, offs, n_off, br, t, nrb,
-                                           ncol, lead, st);
+    e = launch_lane<float, float>(blocks, x, y, offs, n_off, br, t, nrb, ncol,
+                                  lead, wrap, st);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

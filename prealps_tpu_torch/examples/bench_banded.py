@@ -26,7 +26,6 @@ import json
 import math
 import pathlib
 import runpy
-import subprocess
 
 import numpy as np
 import torch
@@ -42,8 +41,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_banded.py needs a CUDA card")
     dev = torch.device("cuda", 0)
-    device_ms = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
-                                   / "timing.py"))["device_ms"]
+    timing = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
+                                / "timing.py"))
+    device_ms = timing["device_ms"]
     gen = torch.Generator(device=dev).manual_seed(0)
     recs = []
     for name, p, nblk, bs in SHAPES:
@@ -73,9 +73,7 @@ def main() -> int:
                       f"{ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                       f"({100 * rec['share_of_bound']:.0f} %)", flush=True)
         del l_inv, m_off, facs
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = timing["card_line"]()
     print(json.dumps({"package": prealps_tpu_torch.__file__, "card": card,
                       "records": recs}))
     return 0

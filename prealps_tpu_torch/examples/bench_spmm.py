@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
@@ -56,7 +55,7 @@ from prealps_tpu_torch.ops.spmm import (
     stencil_bsr_spmm_t_pallas,
     stencil_pallas_bs_ext,
 )
-from prealps_tpu_torch.timing import device_ms
+from prealps_tpu_torch.timing import call_ms
 
 FORMATS = ("stencil_t", "stencil_t_pallas", "ell", "dia", "dia_tbn")
 
@@ -104,20 +103,6 @@ def operators(a, formats, dtype, device):
         ops["stencil_t_pallas"] = (lambda v: stencil_bsr_spmm_t_pallas(sb, v),
                                    to_lane, panel_from_lane_major)
     return {f: ops[f] for f in formats}
-
-
-def call_ms(fn, arg, reps: int, device) -> float:
-    """Time of one call in ms: ``reps`` back-to-back calls after a warm one,
-    on the card between CUDA events behind a spin kernel that outlasts
-    their enqueueing (so the host's launch path is not timed), on the CPU
-    by the host clock."""
-    if device.type == "cuda":
-        return device_ms(lambda: fn(arg), reps=reps, batches=1, warm=1)[0]
-    fn(arg)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn(arg)
-    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 def sweep(nel=16, ts=(1, 4, 8, 12, 16), reps=20, formats=FORMATS,

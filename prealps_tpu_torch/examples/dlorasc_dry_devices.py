@@ -14,7 +14,10 @@ relres, and writes them to ``--out`` as JSON. On a card::
 
     python -m prealps_tpu_torch.examples.dlorasc_dry_devices
 
-``--devices cpu`` runs the host pair alone (no card needed).
+``--devices cpu`` runs the host pair alone (no card needed). ``--variant``
+replaces every path's ECG variant: ``--paths dry_lorasc_deflation --variant
+odir_fused`` is the JAX dry run's path 6 as it first ran (ROADMAP A4: JAX
+took 4,417 iterations with odir_fused and 88 with omin, f32 with x64 off).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def moved(obj, device):
     return obj
 
 
-def _rank(rank, group, paths, devices):
+def _rank(rank, group, paths, devices, variant=None):
     import torch
 
     from prealps_tpu_torch.core.generators import elasticity3d
@@ -60,8 +63,8 @@ def _rank(rank, group, paths, devices):
     b = np.random.default_rng(0).standard_normal(a.shape[0]).astype(np.float32)
     out = {}
     for path in paths:
-        kw, variant = PATHS[path]
-        opts = ECGOptions(t=2, tol=1e-6, maxiter=6000, variant=variant)
+        kw, path_variant = PATHS[path]
+        opts = ECGOptions(t=2, tol=1e-6, maxiter=6000, variant=variant or path_variant)
         for build_dev in devices:
             s = DistributedLorascECG.build(a, dtype=np.float32, device=build_dev,
                                            group=group, opts=opts, **kw)
@@ -80,7 +83,8 @@ def _rank(rank, group, paths, devices):
                 t._ecg = recorded
                 x, info = t.solve(b)
                 out.setdefault(path, []).append({
-                    "build": build_dev, "solve": solve_dev, "iters": int(info["iters"]),
+                    "build": build_dev, "solve": solve_dev, "variant": opts.variant,
+                    "iters": int(info["iters"]),
                     "deflated": int(info["deflated"]), "rounds": rounds,
                     "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b))})
     return out
@@ -90,6 +94,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default=",".join(PATHS))
     ap.add_argument("--devices", default="cuda:0,cpu")
+    ap.add_argument("--variant", default=None,
+                    help="ECG variant of every path (default: each path's own)")
     ap.add_argument("--out", default="chiprun_out/dlorasc_dry_devices.json")
     args = ap.parse_args(argv)
     import os
@@ -104,11 +110,13 @@ def main(argv=None) -> int:
                            "False (pass --devices cpu)")
     paths = args.paths.split(",")
     with tempfile.TemporaryDirectory() as tmp:
-        out = mesh.spawn(_rank, 8, args=(paths, devices), init_method=f"file://{tmp}/store",
+        out = mesh.spawn(_rank, 8, args=(paths, devices, args.variant),
+                         init_method=f"file://{tmp}/store",
                          timeout=900, threads=1)[0]
     for path, recs in out.items():
         for r in recs:
-            print(f"{path} build {r['build']} solve {r['solve']}: {r['iters']} "
+            print(f"{path} ({r['variant']}) build {r['build']} solve {r['solve']}: "
+                  f"{r['iters']} "
                   f"iterations, {r['deflated']} pairs, rounds (iters, |r|/|rhs|) "
                   f"{[(i, round(v, 8)) for i, v in r['rounds']]}, relres "
                   f"{r['relres']:.3e}", flush=True)

@@ -61,7 +61,6 @@ import json
 import math
 import pathlib
 import runpy
-import subprocess
 
 import numpy as np
 import torch
@@ -88,8 +87,9 @@ def main(argv=None) -> int:
     # this checkout's yardstick, loaded by its path and not through
     # prealps_tpu_torch, so every checkout on PYTHONPATH (older ones have
     # no timing module) is timed the same way
-    device_ms = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
-                                   / "timing.py"))["device_ms"]
+    timing = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
+                                / "timing.py"))
+    device_ms = timing["device_ms"]
     rng = np.random.default_rng(0)
     recs = []
 
@@ -120,9 +120,7 @@ def main(argv=None) -> int:
     if want("B6"):
         bj_records(rand, record)
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = timing["card_line"]()
     print(json.dumps({"package": prealps_tpu_torch.__file__, "card": card,
                       "records": recs}))
     return 0

@@ -41,7 +41,6 @@ import json
 import pathlib
 import runpy
 import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -51,6 +50,13 @@ PATHS = ("headline", "dia", "lorasc", "presc", "presc_f32", "lorasc_bf16")
 LORASC_OPTIONS = {"lorasc": {}, "presc": dict(pencil="sloc", factor_store="bf16"),
                   "presc_f32": dict(pencil="sloc", factor_store="f32"),
                   "lorasc_bf16": dict(a_store="bf16", factor_store="bf16")}
+
+
+def this_timing() -> dict:
+    """This checkout's ``timing.py``, loaded by its path and not through
+    prealps_tpu_torch, so every checkout on PYTHONPATH is timed alike."""
+    return runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
+                              / "timing.py"))
 
 
 def launch_us(dev, calls: int = 2000) -> tuple:
@@ -75,25 +81,9 @@ def launch_us(dev, calls: int = 2000) -> tuple:
         stencil_bsr_spmm_t_pallas_bs(a_t, x)
     torch.cuda.synchronize()
     host_us = 1e6 * (time.perf_counter() - t0) / calls
-    # this checkout's yardstick, loaded by its path and not through
-    # prealps_tpu_torch, so every checkout on PYTHONPATH is timed alike
-    device_ms = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
-                                   / "timing.py"))["device_ms"]
-    dev_ms, _ = device_ms(lambda: stencil_bsr_spmm_t_pallas_bs(a_t, x), reps=200)
+    dev_ms, _ = this_timing()["device_ms"](
+        lambda: stencil_bsr_spmm_t_pallas_bs(a_t, x), reps=200)
     return host_us, 1e3 * dev_ms
-
-
-def profiled_device_ms(solver, b) -> float:
-    """Device time of one solve under torch.profiler (the device events'
-    self time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solver.solve(b)
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
 def build(path: str, a, nel: int, dev):
@@ -138,9 +128,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("solve_tts: needs a CUDA card")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    timing = this_timing()
+    card = timing["card_line"]()
 
     nel = args.nel
     for path in paths:
@@ -164,7 +153,7 @@ def main(argv=None) -> int:
                "refine_rounds": info["refine_rounds"], "relres": relres,
                "build_s": build_s, "solve_s": timed,
                "median_s": statistics.median(timed),
-               "device_ms": profiled_device_ms(solver, b)}
+               "device_ms": timing["profiled_device_ms"](lambda: solver.solve(b))}
         if path in LORASC_OPTIONS:
             rec["deflated"] = solver.precond.deflated
         print(json.dumps(rec), flush=True)

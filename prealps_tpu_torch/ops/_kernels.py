@@ -142,7 +142,7 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 
 def stencil(blocks: torch.Tensor, offsets: tuple, x: torch.Tensor,
@@ -150,8 +150,9 @@ def stencil(blocks: torch.Tensor, offsets: tuple, x: torch.Tensor,
             lead: int, kmajor: bool, wrap: bool, planar: bool,
             what: str) -> None:
     """Launch the stencil kernel writing into ``y`` (checked by the caller:
-    CUDA, contiguous, shapes consistent; x and y f32, blocks f32, or bf16 on
-    the lane-major maps). The index maps are those of ``csrc/stencil.cu``:
+    CUDA, contiguous, shapes consistent; x and y f32 with blocks f32, or
+    bf16 on the lane-major maps; or x, y and blocks f64 on the lane-major
+    maps). The index maps are those of ``csrc/stencil.cu``:
     ``kmajor`` (panel row k·t + j, else j·br + k), ``wrap`` (columns mod
     nrb, else r + lead + off of an extended panel of ``ncol`` columns) and
     ``planar`` (blocks (br, S·br, nrb), else (S, br, br, nrb)). ``what``

@@ -30,9 +30,12 @@ kernel does not take raises. Each wrapper counts its own launches. The
 lane-major wrappers of the LORASC path (B2a, B2b) take f32 or bf16 blocks
 with an f32 panel and give an f32 result, as the TPU kernels promote bf16
 blocks; the kernel widens each bf16 entry to f32 (exact) and sums in the
-f32 instance's order, and the plain versions widen the table first. B1,
-B3 and B4 take f32 blocks on the card: no path of the port sends them
-bf16 tables (ROADMAP.md queue B).
+f32 instance's order, and the plain versions widen the table first. They
+also take f64 blocks with an f64 panel (the f64 instance, f64 sums; the
+JAX package runs this product in f64 through XLA): the f64
+``StencilLorascECG`` on the card. B1, B3 and B4 take f32 blocks on the
+card (B3 also f64, through B2a's maps): no path of the port sends them
+bf16 tables, nor B1 and B4 f64 ones (ROADMAP.md queue B).
 
 * ``stencil_flat_ext`` (B1) — the flat stencil SpMM on a pre-extended
   k-major panel (the TPU kernel ``prealps_tpu/ops/spmm.py::stencil_flat_ext``);
@@ -407,10 +410,12 @@ def _check_lane_args(name, blocks_t, offsets, x, halo, wrap):
         raise ValueError(f"{name}: operands on {blocks_t.device} and "
                          f"{x.device}; both must be on one CUDA card (or both "
                          "on the CPU)")
-    if (blocks_t.dtype not in (torch.float32, torch.bfloat16)
-            or x.dtype != torch.float32):
-        raise TypeError(f"{name} kernel takes float32 or bfloat16 blocks and "
-                        f"a float32 panel, got {blocks_t.dtype} and {x.dtype}")
+    if not ((blocks_t.dtype in (torch.float32, torch.bfloat16)
+             and x.dtype == torch.float32)
+            or (blocks_t.dtype == torch.float64 and x.dtype == torch.float64)):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 blocks with a "
+                        "float32 panel, or float64 blocks with a float64 panel, "
+                        f"got {blocks_t.dtype} and {x.dtype}")
     if not (blocks_t.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{name} kernel takes contiguous operands")
     return False
@@ -428,14 +433,15 @@ def _lane_launch(blocks, offsets, x, y, lead, *, wrap, what, planar=False):
 def _wrap_product(name: str, a: StencilBsrTMatrix, xt: torch.Tensor):
     """The lane-major product with wrap halos of B2a and B3: (y, whether
     the kernel was launched). CPU tensors run ``stencil_scan_accumulate``
-    on ``extend_wrap(xt)``; CUDA tensors launch the kernel (f32 panel, f32
-    or bf16 blocks, contiguous, one card), which wraps the columns itself."""
+    on ``extend_wrap(xt)``; CUDA tensors launch the kernel (f32 panel with
+    f32 or bf16 blocks, or f64 panel and blocks; contiguous, one card),
+    which wraps the columns itself."""
     offsets = tuple(int(o) for o in a.offsets)
     halo = max(abs(o) for o in offsets)
     if _check_lane_args(name, a.blocks_t, offsets, xt, 0, wrap=True):
         return stencil_scan_accumulate(a.blocks_t, offsets,
                                        extend_wrap(xt, halo), halo), False
-    y = torch.empty(xt.shape, dtype=torch.float32, device=xt.device)
+    y = torch.empty(xt.shape, dtype=xt.dtype, device=xt.device)
     if y.numel() == 0:
         return y, False
     _lane_launch(a.blocks_t, offsets, xt, y, 0, wrap=True, what=name)
@@ -446,16 +452,20 @@ def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torc
     """B2a: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same
     (``_wrap_product``); counts its launches in
     ``stencil_bsr_spmm_t_pallas_bs.launches`` and, of those, the launches
-    of the bf16-block instance in ``.bf16_launches``."""
+    of the bf16-block instance in ``.bf16_launches`` and of the f64
+    instance in ``.f64_launches``."""
     y, launched = _wrap_product("stencil_bsr_spmm_t_pallas_bs", a, xt)
     stencil_bsr_spmm_t_pallas_bs.launches += launched
     stencil_bsr_spmm_t_pallas_bs.bf16_launches += (
         launched and a.blocks_t.dtype == torch.bfloat16)
+    stencil_bsr_spmm_t_pallas_bs.f64_launches += (
+        launched and a.blocks_t.dtype == torch.float64)
     return y
 
 
 stencil_bsr_spmm_t_pallas_bs.launches = 0
 stencil_bsr_spmm_t_pallas_bs.bf16_launches = 0
+stencil_bsr_spmm_t_pallas_bs.f64_launches = 0
 
 
 def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
@@ -464,16 +474,17 @@ def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
     x_ext (t, br, nrb + 2·halo) -> (t, br, nrb).
 
     CPU tensors run ``stencil_scan_accumulate``. CUDA tensors launch the
-    CUDA kernel (f32 panel, f32 or bf16 blocks, contiguous, one card) and
-    count one launch in ``stencil_pallas_bs_ext.launches`` (and in
-    ``.bf16_launches`` for bf16 blocks).
+    CUDA kernel (f32 panel with f32 or bf16 blocks, or f64 panel and
+    blocks; contiguous, one card) and count one launch in
+    ``stencil_pallas_bs_ext.launches`` (and in ``.bf16_launches`` for bf16
+    blocks, ``.f64_launches`` for f64 ones).
     """
     offsets = tuple(int(o) for o in offsets)
     if _check_lane_args("stencil_pallas_bs_ext", blocks_t, offsets, x_ext, halo,
                         wrap=False):
         return stencil_scan_accumulate(blocks_t, offsets, x_ext, halo)
     t, br = x_ext.shape[:2]
-    y = torch.empty((t, br, blocks_t.shape[3]), dtype=torch.float32,
+    y = torch.empty((t, br, blocks_t.shape[3]), dtype=x_ext.dtype,
                     device=x_ext.device)
     if y.numel() == 0:
         return y
@@ -481,11 +492,13 @@ def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
                  what="stencil_pallas_bs_ext")
     stencil_pallas_bs_ext.launches += 1
     stencil_pallas_bs_ext.bf16_launches += blocks_t.dtype == torch.bfloat16
+    stencil_pallas_bs_ext.f64_launches += blocks_t.dtype == torch.float64
     return y
 
 
 stencil_pallas_bs_ext.launches = 0
 stencil_pallas_bs_ext.bf16_launches = 0
+stencil_pallas_bs_ext.f64_launches = 0
 
 
 def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
@@ -496,7 +509,8 @@ def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.T
     i·chunk + halo + off, which is B2a's wrap map, so it is the same
     product (``_wrap_product``), counted in
     ``stencil_bsr_spmm_t_pallas.launches``. Its kernel takes f32 blocks
-    only: no port path sends bf16 blocks through B3.
+    (and, B2a's maps being its own, f64 blocks with an f64 panel): no port
+    path sends bf16 blocks through B3.
     """
     if a.blocks_t.dtype == torch.bfloat16 and xt.device.type == "cuda":
         raise TypeError("stencil_bsr_spmm_t_pallas kernel takes float32 blocks, "

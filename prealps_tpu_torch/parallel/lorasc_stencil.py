@@ -11,7 +11,9 @@ and lift panels, and A·x_lo in the refinement finish; the finish's f32
 matrix-rounding term A_lo·x_hi runs B2b on the pre-extended panel.
 
 Solve:
-  * float64 (or tol above ``inner_tol``): one ECG solve on the device.
+  * float64 (or tol above ``inner_tol``): one ECG solve on the device; in
+    f64 every operand is f64 and every product B2a's f64 instance on the
+    card (the JAX driver's f64 solve, through XLA there).
   * float32 with tol below ``inner_tol``: device-resident double-float
     refinement. Each round runs ECG to ``inner_tol`` (stall window 250),
     folds the correction into x = x_hi + x_lo, and recomputes the residual

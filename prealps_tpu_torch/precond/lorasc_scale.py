@@ -30,8 +30,8 @@ at. Scatters use ``index_add_`` with int64 indices.
 
 Without ``grid=`` or a pinned partition the parts come from the generic
 block-arrow structure of the node graph (``core/partition.py``).
-``factor_store="auto"`` picks f32, as the JAX rule does on every backend but
-the TPU.
+``factor_store="auto"`` keeps the build's type (f32, or f64 in an f64
+build), as the JAX rule does on every backend but the TPU.
 """
 
 from __future__ import annotations

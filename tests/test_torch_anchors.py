@@ -117,7 +117,7 @@ LARGE_NEL = 32
 SHARDED = ("sharded4", "sharded_general4", "sharded_dia4")
 API = ("api_bj", "api_lorasc", "api_presc", "api_presc_banded")
 PATHS = ("dia", "cheb", "dedup", "bj2l_nogrid", *SHARDED, "sharded_formats", *DRYRUN,
-         "dlorasc_large", *DRYRUN_LORASC, *API)
+         "dlorasc_large", *DRYRUN_LORASC, *API, "lorasc_f64")
 
 
 def dryrun_problem(elasticity3d, sym_rac_scaling, nel=DRYRUN_NEL, dtype=np.float32):
@@ -311,6 +311,30 @@ def jax_api_anchor(path: str, dtype=np.float32) -> dict:
     return out
 
 
+def jax_lorasc_f64_anchor(nel: int, max_deflation: int) -> dict:
+    """The JAX ``StencilLorascECG``'s f64 build and solve at the f64
+    deflation study's configuration (``prealps_tpu_torch/examples/
+    deflation_study_f64.py``: het elasticity3d(nel³), 8 box parts, t 12
+    odir_fused to 1e-5): chip_smoke's ``[lorasc_f64]`` at max_deflation
+    256."""
+    from prealps_tpu.parallel.lorasc_stencil import StencilLorascECG as JaxStencilLorasc
+    from prealps_tpu_torch.examples import deflation_study_f64 as study
+
+    a, b = study.problem(nel)
+    t0 = time.perf_counter()
+    s = JaxStencilLorasc.build(a, opts=JaxOptions(**study.OPTS),
+                               **study.build_kwargs(nel, max_deflation))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = s.solve(b)
+    return {"path": "lorasc_f64", "nel": nel, "n": a.shape[0],
+            "max_deflation": max_deflation, "deflated": int(info["deflated"]),
+            "iters": int(info["iters"]),
+            "relres": float(np.linalg.norm(b - a @ x) / np.linalg.norm(b)),
+            "breakdown": bool(info["breakdown"]), "build_s": build_s,
+            "solve_s": time.perf_counter() - t0}
+
+
 def jax_dia_anchor(nel: int) -> dict:
     """The JAX driver's DIA solve at chip_smoke's configuration."""
     return jax_anchor("dia", nel)
@@ -448,6 +472,8 @@ if __name__ == "__main__":
                     help="the dry_* paths' type (the card runs f32 on the stencil)")
     ap.add_argument("--mesh", default=None,
                     help="G,L: the distributed LORASC paths' (groups, local) mesh")
+    ap.add_argument("--max-deflation", type=int, default=256,
+                    help="the lorasc_f64 path's max_deflation")
     ap.add_argument("--native", action="store_true",
                     help="partition with the JAX package's native library (its "
                          "default and the port's) instead of its Python algorithm")
@@ -468,6 +494,8 @@ if __name__ == "__main__":
                                             args.native)))
     elif args.path in API:
         print(json.dumps(jax_api_anchor(args.path, dtype)))
+    elif args.path == "lorasc_f64":
+        print(json.dumps(jax_lorasc_f64_anchor(args.nel, args.max_deflation)))
     else:
         print(json.dumps(jax_anchor(args.path, args.nel, args.block_size)))
 

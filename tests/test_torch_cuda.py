@@ -237,17 +237,24 @@ def test_lane_ext_kernel_matches_plain(cuda_device, t):
 
 
 def test_lane_kernels_refuse_what_they_do_not_take(cuda_device):
+    """B2a and B2b take f32 or bf16 blocks with an f32 panel, or f64 blocks
+    with an f64 panel (``test_b2a_f64_matches_plain``); a mix of f64 and
+    f32 raises, as do non-contiguous and CPU panels."""
     st, x, x_ext, halo = _lane_operands(3, 4, seed=0, device=cuda_device)
     st64 = tfmt.StencilBsrTMatrix(st.blocks_t.double(), st.offsets, st.shape)
     with pytest.raises(TypeError):
-        tspmm.stencil_bsr_spmm_t_pallas_bs(st64, x.double())
+        tspmm.stencil_bsr_spmm_t_pallas_bs(st64, x)
+    with pytest.raises(TypeError):
+        tspmm.stencil_bsr_spmm_t_pallas_bs(st, x.double())
     with pytest.raises(ValueError, match="contiguous"):
         tspmm.stencil_bsr_spmm_t_pallas_bs(st, x.transpose(0, 1).contiguous()
                                            .transpose(0, 1))
     with pytest.raises(ValueError, match="CUDA"):
         tspmm.stencil_bsr_spmm_t_pallas_bs(st, x.cpu())
     with pytest.raises(TypeError):
-        tspmm.stencil_pallas_bs_ext(st.blocks_t.double(), st.offsets,
+        tspmm.stencil_pallas_bs_ext(st.blocks_t.double(), st.offsets, x_ext, halo)
+    with pytest.raises(TypeError):
+        tspmm.stencil_pallas_bs_ext(st.blocks_t.to(torch.bfloat16), st.offsets,
                                     x_ext.double(), halo)
 
 
@@ -713,6 +720,114 @@ def test_b2b_bf16_lorasc_finish_shape(cuda_device):
     ref = tspmm.stencil_scan_accumulate(b16, st.offsets, x_ext, halo)
     scale = tspmm.stencil_scan_accumulate(b16.float().abs(), st.offsets, x_ext.abs(), halo)
     _close(y16, ref, scale)
+
+
+# --- the f64 instance of the stencil kernel (B2a, B2b) ---------------------
+
+F64_TOL = 1e-13     # max |y_kernel − y_plain| ≤ F64_TOL · max(|B|·|x|)
+
+
+def _lane_operands_f64(t, seed, device):
+    a = elasticity3d(7, 6, 5)
+    st = tfmt.csr_to_stencil_bsr_t(a, br=3, dtype=np.float64, device=device)
+    halo = max(abs(o) for o in st.offsets)
+    x = np.random.default_rng(seed).standard_normal((t, 3, a.shape[0] // 3))
+    xd = torch.from_numpy(x).to(device)
+    return st, xd, tspmm.extend_wrap(xd, halo).contiguous(), halo
+
+
+def _close_f64(y, st_blocks, offsets, x_ext, halo):
+    ref = tspmm.stencil_scan_accumulate(st_blocks, offsets, x_ext, halo)
+    scale = tspmm.stencil_scan_accumulate(st_blocks.abs(), offsets, x_ext.abs(), halo)
+    assert y.dtype == torch.float64 and y.shape == ref.shape
+    assert float((y - ref).abs().max()) <= F64_TOL * float(scale.max())
+
+
+@pytest.mark.parametrize("t", [1, 4, 12, 16, 97, 256])
+def test_b2a_f64_matches_plain(cuda_device, t):
+    """B2a's f64 instance (f64 blocks, panel, sums and output) at the
+    whole-width instances (1, 4, 12, 16) and the chunked one (the f64
+    LORASC build's lift width 97 and Lanczos panel 256) against the plain
+    f64 version: within 1e-13 of max(|B|·|x|)."""
+    st, x, x_ext, halo = _lane_operands_f64(t, seed=900 + t, device=cuda_device)
+    before = tspmm.stencil_bsr_spmm_t_pallas_bs.launches
+    before64 = tspmm.stencil_bsr_spmm_t_pallas_bs.f64_launches
+    y = tspmm.stencil_bsr_spmm_t(st, x)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.launches == before + 1
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.f64_launches == before64 + 1
+    _close_f64(y, st.blocks_t, st.offsets, x_ext, halo)
+
+
+@pytest.mark.parametrize("t", [1, 12])
+def test_b2b_f64_matches_plain(cuda_device, t):
+    """B2b's f64 instance on the pre-extended panel (t 1, the LORASC finish's
+    width; t 12, the halo-overlap shard product's)."""
+    st, _, x_ext, halo = _lane_operands_f64(t, seed=950 + t, device=cuda_device)
+    before64 = tspmm.stencil_pallas_bs_ext.f64_launches
+    y = tspmm.stencil_pallas_bs_ext(st.blocks_t, st.offsets, x_ext, halo)
+    torch.cuda.synchronize()
+    assert tspmm.stencil_pallas_bs_ext.f64_launches == before64 + 1
+    _close_f64(y, st.blocks_t, st.offsets, x_ext, halo)
+
+
+@pytest.mark.parametrize("nrb", [301, 4099])
+@pytest.mark.parametrize("br,t", [(3, 12), (1, 12), (3, 1), (2, 5)])
+def test_b2a_f64_wrap_edges(cuda_device, nrb, br, t):
+    """The f64 instance at odd nrb with offsets at 0, ±1, ±(nrb-1) and ±nrb,
+    br 1 and br 2 (the generic kernel) among them."""
+    offsets = (-nrb, -(nrb - 1), -1, 0, 1, nrb - 1, nrb)
+    st, x = _random_lane(nrb, offsets, br, t, seed=nrb + 11 * t, device=cuda_device)
+    st = tfmt.StencilBsrTMatrix(st.blocks_t.double(), offsets, st.shape)
+    x = x.double()
+    y = tspmm.stencil_bsr_spmm_t_pallas_bs(st, x)
+    torch.cuda.synchronize()
+    _close_f64(y, st.blocks_t, offsets, tspmm.extend_wrap(x, nrb), nrb)
+
+
+def _fma_lane_ref(blocks_t, offsets, x_ext, halo):
+    """The lane-major kernel's f32 sums in its order (offset s, then k),
+    each step fmaf(b, x, acc) computed in float64 and rounded to float32."""
+    _, br, _, nrb = blocks_t.shape
+    bd, xd = blocks_t.double(), x_ext.double()
+    acc = torch.zeros((x_ext.shape[0], br, nrb), dtype=torch.float32,
+                      device=x_ext.device)
+    for s, off in enumerate(offsets):
+        xs = xd[:, :, halo + off:halo + off + nrb]
+        for k in range(br):
+            for m in range(br):
+                acc[:, m] = (bd[s, m, k][None, :] * xs[:, k] + acc[:, m].double()).float()
+    return acc
+
+
+@pytest.mark.parametrize("t", [1, 4, 8, 12, 16, 97])
+def test_b2a_f32_bitwise_equals_fma_order(cuda_device, t):
+    """The f32 instance of the lane-major maps (B2a wrap, B2b pre-extended)
+    sums in fmaf order s, then k, bitwise, beside the f64 instance in the
+    same body: with the bf16 instance bitwise the f32 one on the widened
+    blocks (``test_b2a_bf16_blocks_bitwise_f32_instance``), the f32 and
+    bf16 results are those of the body before the f64 instance."""
+    st, x, x_ext, halo = _lane_operands(3, t, seed=700 + t, device=cuda_device)
+    ref = _fma_lane_ref(st.blocks_t, st.offsets, x_ext, halo)
+    y_a = tspmm.stencil_bsr_spmm_t_pallas_bs(st, x)
+    y_b = tspmm.stencil_pallas_bs_ext(st.blocks_t, st.offsets, x_ext, halo)
+    torch.cuda.synchronize()
+    assert torch.equal(y_a, ref) and torch.equal(y_b, ref)
+
+
+def test_flat_and_planar_refuse_f64(cuda_device):
+    """B1 and B4 stay f32: no port path sends them f64 tables (ROADMAP.md
+    queue B)."""
+    bf, offs, x_ext, halo = _operands(elasticity3d(5, 5, 4), 3, 2, seed=0,
+                                      device=cuda_device)
+    with pytest.raises(TypeError):
+        tspmm.stencil_flat_ext(bf.double(), offs, x_ext.double(), halo, 3)
+    st, x, _, _ = _lane_operands(3, 4, seed=1, device=cuda_device)
+    b3 = tspmm.stencil_blocks_planar(st.blocks_t).contiguous()
+    nrb = st.blocks_t.shape[3]
+    with pytest.raises(TypeError):
+        tspmm.stencil_spmm_planar(b3.double(), x.reshape(4, -1).double(),
+                                  offsets=st.offsets, br=3, nrb=nrb)
 
 
 def test_flat_and_planar_refuse_bf16_blocks(cuda_device):
@@ -1223,3 +1338,80 @@ def test_dryrun_multichip_on_card(cuda_device):
     assert set(out) == set(NAMES)
     assert all(rec["relres"] < 1e-4 and rec["finite"] for rec in out.values())
     assert out["dry_lorasc_deflation"]["deflated"] >= 1
+
+
+# --- the f64 LORASC path and the measurement scripts on the card -----------
+
+
+def test_f64_lorasc_on_card_matches_cpu(cuda_device):
+    """``StencilLorascECG.build(a, dtype=np.float64)`` at het 8³ (the f64
+    deflation study's configuration: 8 box parts, t 12 odir_fused to 1e-5,
+    no refinement) on the card, every product B2a's f64 instance, against
+    the same build on the CPU: iterations ±1, the same pairs, x within 1e-8
+    relative."""
+    from prealps_tpu_torch.examples import deflation_study_f64 as study
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+
+    a, b = study.problem(8)
+    kw = dict(opts=ECGOptions(**study.OPTS), **study.build_kwargs(8, 64))
+    s_g = StencilLorascECG.build(a, device=cuda_device, **kw)
+    assert s_g.precond.operands["a_stencil"].blocks_t.dtype == torch.float64
+    assert s_g.a_scaled is None
+    before = tspmm.stencil_bsr_spmm_t_pallas_bs.f64_launches
+    x_g, info_g = s_g.solve(b)
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.f64_launches - before >= 3 * info_g["iters"]
+    x_c, info_c = StencilLorascECG.build(a, device="cpu", **kw).solve(b)
+    assert info_g["deflated"] == info_c["deflated"] and not info_g["breakdown"]
+    assert abs(info_g["iters"] - info_c["iters"]) <= 1
+    assert np.linalg.norm(x_g - x_c) <= 1e-8 * np.linalg.norm(x_c)
+
+
+def _script_records(out):
+    import json
+
+    return [json.loads(v) for v in out.splitlines() if v.startswith("{")]
+
+
+def test_deflation_study_on_card(cuda_device, capsys):
+    from prealps_tpu_torch.examples import deflation_study_f64 as study
+
+    assert study.main(["--nel", "6", "--deflations", "8,16"]) == 0
+    head, *rows, _ = _script_records(capsys.readouterr().out)
+    assert head["card"] != "cpu"
+    assert [r["defl_requested"] for r in rows] == [8, 16]
+    assert all(r["relres"] < 1e-4 and r["device_ms"] > 0 for r in rows)
+
+
+def test_fmt_auto_on_card(cuda_device, capsys):
+    """f32 on the card: every format's product within 1e-4 of scipy's (the
+    script raises otherwise); the pass line is a measurement, not held."""
+    from prealps_tpu_torch.examples import bench_fmt_auto
+
+    rc = bench_fmt_auto.main(["--scale", "0.05", "--reps", "3"])
+    _, *recs, last = _script_records(capsys.readouterr().out)
+    assert rc == (0 if last["pass"] else 1) and len(recs) == 4
+    assert all(r["dtype"] == "float32" and r["platform"] == "gpu" for r in recs)
+
+
+def test_spmm_general_on_card(cuda_device, capsys):
+    from prealps_tpu_torch.examples import bench_spmm_general
+
+    before = tspmm.block_ell_spmm_pallas.launches
+    assert bench_spmm_general.main(["--npts", "3000", "--stencil-nel", "6",
+                                    "--reps", "3"]) == 0
+    assert tspmm.block_ell_spmm_pallas.launches > before
+    _, dia, bell, stencil, _ = _script_records(capsys.readouterr().out)
+    assert all(r["relerr"] < 1e-4 and r["ms"] > 0 for r in (dia, bell, stencil))
+
+
+def test_halo_overlap_on_card(cuda_device, capsys):
+    """Two ranks sharing the card: the full step's product (B2b's f64
+    instance) equal to the one-rank product (B2a's), the shared card
+    named."""
+    from prealps_tpu_torch.examples import measure_halo_overlap
+
+    assert measure_halo_overlap.main(["--ranks", "2", "--nel", "6", "--steps", "3",
+                                      "--device", "cuda:0"]) == 0
+    (rec,) = _script_records(capsys.readouterr().out)
+    assert rec["full_vs_single_relerr"] <= 1e-12
+    assert rec["shared_card"] and rec["b2b_f64_launches"] > 0

@@ -19,7 +19,21 @@ refinement round sits at the edge of its 1e-3 inner tolerance, so a
 groups raises the JAX driver's error, as does a group of the wrong size.
 The JAX side partitions with its Python algorithm
 (``PREALPS_TPU_NO_NATIVE=1``), the one the port copies.
+
+The same spawn runs the port's counterpart of JAX's
+``tests/test_lorasc.py::test_deflate_f32_omin_bounded_iterations``: f32,
+t 2 omin to 1e-6, ``exact_schur=False``, ``max_deflation=16``, the
+balancing correction, b = default_rng(42) in f32, held to JAX's contract
+(relres < 1e-5, no breakdown, fewer than 400 iterations: the deflation
+class, not the f32 drift class of the dry run's odir_fused path 6). JAX's
+own count is taken beside it in a process of its own with x64 off
+(``JAX_ENABLE_X64=0``), the regime of the dry run that first drifted.
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -47,6 +61,42 @@ JAX_F32_ITERS = 64                            # JAX's measured count, ±10 %
 PORT_F32_ITERS = (0.9 * JAX_F32_ITERS, 1.1 * 270)  # the port's band
 REFUSED = {"one_group": dict(nshards=1), "mesh_1x4": dict(mesh_shape=(1, 4)),
            "wrong_size": dict(nshards=2)}
+# JAX's test_deflate_f32_omin_bounded_iterations (tests/test_lorasc.py:232-253)
+A4_OPTS = dict(t=2, tol=1e-6, maxiter=4000, variant="omin")
+A4 = {"a4": dict(nshards=4, dtype=np.float32, exact_schur=False, max_deflation=16,
+                 correction="deflate", opts=A4_OPTS)}
+A4_MAX_ITERS = 400
+# the JAX build and solve of A4 in a process with x64 off (no conftest)
+A4_JAX = f"""
+import json
+import jax
+import numpy as np
+from prealps_tpu.core.generators import elasticity3d
+from prealps_tpu.parallel.lorasc_driver import DistributedLorascECG
+from prealps_tpu.solvers.ecg import ECGOptions
+assert not jax.config.jax_enable_x64
+a = elasticity3d(6, 5, 5)
+b = np.random.default_rng(42).standard_normal(a.shape[0]).astype(np.float32)
+s = DistributedLorascECG.build(a, nshards=4, opts=ECGOptions(**{A4_OPTS!r}),
+                               exact_schur=False, max_deflation=16,
+                               correction="deflate", dtype=np.float32)
+x, info = s.solve(b)
+r = np.linalg.norm(b - a @ np.asarray(x, np.float64)) / np.linalg.norm(b)
+print(json.dumps(dict(iters=int(info["iters"]), relres=float(r),
+                      breakdown=bool(info["breakdown"]), deflated=int(s.deflated),
+                      x64=bool(jax.config.jax_enable_x64))))
+"""
+
+
+def _start_jax_a4():
+    """JAX's A4 solve in a process of its own: x64 off, 4 CPU devices, the
+    Python partition."""
+    env = dict(os.environ, JAX_ENABLE_X64="0", JAX_PLATFORMS="cpu",
+               PREALPS_TPU_NO_NATIVE="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen([sys.executable, "-c", A4_JAX], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 @pytest.fixture(scope="module")
@@ -65,10 +115,16 @@ def both(tmp_path_factory):
         jax_res["f32"] = (s.deflated, *s.solve(b), np.asarray(s._operands[0]["sigma"]))
         with pytest.raises(ValueError, match=">= 2 interior parts") as err:
             JaxLorasc.build(a, nshards=1)
+        jax_a4 = _start_jax_a4()
+        b42 = np.random.default_rng(42).standard_normal(a.shape[0]).astype(np.float32)
         # the ranks inherit the knob: the port partitions as JAX did
         port = spawn_jobs(4, [("lorasc_solves", (a, b, {**CASES, **F32})),
-                              ("lorasc_refusals", (a, REFUSED))], tmp_path_factory,
+                              ("lorasc_refusals", (a, REFUSED)),
+                              ("lorasc_solves", (a, b42, A4))], tmp_path_factory,
                           timeout=LORASC_SPAWN_TIMEOUT)
+        out, errs = jax_a4.communicate(timeout=LORASC_SPAWN_TIMEOUT)
+        assert jax_a4.returncode == 0, errs[-2000:]
+        jax_res["a4"] = json.loads(out.strip().splitlines()[-1])
     return a, b, jax_res, port, str(err.value)
 
 
@@ -124,3 +180,21 @@ def test_refusals(both, case):
             assert "needs a process group of 2 ranks" in msg
         else:
             assert msg == jax_msg
+
+
+def test_deflate_f32_omin_bounded_iterations(both):
+    """JAX's f32 omin contract under the balancing correction, on the port
+    (4 gloo ranks, f32 throughout), with JAX's own count (x64 off) beside
+    it."""
+    a, _, jax_res, port, _ = both
+    x, info = port[0][2]["a4"][:2]
+    for r in port[1:]:
+        np.testing.assert_array_equal(r[2]["a4"][0], x)
+    b = np.random.default_rng(42).standard_normal(a.shape[0]).astype(np.float32)
+    jax_a4 = jax_res["a4"]
+    print(f"A4: the port {info['iters']} iterations ({info['deflated']} pairs), JAX "
+          f"with x64 off {jax_a4['iters']} ({jax_a4['deflated']} pairs)")
+    assert not jax_a4["x64"]
+    assert relres(a, x, b) < 1e-5
+    assert not info["breakdown"]
+    assert info["iters"] < A4_MAX_ITERS, (info["iters"], jax_a4["iters"])

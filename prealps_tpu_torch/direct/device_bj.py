@@ -33,6 +33,7 @@ import scipy.sparse as sp
 import torch
 
 from prealps_tpu_torch.ops import _kernels
+from prealps_tpu_torch.utils.timing import count_launches
 
 
 def dense_blocks_from_stencil(blocks_t: torch.Tensor, offsets, mbn: int) -> torch.Tensor:
@@ -314,6 +315,7 @@ def bj_apply_pallas_ref(b2: torch.Tensor, z: torch.Tensor, br: int) -> torch.Ten
     return _from_blocks(torch.bmm(b2, _to_blocks(z, nb, mbp)), br, mbn)
 
 
+@count_launches
 def bj_apply_pallas(b2: torch.Tensor, z: torch.Tensor, br: int) -> torch.Tensor:
     """Block-Jacobi apply from pre-packed dense inverses (the TPU kernel
     ``prealps_tpu/direct/device_bj.py::bj_apply_pallas``).
@@ -366,6 +368,3 @@ def bj_apply_pallas(b2: torch.Tensor, z: torch.Tensor, br: int) -> torch.Tensor:
         _kernels.bj_apply_f32(b2, z, w, mb)
         bj_apply_pallas.launches += 1
     return w
-
-
-bj_apply_pallas.launches = 0

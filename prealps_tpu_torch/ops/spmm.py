@@ -26,7 +26,8 @@ General formats, row-major (n, t) panels:
 Stencil formats. Every stencil kernel below launches the one hand-written
 kernel of ``csrc/stencil.cu`` with its own index maps (panel rows, columns,
 block rows); CPU tensors run the plain version, and a CUDA tensor the
-kernel does not take raises. Each wrapper counts its own launches. The
+kernel does not take raises. Each wrapper counts its own launches
+(``.launches``, registered with ``utils/timing.py::count_launches``). The
 lane-major wrappers of the LORASC path (B2a, B2b) take f32 or bf16 blocks
 with an f32 panel and give an f32 result, as the TPU kernels promote bf16
 blocks; the kernel widens each bf16 entry to f32 (exact) and sums in the
@@ -85,6 +86,7 @@ from prealps_tpu_torch.parallel.mesh import (
     size_of,
     timing_no_collectives,
 )
+from prealps_tpu_torch.utils.timing import count_launches
 
 
 def ell_spmm(a: EllMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -165,6 +167,7 @@ def block_ell_entries_spmm(entries: BlockEllEntries, x: torch.Tensor) -> torch.T
     return y
 
 
+@count_launches
 def block_ell_spmm_pallas(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     """Block-ELL SpMM -> (n_pad, t); x: (ncols_pad, t) = (a.shape[1], t).
 
@@ -217,9 +220,6 @@ def block_ell_spmm_pallas(a: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-block_ell_spmm_pallas.launches = 0
-
-
 def stencil_flat_ext_ref(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,
                          halo: int, br: int) -> torch.Tensor:
     """Plain PyTorch flat stencil SpMM.
@@ -259,6 +259,7 @@ def _check_flat_args(blocks_flat, offsets, x_ext, halo, br):
         raise ValueError(f"halo {halo} smaller than the widest offset")
 
 
+@count_launches
 def stencil_flat_ext(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,
                      halo: int, br: int) -> torch.Tensor:
     """Flat stencil SpMM on a pre-extended k-major panel -> (br·t, nrb).
@@ -292,9 +293,6 @@ def stencil_flat_ext(blocks_flat: torch.Tensor, offsets, x_ext: torch.Tensor,
                          wrap=False, planar=False, what="stencil_flat_ext")
     stencil_flat_ext.launches += 1
     return y
-
-
-stencil_flat_ext.launches = 0
 
 
 def extend_wrap(xf: torch.Tensor, halo: int) -> torch.Tensor:
@@ -448,6 +446,7 @@ def _wrap_product(name: str, a: StencilBsrTMatrix, xt: torch.Tensor):
     return y, True
 
 
+@count_launches
 def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
     """B2a: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same
     (``_wrap_product``); counts its launches in
@@ -463,11 +462,11 @@ def stencil_bsr_spmm_t_pallas_bs(a: StencilBsrTMatrix, xt: torch.Tensor) -> torc
     return y
 
 
-stencil_bsr_spmm_t_pallas_bs.launches = 0
 stencil_bsr_spmm_t_pallas_bs.bf16_launches = 0
 stencil_bsr_spmm_t_pallas_bs.f64_launches = 0
 
 
+@count_launches
 def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
                           halo: int) -> torch.Tensor:
     """B2b: lane-major stencil SpMM on a pre-extended panel,
@@ -496,11 +495,11 @@ def stencil_pallas_bs_ext(blocks_t: torch.Tensor, offsets, x_ext: torch.Tensor,
     return y
 
 
-stencil_pallas_bs_ext.launches = 0
 stencil_pallas_bs_ext.bf16_launches = 0
 stencil_pallas_bs_ext.f64_launches = 0
 
 
+@count_launches
 def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:
     """B3: lane-major stencil SpMM with wrap halos, (t, br, nrb) -> same
     (the TPU kernel of the same name, the SpMM sweep's ``stencil_t_pallas``).
@@ -519,9 +518,6 @@ def stencil_bsr_spmm_t_pallas(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.T
     y, launched = _wrap_product("stencil_bsr_spmm_t_pallas", a, xt)
     stencil_bsr_spmm_t_pallas.launches += launched
     return y
-
-
-stencil_bsr_spmm_t_pallas.launches = 0
 
 
 def stencil_blocks_planar(blocks_t: torch.Tensor) -> torch.Tensor:
@@ -544,6 +540,7 @@ def stencil_spmm_planar_ref(blocks3: torch.Tensor, x2: torch.Tensor, *,
     return y.reshape(t_dim, br * nrb)
 
 
+@count_launches
 def stencil_spmm_planar(blocks3: torch.Tensor, x2: torch.Tensor, *, offsets,
                         br: int, nrb: int) -> torch.Tensor:
     """B4: planar stencil SpMM, x2 (t, br·nrb) -> (t, br·nrb), blocks3
@@ -587,9 +584,6 @@ def stencil_spmm_planar(blocks3: torch.Tensor, x2: torch.Tensor, *, offsets,
                  wrap=True, planar=True, what="stencil_spmm_planar")
     stencil_spmm_planar.launches += 1
     return y
-
-
-stencil_spmm_planar.launches = 0
 
 
 def stencil_bsr_spmm_t(a: StencilBsrTMatrix, xt: torch.Tensor) -> torch.Tensor:

@@ -105,7 +105,6 @@ JAX driver's Pallas tiling ``rb_per_prog`` has no counterpart (ROADMAP.md
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, field, replace
 from typing import Optional, Union
 
@@ -183,7 +182,7 @@ from prealps_tpu_torch.precond.twolevel import (
 )
 from prealps_tpu_torch.solvers.ecg import ECGOptions, ECGResult, ecg_solve
 from prealps_tpu_torch.solvers.refine import INNER_TOL, STALL_RATIO, STALL_WINDOW
-from prealps_tpu_torch.utils.timing import sync
+from prealps_tpu_torch.utils.timing import Stages, host_read, scope, sync, traced
 
 MAX_REFINE_ROUNDS = 8
 Q_MODES = 6          # rigid-body coarse modes per block (3-D elasticity)
@@ -298,6 +297,7 @@ class _RowMajor(_Operands):
         n = n_pad // size_of(self.group)
         return ((self.shard * n + torch.arange(n, device=self.device)) * t) // n_pad
 
+    @scope("precond")
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
         """Chebyshev, host-built block Jacobi, or the identity
         (precond="none")."""
@@ -357,6 +357,7 @@ class StencilOperands(_LaneMajor):
     def halo(self) -> int:
         return max(abs(o) for o in self.offsets)
 
+    @scope("spmm")
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         """A·x for a lane-major panel x (t, br, nrb): the halo columns from
         the ring neighbours (wrapped on one shard), then B1."""
@@ -373,6 +374,7 @@ class StencilOperands(_LaneMajor):
             blocks_t, self.offsets, extend_ring(x, self.halo, self.group),
             self.halo)
 
+    @scope("precond")
     def m_apply(self, z: torch.Tensor) -> torch.Tensor:
         if self.cheb is not None:
             return self.cheb.apply(z)
@@ -409,6 +411,7 @@ class DiaLaneOperands(StencilOperands):
 
     df_ok = False
 
+    @scope("spmm")
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         """B1 on the ring-extended diagonals, then the remainder on the
         transposed panel: over several shards its halo plan's all-to-all
@@ -441,6 +444,7 @@ class EllOperands(_RowMajor):
     def device(self) -> torch.device:
         return self.mat.vals.device
 
+    @scope("spmm")
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         return ell_spmm(self.mat, halo_extended(x, self.send_idx, self.group))
 
@@ -475,6 +479,7 @@ class BlockEllOperands(_RowMajor):
     def device(self) -> torch.device:
         return self.mat.blocks.device
 
+    @scope("spmm")
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         if self.send_idx is not None:
             # x as (blocks, bk, t), one all-to-all of the packed blocks, the
@@ -509,6 +514,7 @@ class DiaOperands(_RowMajor):
     def device(self) -> torch.device:
         return self.mat.diags.device
 
+    @scope("spmm")
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         # the diagonals on a window of max|offset| rows each side: the ring
         # (one shard: the wrap), or for thin shards the periodic window of
@@ -541,6 +547,7 @@ class StencilNtOperands(_RowMajor):
     def device(self) -> torch.device:
         return self.mat.blocks.device
 
+    @scope("spmm")
     def a_apply(self, x: torch.Tensor) -> torch.Tensor:
         nrb, _, br, _ = self.mat.blocks.shape
         x3 = self.gather(x).reshape(-1, br, x.shape[1])   # every shard's nodes
@@ -989,6 +996,7 @@ class DistributedECG:
     group: Optional[object] = None         # process group over the shards
 
     @classmethod
+    @traced("build")
     def build(
         cls,
         a: sp.spmatrix,
@@ -1029,7 +1037,9 @@ class DistributedECG:
         Over several shards every rank of ``group`` (a ``torch.distributed``
         group of ``nshards`` ranks, ``parallel/mesh.py``) calls ``build``
         with the same arguments; ``device="cuda"`` is then ``cuda:{rank}``,
-        and ranks that share a card name it and use a gloo group."""
+        and ranks that share a card name it and use a gloo group.
+        ``timings`` holds each build stage's seconds (spans
+        ``build.<stage>``)."""
         world = size_of(group)
         nshards = world if nshards is None else int(nshards)
         if nshards != world:
@@ -1047,14 +1057,7 @@ class DistributedECG:
                                  rank_of(group))
         strict_fp32()
         a = sp.csr_matrix(a)
-        tb: dict = {}
-        mark = [time.perf_counter()]
-
-        def stage(name):
-            now = time.perf_counter()
-            tb[name] = tb.get(name, 0.0) + (now - mark[0])
-            mark[0] = now
-
+        stage = Stages("build")
         pre_perm = fmt_info = None
         bell_bk = 128
         if fmt == "auto":
@@ -1106,8 +1109,8 @@ class DistributedECG:
         return cls(
             layout=layout, opts=opts, scale_d=scale_d, operands=operands,
             device=device, dtype=dtype, target_tol=target_tol,
-            a_scaled=a if refine else None, timings=tb, pre_perm=pre_perm,
-            fmt_info=fmt_info, group=group,
+            a_scaled=a if refine else None, timings=stage.timings,
+            pre_perm=pre_perm, fmt_info=fmt_info, group=group,
         )
 
     def _ecg(self, rhs: torch.Tensor) -> ECGResult:
@@ -1128,22 +1131,25 @@ class DistributedECG:
         """The padded global vector from every shard's part of x (the same
         on every rank)."""
         ops = self.operands
-        return ops.from_space(ops.gather(x).cpu().numpy())
+        return ops.from_space(host_read(torch.Tensor.cpu, ops.gather(x)).numpy())
 
     # --- solves ---------------------------------------------------------
 
     def _solve_scaled_once(self, b_eff: np.ndarray):
         """One device ECG solve of the scaled, padded system."""
-        b_pad = pad_to_padded(self.layout, b_eff.astype(self.dtype))
-        res = self._ecg(self._to_shard(b_pad))
-        x = unpad_from_padded(self.layout, self._from_shards(res.x))
+        with scope("solve.prep"):
+            rhs = self._to_shard(pad_to_padded(self.layout,
+                                               b_eff.astype(self.dtype)))
+        res = self._ecg(rhs)
+        with scope("solve.gather"):
+            x = unpad_from_padded(self.layout, self._from_shards(res.x))
         info = {
             "iters": int(res.iters),
-            "res": float(res.res),
-            "normb": float(res.normb),
+            "res": host_read(float, res.res),
+            "normb": host_read(float, res.normb),
             "bs": int(res.bs),
             "breakdown": bool(res.breakdown),
-            "history": res.history.cpu().numpy(),
+            "history": host_read(torch.Tensor.cpu, res.history).numpy(),
         }
         return x.astype(np.float64), info
 
@@ -1160,6 +1166,7 @@ class DistributedECG:
         MAX_REFINE_ROUNDS rounds. Returns (x_hi, x_lo, info)."""
         ops = self.operands
 
+        @scope("refine.resid")
         def resid(xh, xl):
             yh, yl = ops.a_apply_df(ops.expand(xh))
             y2 = ops.squeeze(ops.a_apply(ops.expand(xl)))
@@ -1182,59 +1189,73 @@ class DistributedECG:
         it_tot, rounds, brk, bs = 0, 0, False, self.opts.t
         history = torch.full((self.opts.maxiter,), -1.0, dtype=b_hi.dtype,
                              device=b_hi.device)
-        stop = bool(relres <= tol_s)
+        stop = host_read(bool, relres <= tol_s)
+        round_span = scope("refine.round")
         while rounds < MAX_REFINE_ROUNDS and not stop:
-            res = self._ecg(r)
-            xh, xl = df_add((xh, xl), (res.x, torch.zeros_like(res.x)))
-            r, _ = resid(xh, xl)
-            relres2 = gnorm(r) / normb
-            stop = bool((relres2 <= tol_s) | (relres2 > STALL_RATIO * relres)
-                        | torch.isnan(relres2)) or res.breakdown
+            with round_span:
+                res = self._ecg(r)
+                xh, xl = df_add((xh, xl), (res.x, torch.zeros_like(res.x)))
+                r, _ = resid(xh, xl)
+                relres2 = gnorm(r) / normb
+                stop = host_read(bool, (relres2 <= tol_s)
+                                 | (relres2 > STALL_RATIO * relres)
+                                 | torch.isnan(relres2)) or res.breakdown
             relres = relres2
             it_tot += res.iters
             rounds += 1
             brk, bs, history = res.breakdown, res.bs, res.history
         info = {
             "iters": it_tot,
-            "res": float(relres * normb),
-            "normb": float(normb),
+            "res": host_read(float, relres * normb),
+            "normb": host_read(float, normb),
             "bs": int(bs),
             "breakdown": bool(brk),
             "refine_rounds": rounds,
             "device_rounds": rounds,
-            "history": history.cpu().numpy(),
+            "history": host_read(torch.Tensor.cpu, history).numpy(),
         }
         return xh, xl, info
 
     def _solve_refined_device(self, b_eff: np.ndarray):
         """Device-resident refinement, then a host f64 cross-check."""
-        b_pad = pad_to_padded(self.layout, b_eff)                # f64
-        b_hi = b_pad.astype(np.float32)
-        b_lo = (b_pad - b_hi.astype(np.float64)).astype(np.float32)
-        xh, xl, info = self.local_refine(self._to_shard(b_hi),
-                                         self._to_shard(b_lo))
-        x_np = (self._from_shards(xh).astype(np.float64)
-                + self._from_shards(xl).astype(np.float64))
-        x = unpad_from_padded(self.layout, x_np)
-        r = b_eff - self.a_scaled @ x
-        info["res"] = float(np.linalg.norm(r))
-        info["relres_scaled"] = float(info["res"] / np.linalg.norm(b_eff))
+        with scope("solve.prep"):
+            b_pad = pad_to_padded(self.layout, b_eff)                # f64
+            b_hi = b_pad.astype(np.float32)
+            b_lo = (b_pad - b_hi.astype(np.float64)).astype(np.float32)
+            b_hi, b_lo = self._to_shard(b_hi), self._to_shard(b_lo)
+        xh, xl, info = self.local_refine(b_hi, b_lo)
+        with scope("solve.gather"):
+            x_np = (self._from_shards(xh).astype(np.float64)
+                    + self._from_shards(xl).astype(np.float64))
+            x = unpad_from_padded(self.layout, x_np)
+        with scope("solve.host_check"):
+            r = b_eff - self.a_scaled @ x
+            info["res"] = float(np.linalg.norm(r))
+            info["relres_scaled"] = float(info["res"] / np.linalg.norm(b_eff))
         return x, info
 
     def solve(self, b: np.ndarray, max_refine_rounds: int = MAX_REFINE_ROUNDS):
         """Solve A x = b (original ordering and scaling). Returns (x, info).
         With fmt="auto"'s row permutation the build ran on A[perm][:, perm]:
-        b goes in as b[perm] and x comes back in the original ordering."""
-        b = np.asarray(b)
-        if self.pre_perm is None:
-            return self._solve_permuted(b, max_refine_rounds)
-        x_p, info = self._solve_permuted(b[self.pre_perm], max_refine_rounds)
-        x = np.empty_like(x_p)
-        x[self.pre_perm] = x_p
+        b goes in as b[perm] and x comes back in the original ordering.
+        While a profiler records, ``info["trace"]`` holds the solve's spans
+        and counters (``utils/timing.py``)."""
+        with traced("solve") as trace:
+            b = np.asarray(b)
+            if self.pre_perm is None:
+                x, info = self._solve_permuted(b, max_refine_rounds)
+            else:
+                x_p, info = self._solve_permuted(b[self.pre_perm], max_refine_rounds)
+                x = np.empty_like(x_p)
+                x[self.pre_perm] = x_p
+        if trace is not None:
+            info["trace"] = trace.as_dict()
         return x, info
 
     def _solve_permuted(self, b: np.ndarray, max_refine_rounds: int):
-        b_eff = self.scale_d * b if self.scale_d is not None else b.astype(np.float64)
+        with scope("solve.prep"):
+            b_eff = (self.scale_d * b if self.scale_d is not None
+                     else b.astype(np.float64))
 
         if self.a_scaled is None:
             x, info = self._solve_scaled_once(b_eff)
@@ -1257,9 +1278,11 @@ class DistributedECG:
             rounds = 0 if info0 is None else info0["refine_rounds"]
             info = {}
             prev_relres = np.inf
+            check = scope("solve.host_check")
             for _ in range(max_refine_rounds):
-                r = b_eff - a @ x
-                relres = np.linalg.norm(r) / normb
+                with check:
+                    r = b_eff - a @ x
+                    relres = np.linalg.norm(r) / normb
                 if relres <= self.target_tol:
                     break
                 if relres > STALL_RATIO * prev_relres:
@@ -1271,13 +1294,15 @@ class DistributedECG:
                 rounds += 1
                 if info["breakdown"]:
                     break
-            r = b_eff - a @ x
+            with check:
+                r = b_eff - a @ x
+                res_norm = float(np.linalg.norm(r))
             info = dict(info or info0 or {})
             info["iters"] = total_iters
             info["refine_rounds"] = rounds
             info["device_rounds"] = 0 if info0 is None else info0["device_rounds"]
-            info["res"] = float(np.linalg.norm(r))
-            info["relres_scaled"] = float(np.linalg.norm(r) / normb)
+            info["res"] = res_norm
+            info["relres_scaled"] = float(res_norm / normb)
 
         if self.scale_d is not None:
             x = self.scale_d * x

@@ -70,6 +70,7 @@ from prealps_tpu_torch.solvers.ecg import (
 )
 from prealps_tpu_torch.solvers.refine import (INNER_TOL, STALL_RATIO, STALL_WINDOW,
                                               refine_solve)
+from prealps_tpu_torch.utils.timing import scope
 
 
 @dataclass
@@ -185,9 +186,11 @@ class StencilLorascECG:
 
     # --- operator callbacks -------------------------------------------------
 
+    @scope("spmm")
     def _a_apply(self, x: torch.Tensor) -> torch.Tensor:
         return stencil_bsr_spmm_t(self.precond.operands["a_stencil"], x)
 
+    @scope("precond")
     def _m_apply(self, r: torch.Tensor) -> torch.Tensor:
         return lorasc_apply(self.precond.plan, self.precond.operands, r)
 

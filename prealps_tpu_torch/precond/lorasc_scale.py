@@ -61,7 +61,7 @@ from prealps_tpu_torch.ops.lanczos import (
     resolve_block_policy,
 )
 from prealps_tpu_torch.ops.spmm import stencil_bsr_spmm_t
-from prealps_tpu_torch.utils.timing import sync
+from prealps_tpu_torch.utils.timing import scope, sync
 
 
 # ---------------------------------------------------------------------------
@@ -337,11 +337,13 @@ def _sep_flat_t(plan: ArrowBandPlan, gb: torch.Tensor) -> torch.Tensor:
     return gb[:, 0].permute(0, 2, 1).reshape(plan.ng_pad, t)
 
 
+@scope("precond.banded")
 def _agg_solve(plan, ops, g: torch.Tensor) -> torch.Tensor:
     fac = BlockBandedCholesky(ops["agg_linv"], ops["agg_moff"], ops["agg_failed"])
     return _sep_flat_t(plan, block_banded_solve_t(fac, _sep_band_t(plan, g)))
 
 
+@scope("precond.banded")
 def _aii_solve(plan, ops, vb: torch.Tensor) -> torch.Tensor:
     fac = BlockBandedCholesky(ops["aii_linv"], ops["aii_moff"], ops["aii_failed"])
     return block_banded_solve_t(fac, vb)

@@ -24,7 +24,10 @@ The PyTorch counterpart of ``prealps_tpu/solvers/ecg.py``. Two state forms:
 ``lax.while_loop`` becomes a Python loop with the same stop rules (residual
 vs tol, maxiter, active block size, breakdown, stall window); evaluating
 them costs one host synchronisation per iteration. ``ecg_solve(x0=...)``
-warm-starts by solving the shifted system A·dx = b − A·x0.
+warm-starts by solving the shifted system A·dx = b − A·x0. Spans (inside a
+trace, ``utils/timing.py``): ``ecg.init``, ``ecg.step`` (one iteration's
+host time: its launches and any read inside it) and ``ecg.finalize``;
+every read of a device value goes through ``host_read``.
 
 Sharded (``group=``, one process per shard): every reduction — the Grams,
 ``normb``, the initial column norms, the adaptive reduction's pivoted
@@ -46,6 +49,7 @@ from prealps_tpu_torch.ops.blockops import (
     tri_inv,
 )
 from prealps_tpu_torch.solvers.panels import LAYOUTS, TBN
+from prealps_tpu_torch.utils.timing import host_read, scope
 
 
 @dataclass(frozen=True)
@@ -193,7 +197,7 @@ def _rotate_reduce(ops, alpha, p, ap, z, mask, red_tol):
     do_red = (t1 > 0) & (t1 < bs)
     new_mask = (torch.arange(t, device=alpha.device)
                 < torch.where(do_red, t1, bs)).to(alpha.dtype)
-    if bool(do_red):
+    if host_read(bool, do_red):
         alpha = u_svd.T @ alpha
         p, ap, z = ops.rotate(p, u_svd), ops.rotate(ap, u_svd), ops.rotate(z, u_svd)
     alpha = alpha * new_mask[:, None]
@@ -457,6 +461,7 @@ def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
     )
 
 
+@scope("ecg.init")
 def ecg_init(a_apply, m_apply, b: torch.Tensor, opts: ECGOptions,
              split_assign=None, group=None):
     """Initial state + normb (prealps_tpu/solvers/ecg.py:602-655): stacked
@@ -518,18 +523,21 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
 
     it_stop = opts.maxiter if max_steps is None else min(opts.maxiter,
                                                           state.it + max_steps)
+    step_span = scope("ecg.step")
     while state.it < it_stop:
         ok = (state.res > tol_abs) & (torch.sum(state.mask) > 0) & ~state.breakdown
         if opts.stall_window > 0:
             ok = ok & (state.stall < opts.stall_window)
         # the one host synchronisation per step; with a group, ok is
         # computed from all-reduced values and so the same on every rank
-        if not bool(ok):
+        if not host_read(bool, ok):
             break
-        state = step(state)
+        with step_span:
+            state = step(state)
     return state
 
 
+@scope("ecg.finalize")
 def ecg_finalize(state, normb: torch.Tensor, layout: str = "nt") -> ECGResult:
     """Sum the solution columns (a stacked state is always lane-major)."""
     if isinstance(state, ECGState):
@@ -542,8 +550,8 @@ def ecg_finalize(state, normb: torch.Tensor, layout: str = "nt") -> ECGResult:
         iters=state.it,
         res=state.res,
         normb=normb,
-        bs=int(torch.sum(state.mask)),
-        breakdown=bool(state.breakdown),
+        bs=host_read(int, torch.sum(state.mask)),
+        breakdown=host_read(bool, state.breakdown),
         history=state.history,
     )
 

@@ -8,14 +8,19 @@ calls behind a spin kernel that outlasts their enqueueing, so the events
 time the device's work alone; ``call_ms`` uses it on the card and the
 host clock on the CPU. ``profiled_device_ms`` gives a whole call's busy
 device time under torch.profiler (``device_busy_ms`` that of any profiled
-window), and ``card_line`` the card's name and power limit, which every
+window: the union of the device operations' intervals in the window's
+exported trace, so overlapping operations count once and none is left
+out), and ``card_line`` the card's name and power limit, which every
 measurement script prints.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -30,22 +35,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_busy_ms(prof) -> float:
-    """Device time of a torch.profiler window: the sum of the device
-    events' self time, as torch's own table totals it (the card's busy
-    time, its idle gaps left out)."""
-    from torch.autograd import DeviceType
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+
+def device_intervals(prof) -> list:
+    """The device operations (kernels, copies, sets) of a torch.profiler
+    window as (start, duration) pairs in µs, from its exported Chrome
+    trace, sorted by start."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.unlink(path)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    return sorted((float(e["ts"]), float(e.get("dur", 0.0))) for e in events
+                  if e.get("ph") == "X" and e.get("cat", "").lower() in DEVICE_CATS)
+
+
+def union_ms(intervals) -> float:
+    """Milliseconds in which at least one of the (start, duration) µs
+    intervals, sorted by start, runs."""
+    total, end = 0.0, -float("inf")
+    for lo, dur in intervals:
+        hi = lo + dur
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e3
+
+
+def device_busy_ms(prof) -> float:
+    """Busy device time of a torch.profiler window: the union of its device
+    operations' intervals (the card's busy time, its idle gaps left out)."""
+    return union_ms(device_intervals(prof))
 
 
 def profiled_device_ms(fn) -> float:
-    """Device time of one fn() call under torch.profiler (``device_busy_ms``
-    of its window)."""
+    """Busy device time of one fn() call under torch.profiler, recording the
+    device's activity only (``device_busy_ms`` of its window)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return device_busy_ms(prof)

@@ -54,6 +54,7 @@ theirs from the JAX ``ECGSolver`` with its default (native) partition:
 """
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -176,7 +177,8 @@ def sharded_config(path: str, nel: int):
 def set_partitioner(native: bool) -> str:
     """The JAX package's k-way and block-arrow partitioner for an anchor:
     its native library (its default, and the port's) or its Python
-    algorithm (``PREALPS_TPU_NO_NATIVE=1``). Returns its name."""
+    algorithm (``PREALPS_TPU_NO_NATIVE=1``). Returns its name. Call it
+    only inside a function decorated ``restores_partitioner``."""
     if native:
         os.environ.pop("PREALPS_TPU_NO_NATIVE", None)
         return "native"
@@ -184,6 +186,25 @@ def set_partitioner(native: bool) -> str:
     return "python"
 
 
+def restores_partitioner(fn):
+    """``fn`` with ``PREALPS_TPU_NO_NATIVE`` as it found it (set to its
+    value, or absent) when it returns or raises: the variable is read by
+    every JAX partition of the process, so a leak would give the later
+    tests of a test worker the JAX Python partition."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        before = os.environ.get("PREALPS_TPU_NO_NATIVE")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if before is None:
+                os.environ.pop("PREALPS_TPU_NO_NATIVE", None)
+            else:
+                os.environ["PREALPS_TPU_NO_NATIVE"] = before
+    return wrapped
+
+
+@restores_partitioner
 def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32,
                        native: bool = False) -> dict:
     """The JAX driver's solve of a sharded chip_smoke phase over
@@ -214,6 +235,7 @@ def jax_sharded_anchor(path: str, nel: int, nshards: int, dtype=np.float32,
             "solve_s": time.perf_counter() - t0}
 
 
+@restores_partitioner
 def jax_formats_anchors(native: bool = False) -> list:
     """The JAX driver's solve of each [sharded_formats] path at its own
     nshards (``chip_smoke.SHARDED_FORMATS``)."""
@@ -254,6 +276,7 @@ def lorasc_case(path: str, mesh: tuple, dtype=np.float32):
         t=2, tol=1e-6, maxiter=6000, variant=variant))
 
 
+@restores_partitioner
 def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32,
                       native: bool = False) -> dict:
     """The JAX DistributedLorascECG's build and solve of a distributed
@@ -279,6 +302,7 @@ def jax_lorasc_anchor(path: str, mesh: tuple, dtype=np.float32,
             "solve_s": time.perf_counter() - t0}
 
 
+@restores_partitioner
 def jax_api_anchor(path: str, dtype=np.float32) -> dict:
     """The JAX ``ECGSolver``'s build and solve of a chip_smoke [api_*]
     phase (``chip_smoke.API_CASES``; the native partitioner, the JAX
@@ -498,6 +522,22 @@ if __name__ == "__main__":
         print(json.dumps(jax_lorasc_f64_anchor(args.nel, args.max_deflation)))
     else:
         print(json.dumps(jax_anchor(args.path, args.nel, args.block_size)))
+
+
+@pytest.mark.parametrize("before", [None, "1"])
+def test_anchor_helpers_restore_the_partitioner_knob(before, monkeypatch):
+    """An anchor helper called in-process leaves ``PREALPS_TPU_NO_NATIVE``
+    as it found it: absent after a solve on the Python partition, set after
+    a call on the native one that raises."""
+    if before is None:
+        monkeypatch.delenv("PREALPS_TPU_NO_NATIVE", raising=False)
+        rec = jax_sharded_anchor("dry_ell_bj", DRYRUN_NEL, 2, native=False)
+        assert rec["partitioner"] == "python" and rec["relres"] < 1e-5
+    else:
+        monkeypatch.setenv("PREALPS_TPU_NO_NATIVE", before)
+        with pytest.raises(KeyError):
+            jax_sharded_anchor("no_such_path", DRYRUN_NEL, 2, native=True)
+    assert os.environ.get("PREALPS_TPU_NO_NATIVE") == before
 
 
 def test_api_cases_are_the_cli_defaults():

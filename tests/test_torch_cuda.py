@@ -25,6 +25,8 @@ kernel's (row tiles of 128, 32-column stages, up to 12 panel columns a
 CTA, 16-byte or 4-byte z copies).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1415,3 +1417,65 @@ def test_halo_overlap_on_card(cuda_device, capsys):
     (rec,) = _script_records(capsys.readouterr().out)
     assert rec["full_vs_single_relerr"] <= 1e-12
     assert rec["shared_card"] and rec["b2b_f64_launches"] > 0
+
+
+def _exported(log_dir):
+    (path,) = log_dir.glob("*.pt.trace.json")
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def test_program_spans_on_the_device_clock(cuda_device, tmp_path):
+    """The spans record under a profiler of the device alone, and a kernel
+    launched and synchronised inside a span lies inside it in the exported
+    trace, on the spans' converted clock (``utils/timing.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prealps_tpu_torch.utils import timing
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with timing.traced("probe") as tr:
+            assert tr is not None
+    x = torch.randn(2048, 2048, device=cuda_device)
+    torch.cuda.synchronize()
+    with timing.profile_trace(str(tmp_path)):
+        with timing.scope("around"):
+            (x @ x).sum()
+            torch.cuda.synchronize()
+    events = _exported(tmp_path)
+    (span,) = [e for e in events if e.get("cat") == "program_span"
+               and e["name"] == "around"]
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat", "").lower() == "kernel"]
+    assert kernels
+    for k in kernels:
+        assert span["ts"] <= k["ts"] and k["ts"] + k["dur"] <= span["ts"] + span["dur"]
+
+
+def test_traced_solve_counts_every_device_read(cuda_device, tmp_path):
+    """A solve of the benchmark's configuration on the card: as many
+    ``Memcpy DtoH`` operations in its device trace as ``host.syncs``, and
+    as many ``host.read`` spans; the same answer as an untraced solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = elasticity3d(8, 8, 8)
+    b = np.random.default_rng(3).standard_normal(a.shape[0])
+    s = DistributedECG.build(
+        a, nshards=1, fmt="stencil", br=3, precond="bj", block_size=768,
+        bj_dedupe=False, dtype=np.float32, device=cuda_device,
+        opts=ECGOptions(t=12, tol=1e-5, maxiter=3000, variant="odir_fused",
+                        layout="tbn"))
+    x0, info0 = s.solve(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x, info = s.solve(b)
+        torch.cuda.synchronize()
+    path = tmp_path / "solve.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("ph") == "X"
+              and e.get("name", "").startswith("Memcpy DtoH")]
+    tr = info["trace"]
+    reads = [sp for sp in tr["spans"] if sp["name"] == "host.read"]
+    assert len(copies) == tr["counters"]["host.syncs"] == len(reads)
+    assert tr["counters"]["launches.stencil_flat_ext"] >= info["iters"]
+    assert info["iters"] == info0["iters"] and np.array_equal(x, x0)

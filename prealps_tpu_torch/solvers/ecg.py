@@ -15,7 +15,10 @@ The PyTorch counterpart of ``prealps_tpu/solvers/ecg.py``. Two state forms:
     AP', Z' slots <- A·P', M⁻¹AP'  operator + preconditioner callbacks
 
   with the t×t algebra (masked Cholesky, triangular inverse, corrections,
-  optional adaptive SVD rotation) in between;
+  optional adaptive SVD rotation) in between. On a CUDA panel with no
+  process group that algebra (~75 small launches) is one CUDA graph,
+  captured once per shape and replayed every iteration (``_StepGraph``),
+  so the host issues ~12 launches a step; elsewhere it runs eagerly;
 * stacked omin (``stacked=True`` with omin, lane-major only): the five
   panels [X, R, P, AP, Z] in one flat (5t, N) tensor, with the unstacked
   omin's operation order (normalise P first, then alpha on the normalised
@@ -27,7 +30,8 @@ them costs one host synchronisation per iteration. ``ecg_solve(x0=...)``
 warm-starts by solving the shifted system A·dx = b − A·x0. Spans (inside a
 trace, ``utils/timing.py``): ``ecg.init``, ``ecg.step`` (one iteration's
 host time: its launches and any read inside it) and ``ecg.finalize``;
-every read of a device value goes through ``host_read``.
+every read of a device value goes through ``host_read``. Counters:
+``ecg.graph_steps`` (steps run as a replay), ``ecg.graph_captures``.
 
 Sharded (``group=``, one process per shard): every reduction — the Grams,
 ``normb``, the initial column norms, the adaptive reduction's pivoted
@@ -49,7 +53,7 @@ from prealps_tpu_torch.ops.blockops import (
     tri_inv,
 )
 from prealps_tpu_torch.solvers.panels import LAYOUTS, TBN
-from prealps_tpu_torch.utils.timing import host_read, scope
+from prealps_tpu_torch.utils.timing import add, counter, host_read, scope
 
 
 @dataclass(frozen=True)
@@ -149,12 +153,22 @@ def _use_stacked(opts: ECGOptions) -> bool:
     return opts.layout == "tbn" and opts.variant == "odir_fused"
 
 
-def _track_stall(state, res, stall_rtol):
+def _track_stall(best_res, stall, res, stall_rtol):
     # an improvement below stall_rtol does not count as progress
-    improved = res < (1.0 - stall_rtol) * state.best_res
-    best = torch.minimum(state.best_res, res)
-    stall = torch.where(improved, torch.zeros_like(state.stall), state.stall + 1)
+    improved = res < (1.0 - stall_rtol) * best_res
+    best = torch.minimum(best_res, res)
+    stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
     return best, stall
+
+
+def _go_on(res, mask, breakdown, stall, tol_abs, stall_window):
+    """The loop's stop test as a device flag: True while the residual is
+    above tol_abs, a direction is active, no breakdown and (stall_window >
+    0) no stall."""
+    ok = (res > tol_abs) & (torch.sum(mask) > 0) & ~breakdown
+    if stall_window > 0:
+        ok = ok & (stall < stall_window)
+    return ok
 
 
 def split_rhs(b: torch.Tensor, t: int, assign=None, ops=LAYOUTS["nt"]) -> torch.Tensor:
@@ -234,7 +248,8 @@ def _iter_omin(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops
         mask = new_mask
     p_new = ops.scale_dirs(p_new, mask)
     ap_new = a_apply(p_new)
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state.best_res, state.stall, res,
+                                   opts.stall_rtol)
     return replace(
         state, x_blk=x_blk, r=r, p=p_new, ap=ap_new, z=z, mask=mask,
         it=state.it + 1, res=res, breakdown=state.breakdown | breakdown,
@@ -272,7 +287,8 @@ def _iter_odir(state: ECGPanelState, a_apply, m_apply, opts, normb, red_tol, ops
     if opts.adaptive and opts.adaptive_mode == "freeze":
         p_new = z + ops.scale_dirs(p, 1.0 - mask)
     ap_new = a_apply(p_new)
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state.best_res, state.stall, res,
+                                   opts.stall_rtol)
     return replace(
         state, x_blk=x_blk, r=r, p=p_new, ap=ap_new,
         p_prev=ops.scale_dirs(p, mask), ap_prev=ops.scale_dirs(ap, mask),
@@ -315,7 +331,8 @@ def _iter_odir_fused(state: ECGPanelState, a_apply, m_apply, opts, normb,
         p_new = z + ops.scale_dirs(p, 1.0 - mask)
     ap_new = a_apply(p_new)
     z_new = m_apply(ap_new)
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state.best_res, state.stall, res,
+                                   opts.stall_rtol)
     return replace(
         state, x_blk=x_blk, r=r, p=p_new, ap=ap_new,
         p_prev=ops.scale_dirs(p, mask), ap_prev=ops.scale_dirs(ap, mask),
@@ -331,17 +348,33 @@ _ITER_FNS = {
 }
 
 
-def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
-                             normb, red_tol, group=None) -> ECGState:
-    """One stacked ODIR-fused iteration (prealps_tpu/solvers/ecg.py:413-505)."""
-    w2 = state.w
-    mask = state.mask
-    dtype = w2.dtype
-    dev = w2.device
-    t = mask.shape[0]
+class _Algebra(NamedTuple):
+    """What the stacked ODIR-fused step's t×t algebra gives (``_step_algebra``)."""
 
-    # --- ONE Gram: all five t×t reductions at once ---
-    g = psum(w2 @ w2.T, group)
+    c: torch.Tensor          # (7t, 7t): W' = Cᵀ W
+    res: torch.Tensor        # ||R||_F entering the step (0-d)
+    mask: torch.Tensor
+    breakdown: torch.Tensor  # the run's flag, this step's factor included
+    best_res: torch.Tensor
+    stall: torch.Tensor
+    ok: Optional[torch.Tensor]  # the next iteration's stop flag (with tol_abs)
+
+
+def _gram(w2, group=None):
+    """(a) ONE Gram of the stacked panel: all five t×t reductions at once."""
+    return psum(w2 @ w2.T, group)
+
+
+def _step_algebra(g, mask, best_res, stall, breakdown, red_tol, opts: ECGOptions,
+                  tol_abs=None) -> _Algebra:
+    """(b) The step's t×t algebra, small tensors only: from the Gram ``g``
+    ((7t, 7t)) to the coefficient matrix C that composes the panel update,
+    the residual norm, the new mask, breakdown flag, best residual and
+    stall count, and, given ``tol_abs``, the next iteration's stop flag.
+    No host synchronisation, so ``_StepGraph`` captures it as it is."""
+    dtype = g.dtype
+    dev = g.device
+    t = mask.shape[0]
     gb = g.reshape(7, t, 7, t)
     alpha_raw = gb[_SP, :, _SR, :]      # PᵀR
     beta1_raw = gb[_SAP, :, _SZ, :]     # APᵀZ
@@ -351,7 +384,7 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
     res = torch.sqrt(torch.trace(rtr))
 
     # --- factor + corrections ---
-    ui, breakdown = _cholqr_factor(mu, mask, dtype)
+    ui, brk = _cholqr_factor(mu, mask, dtype)
     eye = torch.eye(t, dtype=dtype, device=dev)
     alpha = (ui.T @ alpha_raw) * mask[:, None]
     beta1 = ui.T @ beta1_raw @ ui
@@ -388,21 +421,191 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
     c[_SPP, :, _SP, :] = -beta2 * act
     c[_SP, :, _SPP, :] = ui * act                # P_prev' = P̂·mask
     c[_SAP, :, _SAPP, :] = ui * act              # AP_prev' = AP̂·mask
-    wn = c.reshape(7 * t, 7 * t).T @ w2
 
-    # --- operator + preconditioner fill the AP / Z slots ---
-    p_new = wn[_SP * t:(_SP + 1) * t].reshape(state.panel_shape)
+    best_res, stall = _track_stall(best_res, stall, res, opts.stall_rtol)
+    breakdown = breakdown | brk
+    ok = (None if tol_abs is None
+          else _go_on(res, mask, breakdown, stall, tol_abs, opts.stall_window))
+    return _Algebra(c.reshape(7 * t, 7 * t), res, mask, breakdown, best_res, stall, ok)
+
+
+def _panel_update(w2, c, a_apply, m_apply, panel_shape):
+    """(c) The panel work: W' = Cᵀ W, then the operator and the
+    preconditioner fill the AP / Z slots from the new P."""
+    t = panel_shape[0]
+    wn = c.T @ w2
+    p_new = wn[_SP * t:(_SP + 1) * t].reshape(panel_shape)
     ap_new = a_apply(p_new)
     z_new = m_apply(ap_new)
     wn[_SAP * t:(_SAP + 1) * t] = ap_new.reshape(t, -1)
     wn[_SZ * t:(_SZ + 1) * t] = z_new.reshape(t, -1)
+    return wn
 
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+
+def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
+                             normb, red_tol, group=None) -> ECGState:
+    """One stacked ODIR-fused iteration (prealps_tpu/solvers/ecg.py:413-505),
+    eager: (a) the Gram, (b) the t×t algebra, (c) the panel work."""
+    alg = _step_algebra(_gram(state.w, group), state.mask, state.best_res,
+                        state.stall, state.breakdown, red_tol, opts)
     return ECGState(
-        w=wn, panel_shape=state.panel_shape, mask=mask, it=state.it + 1,
-        res=res, breakdown=state.breakdown | breakdown,
-        history=_record(state, res, opts), best_res=best_res, stall=stall,
+        w=_panel_update(state.w, alg.c, a_apply, m_apply, state.panel_shape),
+        panel_shape=state.panel_shape, mask=alg.mask, it=state.it + 1,
+        res=alg.res, breakdown=alg.breakdown,
+        history=_record(state, alg.res, opts), best_res=alg.best_res,
+        stall=alg.stall,
     )
+
+
+GRAPH_STEPS = counter("ecg.graph_steps")
+GRAPH_CAPTURES = counter("ecg.graph_captures")
+
+
+class _StepGraph:
+    """The stacked ODIR-fused step's t×t algebra (b) as one CUDA graph,
+    captured once and replayed every iteration, between the Gram (a) and
+    the panel work (c), which stay eager: the Gram and the update GEMMs
+    are one launch each and keep panel-sized buffers out of the graph's
+    pool, and the operator and preconditioner callbacks are called from
+    the host (a caller may wrap them). Every read of a device value stays
+    outside the graph too (``host_read``).
+
+    Static buffers carry the run's state across replays: the Gram in, C
+    and the stop flag out; the mask, breakdown flag, best residual, stall
+    count, residual and (``record_history``) the history and its device
+    index, updated in place; the thresholds. ``run`` copies a run's values
+    in at its start and its results out (clones) at its end, so one graph
+    serves every run of its shape, chunked runs included.
+
+    ``capture=False`` builds the same runner with ``_body`` called eagerly
+    in place of a replay (the CPU tests of the buffers' bookkeeping); such
+    steps are not counted in ``ecg.graph_steps``."""
+
+    def __init__(self, t: int, dtype, device, opts: ECGOptions, capture: bool = True):
+        z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+        self.opts = opts
+        self.g, self.c = z(7 * t, 7 * t), z(7 * t, 7 * t)
+        self.mask, self.res, self.best_res = z(t), z(), z()
+        self.stall = z(dt=torch.int32)
+        self.breakdown, self.ok = z(dt=torch.bool), z(dt=torch.bool)
+        self.tol_abs, self.red_tol = z(), z()
+        self.history = z(opts.maxiter) if opts.record_history else None
+        self.it = z(1, dt=torch.int64)
+        self.busy = False
+        self.graph = None
+        if capture:
+            self._capture()
+
+    def replay(self):
+        if self.graph is None:
+            self._body()
+        else:
+            self.graph.replay()
+
+    def _body(self):
+        alg = _step_algebra(self.g, self.mask, self.best_res, self.stall,
+                            self.breakdown, self.red_tol, self.opts, self.tol_abs)
+        for dst, src in ((self.c, alg.c), (self.res, alg.res), (self.mask, alg.mask),
+                         (self.breakdown, alg.breakdown), (self.best_res, alg.best_res),
+                         (self.stall, alg.stall), (self.ok, alg.ok)):
+            dst.copy_(src)
+        if self.history is not None:
+            self.history.index_copy_(0, self.it, alg.res.reshape(1))
+            self.it += 1
+
+    def _capture(self):
+        """PyTorch's recipe: warm up on a side stream (library handles and
+        workspaces are made there), then capture on the same stream into
+        the graph's private pool. A call that cannot be captured (one that
+        synchronises) raises RuntimeError, after the capture is ended."""
+        dev = self.g.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._body()
+            graph.capture_begin()
+            try:
+                self._body()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass            # the invalidated capture's own error
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+        add(GRAPH_CAPTURES)
+
+    def run(self, a_apply, m_apply, state: ECGState, tol_abs, red_tol,
+            it_stop: int) -> ECGState:
+        """``ecg_run``'s loop: the same stop test before every step, read
+        once an iteration; a step is the Gram into the static ``g``, one
+        replay and the panel work."""
+        self.busy = True
+        try:
+            for dst, src in ((self.tol_abs, tol_abs), (self.red_tol, red_tol),
+                             (self.mask, state.mask), (self.breakdown, state.breakdown),
+                             (self.best_res, state.best_res), (self.stall, state.stall)):
+                dst.copy_(src)
+            if self.history is not None:
+                self.history.copy_(state.history)
+                self.it.fill_(state.it)
+            ok = _go_on(state.res, state.mask, state.breakdown, state.stall,
+                        tol_abs, self.opts.stall_window)
+            w, it = state.w, state.it
+            step_span = scope("ecg.step")
+            while it < it_stop:
+                if not host_read(bool, ok):
+                    break
+                with step_span:
+                    torch.matmul(w, w.T, out=self.g)
+                    self.replay()
+                    w = _panel_update(w, self.c, a_apply, m_apply, state.panel_shape)
+                it += 1
+                ok = self.ok
+                if self.graph is not None:
+                    add(GRAPH_STEPS)
+        finally:
+            self.busy = False
+        if it == state.it:
+            return state
+        return ECGState(
+            w=w, panel_shape=state.panel_shape, mask=self.mask.clone(), it=it,
+            res=self.res.clone(), breakdown=self.breakdown.clone(),
+            history=(state.history if self.history is None
+                     else self.history.clone()),
+            best_res=self.best_res.clone(), stall=self.stall.clone())
+
+
+_STEP_GRAPHS: dict = {}    # shape and options -> _StepGraph, or None: no capture
+
+
+def _graph_path(device, opts: ECGOptions, group) -> bool:
+    """Whether a run replays the step's algebra as a CUDA graph: the
+    stacked ODIR-fused step on a CUDA panel with no process group (the
+    collectives of a group cannot be captured). Everything else is eager."""
+    return (torch.device(device).type == "cuda" and group is None
+            and _use_stacked(opts) and opts.variant == "odir_fused")
+
+
+def _step_graph(state: ECGState, opts: ECGOptions) -> Optional[_StepGraph]:
+    """The graph of this run's shape and options, captured on first use;
+    None (eager) where (b) does not capture, or where the graph is in use
+    by an enclosing run."""
+    w = state.w
+    key = (w.device, w.dtype, state.mask.shape[0], opts.adaptive,
+           opts.adaptive_mode, opts.stall_rtol, opts.stall_window,
+           opts.record_history, opts.maxiter)
+    if key not in _STEP_GRAPHS:
+        try:
+            _STEP_GRAPHS[key] = _StepGraph(key[2], w.dtype, w.device, opts)
+        except RuntimeError:
+            _STEP_GRAPHS[key] = None
+    sg = _STEP_GRAPHS[key]
+    return None if sg is None or sg.busy else sg
 
 
 def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
@@ -453,7 +656,8 @@ def _iter_omin_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions,
     ap_new = a_apply(p_new.reshape(state.panel_shape)).reshape(t, -1)
     wn = torch.cat([x_rows, r_rows, p_new, ap_new, zf])
 
-    best_res, stall = _track_stall(state, res, opts.stall_rtol)
+    best_res, stall = _track_stall(state.best_res, state.stall, res,
+                                   opts.stall_rtol)
     return ECGState(
         w=wn, panel_shape=state.panel_shape, mask=mask, it=state.it + 1,
         res=res, breakdown=state.breakdown | breakdown,
@@ -506,7 +710,9 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
             max_steps: Optional[int] = None, group=None):
     """Iterate from ``state`` until convergence, maxiter, breakdown, an
     empty active block, a stall (stall_window > 0) or, with ``max_steps``,
-    that many more iterations (the chunked-execution primitive)."""
+    that many more iterations (the chunked-execution primitive). The
+    stacked ODIR-fused step on a CUDA panel with no group replays its t×t
+    algebra as one CUDA graph (``_StepGraph``), with the same results."""
     dtype = state.res.dtype
     sqrt_t = torch.sqrt(torch.tensor(float(opts.t), dtype=dtype, device=normb.device))
     red_tol = (opts.tol * normb / sqrt_t).to(dtype)
@@ -523,11 +729,14 @@ def ecg_run(a_apply, m_apply, state, normb: torch.Tensor, opts: ECGOptions,
 
     it_stop = opts.maxiter if max_steps is None else min(opts.maxiter,
                                                           state.it + max_steps)
+    if _graph_path(state.res.device, opts, group):
+        sg = _step_graph(state, opts)
+        if sg is not None:
+            return sg.run(a_apply, m_apply, state, tol_abs, red_tol, it_stop)
     step_span = scope("ecg.step")
     while state.it < it_stop:
-        ok = (state.res > tol_abs) & (torch.sum(state.mask) > 0) & ~state.breakdown
-        if opts.stall_window > 0:
-            ok = ok & (state.stall < opts.stall_window)
+        ok = _go_on(state.res, state.mask, state.breakdown, state.stall, tol_abs,
+                    opts.stall_window)
         # the one host synchronisation per step; with a group, ok is
         # computed from all-reduced values and so the same on every rank
         if not host_read(bool, ok):

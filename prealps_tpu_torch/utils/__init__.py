@@ -4,6 +4,8 @@ counters, debug printing (the counterparts of ``prealps_tpu/utils``)."""
 from prealps_tpu_torch.utils.timing import (
     Stages,
     Timers,
+    add,
+    counter,
     host_read,
     profile_trace,
     scope,
@@ -13,4 +15,4 @@ from prealps_tpu_torch.utils.timing import (
 )
 
 __all__ = ["Timers", "timed", "profile_trace", "scope", "traced", "host_read",
-           "Stages", "sync"]
+           "Stages", "counter", "add", "sync"]

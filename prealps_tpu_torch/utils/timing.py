@@ -8,8 +8,8 @@ preAlps_dstats_display, preAlps_utils.c:720):
   analog); a ``Timers`` given a ``device`` synchronises it at both ends of
   every block, so a block's time covers the card's work it queued;
 * ``sync`` — wait for the work queued on a device (a no-op off the card);
-* ``scope``, ``traced``, ``host_read``, ``Stages`` — the program's spans
-  and counters (below);
+* ``scope``, ``traced``, ``host_read``, ``Stages``, ``counter`` / ``add``
+  — the program's spans and counters (below);
 * ``profile_trace`` — a ``torch.profiler`` trace of a block, written to a
   directory as Chrome trace JSON (TensorBoard's profiler plugin, Perfetto,
   ``chrome://tracing``) with the program's spans in it; CUDA activity is
@@ -30,9 +30,11 @@ Spans and counters: the contract.
   index of its parent span in its trace (-1 for the root) and the trace's
   id (all spans of one solve share it). A
   trace's counters: ``host.syncs``, the blocking device-to-host reads made
-  through ``host_read`` (each one ``Memcpy DtoH`` in the device trace), and
+  through ``host_read`` (each one ``Memcpy DtoH`` in the device trace),
   ``launches.<wrapper>``, the change over the trace of each kernel
-  wrapper's ``.launches`` counter (``count_launches``).
+  wrapper's ``.launches`` counter (``count_launches``), and the change of
+  each program counter (``counter`` / ``add``: ``ecg.graph_steps``,
+  ``ecg.graph_captures``).
 * **Which clock.** The one torch.profiler stamps its Chrome trace with:
   ``ts``·1000 + ``baseTimeNanoseconds`` reads ``time.time_ns()``. A trace
   takes ``time.perf_counter_ns()`` and converts it with one
@@ -75,6 +77,7 @@ _trace: "Trace | None" = None       # the trace spans record into, if any
 _exports: list = []                 # the open profile_trace blocks' trace lists
 _ids = itertools.count()
 LAUNCH_COUNTERS: dict = {}          # wrapper name -> wrapper with ``.launches``
+COUNTERS: dict = {}                 # program counter name -> its running count
 _SPAN_TID = 0                        # the spans' track in an exported trace
 
 
@@ -140,6 +143,19 @@ def count_launches(fn):
     return fn
 
 
+def counter(name: str) -> str:
+    """Register program counter ``name`` (at 0), so every trace carries its
+    change, 0 included; returns the name for ``add``."""
+    COUNTERS.setdefault(name, 0)
+    return name
+
+
+def add(name: str, n: int = 1) -> None:
+    """Add ``n`` to a registered program counter; it counts with or without
+    a trace (one dict update)."""
+    COUNTERS[name] += n
+
+
 def _clock_offset() -> int:
     """``time_ns()`` − ``perf_counter_ns()``, from the tightest of three
     (time, perf, time) reads: a pair of reads that the scheduler splits
@@ -160,7 +176,7 @@ class Trace:
     ``perf_counter_ns``."""
 
     __slots__ = ("id", "spans", "stack", "syncs", "counters", "_clock",
-                 "_launches")
+                 "_launches", "_counts")
 
     def __init__(self, name: str):
         self.id = next(_ids)
@@ -169,6 +185,7 @@ class Trace:
         self.syncs = 0
         self.counters: dict = {}
         self._launches = {k: f.launches for k, f in LAUNCH_COUNTERS.items()}
+        self._counts = dict(COUNTERS)
         self._clock = _clock_offset()
         self.begin(name)
 
@@ -190,6 +207,8 @@ class Trace:
         self.counters = {"host.syncs": self.syncs}
         for k, f in LAUNCH_COUNTERS.items():
             self.counters[f"launches.{k}"] = f.launches - self._launches.get(k, 0)
+        for k, n in COUNTERS.items():
+            self.counters[k] = n - self._counts.get(k, 0)
 
     def as_dict(self) -> dict:
         """The trace on the profiler's clock: ``spans`` (dicts with name,

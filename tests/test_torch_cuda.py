@@ -1479,3 +1479,188 @@ def test_traced_solve_counts_every_device_read(cuda_device, tmp_path):
     assert len(copies) == tr["counters"]["host.syncs"] == len(reads)
     assert tr["counters"]["launches.stencil_flat_ext"] >= info["iters"]
     assert info["iters"] == info0["iters"] and np.array_equal(x, x0)
+
+
+# --- the stacked ODIR-fused step's t×t algebra as one CUDA graph ------------
+
+# the benchmark cell's configuration at 16³; maxiter 2999, which no other
+# test uses, so the first solve here makes the graph of its shape
+GRAPH_BUILD = dict(fmt="stencil", br=3, precond="bj", block_size=768, bj_dedupe=False,
+                   dtype=np.float32)
+GRAPH_OPTS = ECGOptions(t=12, tol=1e-5, maxiter=2999, variant="odir_fused", layout="tbn")
+# a direct f32 run (no refinement): a tolerance f32 reaches
+GRAPH_RUN = ECGOptions(t=12, tol=1e-4, maxiter=1500, variant="odir_fused", layout="tbn")
+
+
+@pytest.fixture(scope="module")
+def graph_solver():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    a = elasticity3d(16, 16, 16)
+    b = np.random.default_rng(18).standard_normal(a.shape[0])
+    s = DistributedECG.build(a, nshards=1, opts=GRAPH_OPTS, device="cuda:0", **GRAPH_BUILD)
+    return s, a, b
+
+
+def _counts():
+    from prealps_tpu_torch.utils import timing
+
+    return timing.COUNTERS["ecg.graph_steps"], timing.COUNTERS["ecg.graph_captures"]
+
+
+def _eager(monkeypatch):
+    from prealps_tpu_torch.solvers import ecg as tecg
+
+    monkeypatch.setattr(tecg, "_graph_path", lambda device, opts, group: False)
+
+
+def _card_run(s, b, opts, a_apply=None, max_steps=None):
+    """ecg_init and ecg_run on the solver's operands (in chunks of
+    ``max_steps`` until a chunk makes no step)."""
+    from prealps_tpu_torch.core.layout import pad_to_padded
+    from prealps_tpu_torch.solvers import ecg as tecg
+
+    ops = s.operands
+    a_apply = a_apply or ops.a_apply
+    rhs = s._to_shard(pad_to_padded(s.layout, b.astype(np.float32)))
+    state, normb = tecg.ecg_init(a_apply, ops.m_apply, rhs, opts,
+                                 ops.split_assign(opts.t, s.layout.n_pad))
+    while True:
+        nxt = tecg.ecg_run(a_apply, ops.m_apply, state, normb, opts, max_steps=max_steps)
+        done = max_steps is None or nxt.it == state.it
+        state = nxt
+        if done:
+            return state
+
+
+def test_graph_solve_is_bitwise_the_eager_solve(cuda_device, graph_solver, monkeypatch):
+    """The cell's configuration at 16³: a solve replays the graph at every
+    iteration, captured on the first solve only; x, iterations, rounds,
+    residual and history bitwise the eager solve's on the same b."""
+    s, a, b = graph_solver
+    c0 = _counts()
+    x_g, info_g = s.solve(b)
+    c1 = _counts()
+    x_g2, info_g2 = s.solve(b)
+    c2 = _counts()
+    assert c1[0] - c0[0] == info_g["iters"] and c1[1] - c0[1] == 1
+    assert c2[0] - c1[0] == info_g2["iters"] and c2[1] == c1[1]
+    _eager(monkeypatch)
+    x_e, info_e = s.solve(b)
+    assert _counts() == c2
+    for x, info in ((x_g, info_g), (x_g2, info_g2)):
+        assert np.array_equal(x, x_e) and np.array_equal(info["history"], info_e["history"])
+        for k in ("iters", "refine_rounds", "res", "bs", "breakdown"):
+            assert info[k] == info_e[k], k
+    assert np.linalg.norm(b - a @ x_e) <= 1e-5 * np.linalg.norm(b)
+
+
+GRAPH_CASES = {
+    "stall_window": dict(opts=dict(stall_window=3, stall_rtol=0.5)),
+    "no_history": dict(opts=dict(record_history=False)),
+    "max_steps": dict(max_steps=7),
+    "zero_columns": dict(zero_columns=True),
+    "breakdown": dict(negate=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_run_is_bitwise_the_eager_run(cuda_device, graph_solver, monkeypatch, case):
+    """ecg_run through the graph against the eager loop on the same state:
+    every field of the final state bitwise equal, a replay every step, and
+    one capture a shape at most."""
+    from dataclasses import replace
+
+    s, _, b = graph_solver
+    spec = GRAPH_CASES[case]
+    opts = replace(GRAPH_RUN, **spec.get("opts", {}))
+    b = b.copy()
+    if spec.get("zero_columns"):
+        b[: b.size // 3] = 0.0
+    a_apply = (lambda x: -s.operands.a_apply(x)) if spec.get("negate") else None
+    c0 = _counts()
+    got = _card_run(s, b, opts, a_apply, spec.get("max_steps"))
+    c1 = _counts()
+    _eager(monkeypatch)
+    want = _card_run(s, b, opts, a_apply, spec.get("max_steps"))
+    assert _counts() == c1
+    assert c1[0] - c0[0] == got.it and c1[1] - c0[1] <= 1
+    assert got.it == want.it and 0 < got.it < opts.maxiter
+    for name in ("w", "mask", "res", "breakdown", "history", "best_res", "stall"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.device == w.device and g.dtype == w.dtype and torch.equal(g, w), name
+    if case == "zero_columns":
+        assert 0 < float(torch.sum(want.mask)) < opts.t
+    if case == "breakdown":
+        assert bool(want.breakdown) and want.it == 1
+    if case == "stall_window":
+        assert int(want.stall) == 3
+    if case == "no_history":
+        assert bool((want.history == -1).all())
+
+
+def test_graph_adaptive_run_is_bitwise_the_eager_run(cuda_device, graph_solver,
+                                                     monkeypatch, capsys):
+    """The adaptive reduction's SVD: graphed where it captures, eager where
+    it does not; either way the final state bitwise the eager loop's."""
+    from dataclasses import replace
+
+    s, _, b = graph_solver
+    opts = replace(GRAPH_RUN, adaptive=True, maxiter=300)
+    c0 = _counts()
+    got = _card_run(s, b, opts)
+    c1 = _counts()
+    _eager(monkeypatch)
+    want = _card_run(s, b, opts)
+    assert c1[0] - c0[0] in (0, got.it)
+    for name in ("w", "mask", "res", "breakdown", "history", "best_res", "stall"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    with capsys.disabled():
+        print(f"\n[graph] adaptive: {got.it} iterations, {c1[0] - c0[0]} replays, "
+              f"{c1[1] - c0[1]} captures")
+
+
+def test_graph_traced_solve_pairs_every_read(cuda_device, graph_solver, tmp_path,
+                                            capsys):
+    """Under the profiler, a graphed solve: as many ``Memcpy DtoH`` in the
+    window as ``host.syncs`` (the graph holds no device-to-host copy), the
+    trace's ``ecg.graph_steps`` its iterations and no capture; the graph's
+    kernels are in the device trace (most of an iteration's ~90)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, _, b = graph_solver
+    x0, info0 = s.solve(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x, info = s.solve(b)
+        torch.cuda.synchronize()
+    path = tmp_path / "solve.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    copies = [e for e in events if e.get("name", "").startswith("Memcpy DtoH")]
+    kernels = [e for e in events if e.get("cat", "").lower() == "kernel"]
+    tr = info["trace"]
+    assert len(copies) == tr["counters"]["host.syncs"]
+    assert tr["counters"]["ecg.graph_steps"] == info["iters"]
+    assert tr["counters"]["ecg.graph_captures"] == 0
+    assert np.array_equal(x, x0) and info["iters"] == info0["iters"]
+    with capsys.disabled():
+        print(f"\n[graph] traced solve: {info['iters']} iterations, {len(kernels)} kernels, "
+              f"{len(events)} device and host events")
+    assert len(kernels) >= 40 * info["iters"]
+
+
+def test_graph_stays_off_a_cpu_panel_and_a_group(cuda_device, tmp_path):
+    """The CPU panel and a gloo group of 2 ranks sharing the card run the
+    step eager: the counter does not move."""
+    import torch_shard_workers as w
+
+    a = elasticity3d(8, 8, 8)
+    b = np.random.default_rng(2).standard_normal(a.shape[0])
+    before = _counts()
+    s = DistributedECG.build(a, nshards=1, opts=GRAPH_OPTS, device="cpu", **GRAPH_BUILD)
+    _, info = s.solve(b)
+    assert info["iters"] > 0 and _counts() == before
+    case = dict(GRAPH_BUILD, opts=dict(t=12, tol=1e-5, maxiter=3000, layout="tbn"))
+    out = _spawn_on_card(w.card_graph_steps, 2, (a, b, case), tmp_path / "g")
+    assert all(iters > 0 and steps == 0 for iters, steps in out)

@@ -292,6 +292,38 @@ def test_one_stacked_omin_step_matches(system, adaptive):
     assert st1.it == int(sj1.it) == 4
 
 
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_split_stacked_step_matches_jax(system, adaptive):
+    """The stacked step's three parts called in turn, as the CUDA-graph
+    runner calls them: (a) the Gram, (b) the t×t algebra with the next stop
+    flag, (c) the panel work; against JAX's step from the same state."""
+    oj, ot = _opts(adaptive=adaptive)
+    sj, nj, _, _ = _init_both(system, oj, ot, system["b"])
+    red_tol = (oj.tol * nj / jnp.sqrt(jnp.asarray(4.0))).astype(nj.dtype)
+    for _ in range(3):
+        sj = jecg._iter_odir_fused_stacked(sj, system["a_j"], system["m_j"], None,
+                                           oj, nj, red_tol, JTBN)
+    st = _to_port_state(sj)
+    ops = system["ops_t"]
+    tol_abs = torch.tensor(oj.tol * float(nj), dtype=torch.float64)
+    alg = tecg._step_algebra(tecg._gram(st.w), st.mask, st.best_res, st.stall,
+                             st.breakdown, torch.tensor(float(red_tol), dtype=torch.float64),
+                             ot, tol_abs)
+    w = tecg._panel_update(st.w, alg.c, ops.a_apply, ops.m_apply, st.panel_shape)
+    sj1 = jecg._iter_odir_fused_stacked(sj, system["a_j"], system["m_j"], None,
+                                        oj, nj, red_tol, JTBN)
+    w_j = np.asarray(sj1.x_blk)
+    np.testing.assert_allclose(w.numpy(), w_j, rtol=1e-10, atol=1e-10 * np.abs(w_j).max())
+    np.testing.assert_allclose(float(alg.res), float(sj1.res), rtol=1e-12)
+    np.testing.assert_array_equal(alg.mask.numpy(), np.asarray(sj1.mask))
+    assert bool(alg.breakdown) == bool(sj1.breakdown)
+    assert int(alg.stall) == int(sj1.stall)
+    np.testing.assert_allclose(float(alg.best_res), float(sj1.best_res), rtol=1e-12)
+    go_on = (float(sj1.res) > oj.tol * float(nj)) and float(np.sum(sj1.mask)) > 0 \
+        and not bool(sj1.breakdown)
+    assert bool(alg.ok) == go_on
+
+
 @pytest.mark.parametrize("variant", ["odir_fused", "omin"])
 def test_ecg_run_max_steps_matches_jax(system, variant):
     """ecg_run(max_steps=5) stops after 5 more iterations like the JAX

@@ -325,6 +325,16 @@ def card_solve(rank, group, a, b, case, device, kernel="stencil_flat_ext"):
     return x, info, counter.launches - before
 
 
+def card_graph_steps(rank, group, a, b, case):
+    """``card_solve`` on cuda:0 through the group: (iterations, the change of
+    the ``ecg.graph_steps`` counter), 0 where the step ran eager."""
+    from prealps_tpu_torch.utils import timing
+
+    before = timing.COUNTERS["ecg.graph_steps"]
+    _, info, _ = card_solve(rank, group, a, b, case, "cuda:0")
+    return info["iters"], timing.COUNTERS["ecg.graph_steps"] - before
+
+
 def card_lorasc_solve(rank, group, a, b, case, device):
     """A DistributedLorascECG build over the group on ``device`` (cuda:0,
     shared by the ranks, or the CPU) and its solve; returns (x, info, the

@@ -32,6 +32,15 @@ operator bf16 too, with the finish's correction A_lo = A − bf16(A) in f32.
 bf16(A) of the het operator is indefinite, so ``"bf16_all"`` breaks down:
 it is kept for measurement, as in the JAX package.
 
+Spans and counters (``utils/timing.py``, while a profiler records): the
+build is root ``build`` with stages ``build.fmt_convert``, ``build.plan``,
+``build.factor``, ``build.lanczos`` and ``build.pair_refine`` (counters
+``lorasc.pair_candidates`` and ``lorasc.pairs_kept``), which fill
+``timings``; a solve is root ``solve`` with ``solve.prep``,
+``refine.round``, ``refine.resid`` (the finish), ``solve.gather`` and
+``solve.host_check``, every blocking read through ``host_read``, and the
+trace in ``info["trace"]``.
+
 Differences from the JAX driver: no jit caches, no chunked dispatch and no
 speculative finish (``ecg_run`` runs each round to its stop and the finish
 runs once per round), no rhs residency.
@@ -39,7 +48,7 @@ runs once per round), no rhs residency.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -70,7 +79,7 @@ from prealps_tpu_torch.solvers.ecg import (
 )
 from prealps_tpu_torch.solvers.refine import (INNER_TOL, STALL_RATIO, STALL_WINDOW,
                                               refine_solve)
-from prealps_tpu_torch.utils.timing import scope
+from prealps_tpu_torch.utils.timing import Stages, host_read, scope, sync, traced
 
 
 @dataclass
@@ -86,8 +95,10 @@ class StencilLorascECG:
     device: torch.device
     target_tol: float = 0.0
     a_scaled: Optional[sp.csr_matrix] = None   # kept when refining
+    timings: dict = field(default_factory=dict)  # build stage wall times (s)
 
     @classmethod
+    @traced("build")
     def build(
         cls,
         a: sp.spmatrix,
@@ -118,8 +129,10 @@ class StencilLorascECG:
         ``device`` and build the LORASC preconditioner (or take ``precond``,
         a preconditioner already built for the scaled operator, e.g. by
         ``interop.lorasc_from_reference``). Options are the JAX driver's
-        (``a_store`` None is "f32")."""
+        (``a_store`` None is "f32"). ``timings`` holds each build stage's
+        seconds (spans ``build.<stage>``)."""
         device = resolve_device(device)
+        stage = Stages("build")
         strict_fp32()
         if opts.layout != "tbn":
             raise ValueError("StencilLorascECG requires layout='tbn'")
@@ -141,13 +154,15 @@ class StencilLorascECG:
             a_t = csr_to_stencil_bsr_t(a, br=br, dtype=dtype, device=device)
             if a_t is None:
                 raise ValueError("matrix is not stencil-structured")
+            sync(device)
+            stage("fmt_convert")
             precond = build_scalable_lorasc(
                 a, nparts=nparts, br=br, grid=grid,
                 deflation_tol=deflation_tol, max_deflation=max_deflation,
                 ncv=ncv, dtype=dtype, shift=shift, a_stencil=a_t,
                 pencil=pencil, host_refine=host_refine, correction=correction,
                 restarts=restarts, node_part=node_part, in_sep=in_sep,
-                factor_store=factor_store, device=device)
+                factor_store=factor_store, device=device, stages=stage)
         ops = precond.operands
         store = torch.float32
         if a_store != "f32" and dtype == np.float32:
@@ -163,10 +178,12 @@ class StencilLorascECG:
             # without it the device residual reads below the true one
             ops["a_lo_blocks"] = _stencil_lo_blocks(
                 a, ops["a_stencil"], br, store_dtype=store).to(device)
+        sync(device)
+        stage("fmt_convert")
         n = a.shape[0]
         return cls(n=n, br=br, nrb=n // br, opts=opts, scale_d=scale_d,
                    precond=precond, device=device, target_tol=target_tol,
-                   a_scaled=a if refine else None)
+                   a_scaled=a if refine else None, timings=stage.timings)
 
     def with_tol(self, tol: float, inner_tol: float = INNER_TOL,
                  refine: Optional[bool] = None) -> "StencilLorascECG":
@@ -211,15 +228,18 @@ class StencilLorascECG:
 
     def _solve_scaled_once(self, b_eff: np.ndarray):
         dtype = self.precond.operands["sep_mask"].dtype
-        b_lane = torch.from_numpy(np.ascontiguousarray(
-            b_eff.reshape(self.nrb, self.br).T)).to(device=self.device, dtype=dtype)
+        with scope("solve.prep"):
+            b_lane = torch.from_numpy(np.ascontiguousarray(
+                b_eff.reshape(self.nrb, self.br).T)).to(device=self.device, dtype=dtype)
         res = self._ecg(b_lane)
-        x = res.x.T.reshape(-1).cpu().numpy().astype(np.float64)
-        info = {"iters": int(res.iters), "res": float(res.res),
-                "normb": float(res.normb), "breakdown": bool(res.breakdown),
-                "deflated": self.precond.deflated}
-        return x, info
+        with scope("solve.gather"):
+            x = host_read(torch.Tensor.cpu, res.x.T.reshape(-1)).numpy()
+        info = {"iters": int(res.iters), "res": host_read(float, res.res),
+                "normb": host_read(float, res.normb),
+                "breakdown": bool(res.breakdown), "deflated": self.precond.deflated}
+        return x.astype(np.float64), info
 
+    @scope("refine.resid")
     def _finish(self, res: ECGResult, x2: torch.Tensor, b2: torch.Tensor):
         """End of a refinement round on the device: fold the round's
         correction into the double-float solution x2 = (x_hi, x_lo) and
@@ -246,33 +266,38 @@ class StencilLorascECG:
         double-float residual stay on the device across rounds; per round
         the host reads the ECG stop and one residual norm. Both halves of x
         come back once at the end for the host f64 cross-check."""
-        normb0 = float(np.linalg.norm(b_eff))
-        b_pad = np.ascontiguousarray(b_eff.reshape(self.nrb, self.br).T)
-        b_hi = b_pad.astype(np.float32)
-        b_lo = (b_pad - b_hi.astype(np.float64)).astype(np.float32)
-        b2 = torch.from_numpy(np.stack([b_hi, b_lo])).to(self.device)
-        x2 = torch.zeros_like(b2)
+        with scope("solve.prep"):
+            normb0 = float(np.linalg.norm(b_eff))
+            b_pad = np.ascontiguousarray(b_eff.reshape(self.nrb, self.br).T)
+            b_hi = b_pad.astype(np.float32)
+            b_lo = (b_pad - b_hi.astype(np.float64)).astype(np.float32)
+            b2 = torch.from_numpy(np.stack([b_hi, b_lo])).to(self.device)
+            x2 = torch.zeros_like(b2)
         r2 = b2
         rnorm = normb0
         prev_relres = np.inf
         total_iters, rounds, breakdown = 0, 0, False
+        round_span = scope("refine.round")
         for _ in range(max_refine_rounds):
             relres = rnorm / normb0 if normb0 else 0.0
             if relres <= self.target_tol or relres > STALL_RATIO * prev_relres:
                 break
             prev_relres = relres
-            res = self._ecg(r2[0])
-            x2, r2, rnorm_t = self._finish(res, x2, b2)
-            rnorm = float(rnorm_t)
+            with round_span:
+                res = self._ecg(r2[0])
+                x2, r2, rnorm_t = self._finish(res, x2, b2)
+                rnorm = host_read(float, rnorm_t)
             total_iters += int(res.iters)
             rounds += 1
             if res.breakdown:
                 breakdown = True
                 break
-        x_np = x2.cpu().numpy().astype(np.float64)
-        x = np.ascontiguousarray((x_np[0] + x_np[1]).T).reshape(-1)
-        r = b_eff - self.a_scaled @ x        # host f64 cross-check
-        res_norm = float(np.linalg.norm(r))
+        with scope("solve.gather"):
+            x_np = host_read(torch.Tensor.cpu, x2).numpy().astype(np.float64)
+            x = np.ascontiguousarray((x_np[0] + x_np[1]).T).reshape(-1)
+        with scope("solve.host_check"):
+            r = b_eff - self.a_scaled @ x        # host f64 cross-check
+            res_norm = float(np.linalg.norm(r))
         info = {"iters": total_iters, "res": res_norm, "normb": normb0,
                 "breakdown": breakdown, "refine_rounds": rounds,
                 "device_rounds": rounds,
@@ -281,9 +306,19 @@ class StencilLorascECG:
 
     def solve(self, b: np.ndarray, max_refine_rounds: int = 8,
               host_rounds: bool = False):
-        """Solve A x = b (original scaling). Returns (x, info)."""
-        b = np.asarray(b)
-        b_eff = self.scale_d * b if self.scale_d is not None else b.astype(np.float64)
+        """Solve A x = b (original scaling). Returns (x, info). While a
+        profiler records, ``info["trace"]`` holds the solve's spans and
+        counters (``utils/timing.py``)."""
+        with traced("solve") as trace:
+            x, info = self._solve(np.asarray(b), max_refine_rounds, host_rounds)
+        if trace is not None:
+            info["trace"] = trace.as_dict()
+        return x, info
+
+    def _solve(self, b: np.ndarray, max_refine_rounds: int, host_rounds: bool):
+        with scope("solve.prep"):
+            b_eff = (self.scale_d * b if self.scale_d is not None
+                     else b.astype(np.float64))
         if self.a_scaled is None:
             x, info = self._solve_scaled_once(b_eff)
         elif host_rounds:

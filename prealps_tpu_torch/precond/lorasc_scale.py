@@ -36,7 +36,6 @@ build), as the JAX rule does on every backend but the TPU.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -61,7 +60,12 @@ from prealps_tpu_torch.ops.lanczos import (
     resolve_block_policy,
 )
 from prealps_tpu_torch.ops.spmm import stencil_bsr_spmm_t
-from prealps_tpu_torch.utils.timing import scope, sync
+from prealps_tpu_torch.utils.timing import Stages, add, counter, scope, sync
+
+# the σ build's f64 pair refinement: candidates it was given, pairs it kept
+PAIR_CANDIDATES = counter("lorasc.pair_candidates")
+PAIRS_KEPT = counter("lorasc.pairs_kept")
+REFINE_COLS = 32       # panel columns a full-size product of the refinement takes
 
 
 # ---------------------------------------------------------------------------
@@ -582,41 +586,73 @@ def _build_sloc_operands(plan: ArrowBandPlan, node_graph, a_stencil, dev: dict,
     return dev
 
 
-def _host_refine_pairs(a: sp.csr_matrix, plan: ArrowBandPlan,
-                       vecs_np: np.ndarray, deflation_tol: float,
-                       resid_tol: float = 1e-3):
-    """One-time float64 Rayleigh–Ritz refinement of the f32 Lanczos
-    candidates on the host (numpy/scipy copy of the JAX version): project S
-    and Agg onto span(candidates) with the original scipy operator (splu
-    per interior), re-solve the small generalized problem, keep pairs by
-    true f64 residuals. Returns (theta (k',), e_ng (ng, k') f64)."""
-    import scipy.sparse.linalg as spla
+def _schur_agg_panels(a: sp.csr_matrix, plan: ArrowBandPlan, v: torch.Tensor):
+    """(S V, Agg V), each (ng, k) in float64 on ``v``'s device, for the
+    candidates v (ng, k) in separator band order: S V = Agg V − Σ_p Agiᵀ
+    Aii,p⁻¹ Aig V with an f64 stencil copy of ``a`` (B2a's f64 instance on
+    the card) and each interior's f64 banded factor, assembled and factored
+    one part at a time and freed before the next. The Aig and Agi products
+    are the full stencil SpMM on zero-embedded panels, as in the f32
+    build's ``s_apply_panel``, ``REFINE_COLS`` columns at a time (an n × 32
+    f64 panel is ~0.09 GB at 48³)."""
+    dev, k, P = v.device, v.shape[1], plan.nparts
+    a64 = csr_to_stencil_bsr_t(a, br=plan.br, dtype=np.float64, device=dev)
 
-    br = plan.br
-    sep_nodes = plan.sep_nodes[: plan.nsn]
-    sep_dofs = (sep_nodes[:, None] * br + np.arange(br)).reshape(-1)
+    def idx(arr):
+        return torch.from_numpy(np.asarray(arr, dtype=np.int64)).to(dev)
+
+    ops = dict(int_nodes=idx(plan.int_nodes), sep_nodes=idx(plan.sep_nodes))
+    vg = torch.zeros((plan.ng_pad, k), dtype=torch.float64, device=dev)
+    vg[: plan.ng] = v
+    cols = [slice(j, min(j + REFINE_COLS, k)) for j in range(0, k, REFINE_COLS)]
+    agg_v = torch.empty_like(vg)
+    z = torch.empty((plan.nblk_i, P, k, plan.bs_i), dtype=torch.float64, device=dev)
+    for c in cols:
+        y = _to_node_major(stencil_bsr_spmm_t(
+            a64, _from_node_major(plan, _embed_sep(plan, ops, vg[:, c]))))
+        agg_v[:, c] = _gather_sep(plan, ops, y)
+        z[:, :, c] = _gather_int(plan, ops, y)            # Aig V
+        del y
+    part, pos = idx(plan.part_arr), idx(plan.pos_arr)
+    for p in range(P):
+        # part p alone: its nodes as part 0, the other parts out of reach
+        mine = torch.where(part == p, 0, torch.where(part < 0, -1, -2))
+        d, e = assemble_band_from_stencil(
+            a64.blocks_t, a64.offsets, mine, pos, 1, plan.nblk_i, plan.bs_i,
+            idx(plan.ni_dof[p: p + 1]), separator=False)
+        fac = block_banded_cholesky(d, e)
+        del d, e
+        if bool(fac.failed):
+            raise FloatingPointError(f"the f64 factor of interior {p} failed")
+        z[:, p: p + 1] = block_banded_solve_t(fac, z[:, p: p + 1])   # Aii⁻¹ Aig V
+        del fac
+    s_v = torch.empty_like(vg)
+    for c in cols:
+        y = stencil_bsr_spmm_t(a64, _from_node_major(
+            plan, _embed_int(plan, ops, z[:, :, c])))
+        s_v[:, c] = agg_v[:, c] - _gather_sep(plan, ops, _to_node_major(y))
+        del y
+    return s_v[: plan.ng], agg_v[: plan.ng]
+
+
+def _refine_pairs(a: sp.csr_matrix, plan: ArrowBandPlan, vecs_np: np.ndarray,
+                  deflation_tol: float, resid_tol: float = 1e-3, device="cpu"):
+    """One-time float64 Rayleigh–Ritz refinement of the f32 Lanczos
+    candidates: the JAX package's host ``_host_refine_pairs`` with its
+    products on ``device`` (``_schur_agg_panels``) and the k × k algebra on
+    the host. Drops dependent candidates, projects S and Agg onto their
+    span, re-solves the small generalized problem, keeps the pairs with
+    λ ≤ tol, λ > 0 and a true f64 residual ≤ ``resid_tol``. Returns (theta
+    (k',), e_ng (ng, k') f64), the vectors Agg-normalised."""
     v = np.asarray(vecs_np[: plan.ng], dtype=np.float64)   # (ng, k)
     # drop numerically dependent candidates early (duplicates)
     q, rr = np.linalg.qr(v)
     keep = np.abs(np.diag(rr)) > 1e-7 * max(np.abs(rr).max(), 1e-30)
     v = q[:, : keep.size][:, keep]
-    k = v.shape[1]
-    if k == 0:
+    if v.shape[1] == 0:
         return np.zeros(0), np.zeros((plan.ng, 0))
-
-    agg = a[sep_dofs][:, sep_dofs].tocsr()
-    sv = agg @ v
-    for p in range(plan.nparts):
-        int_nodes = np.flatnonzero(plan.part_arr == p)
-        if int_nodes.size == 0:
-            continue
-        idofs = (int_nodes[:, None] * br + np.arange(br)).reshape(-1)
-        aig = a[idofs][:, sep_dofs].tocsc()
-        if aig.nnz == 0:
-            continue
-        lu = spla.splu(a[idofs][:, idofs].tocsc())
-        sv -= aig.T @ lu.solve(aig @ v)
-    bv = agg @ v
+    sv, bv = (m.cpu().numpy() for m in
+              _schur_agg_panels(a, plan, torch.from_numpy(v).to(device)))
     gs = v.T @ sv
     gb = v.T @ bv
     gs = 0.5 * (gs + gs.T)
@@ -633,8 +669,8 @@ def _host_refine_pairs(a: sp.csr_matrix, plan: ArrowBandPlan,
            / np.maximum(np.linalg.norm(bvc, axis=0), 1e-300))
     sel = (lam <= deflation_tol) & (lam > 0) & (res <= resid_tol)
     e = (v @ cc)[:, sel]
-    # B-normalize the kept vectors (uᵀ Agg u = 1, the PARPACK convention)
-    bn = np.sqrt(np.maximum(np.einsum("gk,gk->k", e, agg @ e), 1e-300))
+    # Agg-normalise the kept vectors (uᵀ Agg u = 1, the PARPACK convention)
+    bn = np.sqrt(np.maximum(np.einsum("gk,gk->k", e, bvc[:, sel]), 1e-300))
     return lam[sel], e / bn[None, :]
 
 
@@ -664,6 +700,7 @@ def build_scalable_lorasc(
     lanczos_block: int | None = None,
     factor_store: str = "auto",
     device="cuda",
+    stages: Stages | None = None,
 ) -> ScalableLorasc:
     """Build the scalable LORASC for a stencil-structured operator ``a``
     (already scaled as the solver uses it; original ordering) on ``device``.
@@ -680,7 +717,9 @@ def build_scalable_lorasc(
     factor_store: storage type of the banded factors the apply streams,
     "f32", "bf16" or "auto" (auto is f32 off a TPU, the JAX rule).
     device: default "cuda", which raises without a card; "cpu" runs on the
-    host.
+    host. stages: the caller's ``Stages`` (default a new one), which times
+    each build stage (synchronised) as span ``build.<stage>``;
+    ``timings`` holds this build's stages.
     """
     device = resolve_device(device)
     if pencil not in ("agg", "sloc", "saloc"):
@@ -692,15 +731,13 @@ def build_scalable_lorasc(
             f"unknown factor_store {factor_store!r} (f32 | bf16 | auto)")
     tdt = _torch_dtype(dtype)
     f32 = tdt == torch.float32
-    timings: dict = {}
-    t0 = time.perf_counter()
+    stage = Stages("build") if stages is None else stages
+    mine = []
 
-    def _mark(stage):
-        nonlocal t0
+    def _mark(name):
         sync(device)
-        now = time.perf_counter()
-        timings[stage] = round(now - t0, 2)
-        t0 = now
+        stage(name)
+        mine.append(name)
 
     a = sp.csr_matrix(a)
     n = a.shape[0]
@@ -854,9 +891,10 @@ def build_scalable_lorasc(
     dev["sigma"] = sigma
     deflated = int(ok.sum())
 
-    # host f64 refinement of the kept pairs: by default only where it pays
-    # (f32 σ form of the agg pencil; the deflate form self-corrects pair
-    # noise); the PRESC pencils never refine on the host, as in JAX
+    # f64 refinement of the kept pairs (the JAX package's host refinement,
+    # here on the device): by default only where it pays (f32 σ form of the
+    # agg pencil; the deflate form self-corrects pair noise); the PRESC
+    # pencils never refine, as in JAX
     if host_refine is None:
         host_refine = f32 and pencil == "agg" and plan.ng > 0 and correction == "sigma"
     if host_refine and pencil == "agg":
@@ -867,7 +905,9 @@ def build_scalable_lorasc(
             (th_np <= 3 * deflation_tol) & (bn_np > 0.25) & (rs_np <= 0.3))
         cand = (vecs[:, torch.from_numpy(pre).to(device)].cpu().numpy()
                 if pre.size else np.zeros((ng_pad, 0)))
-        lam_r, e_r = _host_refine_pairs(a, plan, cand, deflation_tol)
+        lam_r, e_r = _refine_pairs(a, plan, cand, deflation_tol, device=device)
+        add(PAIR_CANDIDATES, cand.shape[1])
+        add(PAIRS_KEPT, lam_r.size)
         if lam_r.size:
             kk = lam_r.size
             e_pad = np.zeros((ng_pad, kk), dtype=np.float64)
@@ -877,7 +917,7 @@ def build_scalable_lorasc(
             dev["sigma"] = torch.from_numpy(
                 ((deflation_tol - lam_floor) / lam_floor).astype(dtype)).to(device)
             deflated = int(kk)
-        _mark("host_refine")
+        _mark("pair_refine")
 
     if correction == "deflate":
         _attach_deflation_lift(plan, dev, dtype,
@@ -891,7 +931,7 @@ def build_scalable_lorasc(
         for key in ("aii_linv", "aii_moff", "agg_linv", "agg_moff"):
             dev[key] = dev[key].to(torch.bfloat16)
     return ScalableLorasc(plan=plan, operands=dev, deflated=deflated,
-                          timings=timings, nev=nev)
+                          timings={k: stage.timings[k] for k in mine}, nev=nev)
 
 
 def _attach_deflation_lift(plan: ArrowBandPlan, dev: dict, dtype,

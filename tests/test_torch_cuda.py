@@ -1481,6 +1481,65 @@ def test_traced_solve_counts_every_device_read(cuda_device, tmp_path):
     assert info["iters"] == info0["iters"] and np.array_equal(x, x0)
 
 
+def test_traced_lorasc_solve_counts_every_device_read(cuda_device, tmp_path):
+    """The LORASC cell's configuration (16 parts, t 1 omin, f32 with
+    refinement) at 8³ on the card: a traced solve's ``Memcpy DtoH``
+    operations equal ``host.syncs`` and its ``host.read`` spans, the build
+    carries the pair-refinement stage and counters, and the answer equals
+    an untraced solve's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+
+    a = elasticity3d(8, 8, 8, heterogeneous=False)
+    b = np.random.default_rng(3).standard_normal(a.shape[0])
+    s = StencilLorascECG.build(
+        a, nparts=16, br=3, grid=(9, 9, 8), deflation_tol=1e-2, max_deflation=16,
+        dtype=np.float32, device=cuda_device,
+        opts=ECGOptions(t=1, tol=1e-5, maxiter=500, variant="omin", layout="tbn"))
+    assert {"fmt_convert", "plan", "factor", "lanczos", "pair_refine"} <= set(s.timings)
+    x0, info0 = s.solve(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x, info = s.solve(b)
+        torch.cuda.synchronize()
+    path = tmp_path / "solve.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("ph") == "X"
+              and e.get("name", "").startswith("Memcpy DtoH")]
+    tr = info["trace"]
+    reads = [sp for sp in tr["spans"] if sp["name"] == "host.read"]
+    assert len(copies) == tr["counters"]["host.syncs"] == len(reads)
+    assert tr["counters"]["launches.stencil_bsr_spmm_t_pallas_bs"] >= 3 * info["iters"]
+    assert info["iters"] == info0["iters"] and np.array_equal(x, x0)
+    assert np.linalg.norm(b - a @ x) <= 1e-5 * np.linalg.norm(b)
+
+
+def test_f64_pair_refinement_on_card_matches_cpu(cuda_device):
+    """The σ pairs' f64 Rayleigh–Ritz (``lorasc_scale._refine_pairs``: B2a's
+    f64 instance and the f64 banded factors, one part at a time) on the
+    card and on the CPU from the same candidates: the same pairs, λ to
+    1e-10 relative, every f64 product the kernel's f64 instance."""
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.precond import lorasc_scale as tls
+
+    a = elasticity3d(8, 8, 8, heterogeneous=True)
+    a_s, _ = sym_rac_scaling(a)
+    pc = tls.build_scalable_lorasc(a_s, nparts=8, br=3, grid=(9, 9, 8), max_deflation=32,
+                                   dtype=np.float64, device="cpu")
+    e = pc.operands["e_mat"].numpy()[:, pc.operands["sigma"].numpy() > 0]
+    cand = e.astype(np.float32).astype(np.float64)
+    f64 = tspmm.stencil_bsr_spmm_t_pallas_bs.f64_launches
+    lam_g, e_g = tls._refine_pairs(a_s, pc.plan, cand, 1e-2, device=cuda_device)
+    assert tspmm.stencil_bsr_spmm_t_pallas_bs.f64_launches - f64 >= 2
+    lam_c, e_c = tls._refine_pairs(a_s, pc.plan, cand, 1e-2, device="cpu")
+    assert lam_g.size == lam_c.size > 0
+    np.testing.assert_allclose(lam_g, lam_c, rtol=1e-10)
+    q_g, q_c = np.linalg.qr(e_g)[0], np.linalg.qr(e_c)[0]
+    assert np.linalg.norm(q_g - q_c @ (q_c.T @ q_g), 2) < 1e-8
+
+
 # --- the stacked ODIR-fused step's t×t algebra as one CUDA graph ------------
 
 # the benchmark cell's configuration at 16³; maxiter 2999, which no other

@@ -219,18 +219,25 @@ def test_port_build_deflates_like_jax(problem, ref):
 
 
 def test_host_refine_pairs_matches_jax(problem, ref):
-    """The f32 σ build's host f64 Rayleigh–Ritz of the candidate pairs, on
-    the JAX build's deflation vectors (perturbed to f32 precision)."""
+    """The f32 σ build's f64 Rayleigh–Ritz of the candidate pairs, on the
+    JAX build's deflation vectors (perturbed to f32 precision): the port's
+    device path (f64 stencil products and banded factors, one part at a
+    time; here on the CPU) against the JAX package's host SciPy one. The
+    same kept count, λ to 1e-10 relative (6.8e-13 here), and the same span:
+    the largest principal angle under 1e-10 (9e-16 here). Vector by vector
+    they may differ: the cube's symmetry gives λ near-degenerate clusters,
+    inside which the two factorisations' rounding picks other bases."""
     _, _, a_s = problem
     plan = ref["plan"]
     e = ref["ops"]["sigma"]["e_mat"][:, ref["ops"]["sigma"]["sigma"] > 0]
     cand = e.astype(np.float32).astype(np.float64)
-    th_t, e_t = tls._host_refine_pairs(a_s, plan, cand, DEFL_TOL)
+    th_t, e_t = tls._refine_pairs(a_s, plan, cand, DEFL_TOL, device="cpu")
     th_j, e_j = jls._host_refine_pairs(a_s, plan, cand, DEFL_TOL)
     assert th_t.size == th_j.size > 0 and e_t.shape == e_j.shape == (plan.ng, th_t.size)
     np.testing.assert_allclose(th_t, th_j, rtol=1e-10)
-    sign = np.sign(np.sum(e_t * e_j, axis=0))
-    assert _rel(e_t * sign, e_j) < 1e-8
+    q_t, q_j = np.linalg.qr(e_t)[0], np.linalg.qr(e_j)[0]
+    sin_max = np.linalg.norm(q_t - q_j @ (q_j.T @ q_t), 2)
+    assert sin_max < 1e-10
 
 
 def test_solve_on_reference_operands_matches_jax(problem, ref):

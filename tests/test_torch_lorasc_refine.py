@@ -129,17 +129,18 @@ def test_finish_residual_matches_host_f64(problem, port):
                                          rel=1e-6)
 
 
-def test_sigma_build_refines_pairs_on_the_host():
+def test_sigma_build_refines_pairs_in_f64():
     """The build defaults (σ correction): in f32 the kept pairs go through
-    the host f64 refinement and become the σ operands. (The f32 σ solve
-    itself breaks down with omin on this operator in both packages, which
-    is why the record runs the balancing correction; ROADMAP C.)"""
+    the f64 refinement on the device (stage ``pair_refine``) and become the
+    σ operands. (The f32 σ solve itself breaks down with omin on this
+    operator in both packages, which is why the record runs the balancing
+    correction; ROADMAP C.)"""
     a = elasticity3d(6, 6, 6, heterogeneous=True)
     kw = dict(BUILD, grid=(7, 7, 6))
     kw.pop("correction")
     s = StencilLorascECG.build(a, opts=_opts(ECGOptions), device="cpu", **kw)
     pc = s.precond
-    assert "host_refine" in pc.timings and pc.deflated > 0
+    assert "pair_refine" in pc.timings and pc.deflated > 0
     assert "w_lift" not in pc.operands
     sigma, e_mat = pc.operands["sigma"], pc.operands["e_mat"]
     assert sigma.dtype == e_mat.dtype == torch.float32

@@ -2,7 +2,10 @@
 on the CPU: nothing recorded without a profiler; under one, a
 ``DistributedECG`` solve's spans nested as ``parallel/driver.py`` opens them, one trace
 id, ``host.syncs`` equal to the ``host.read`` spans; the build stages as
-spans that ``solver.timings`` is filled from; the spans on the clock of the
+spans that ``solver.timings`` is filled from; the same for
+``StencilLorascECG`` (``parallel/lorasc_stencil.py``), whose ``host.syncs``
+also equals the tensor reads the solve makes, and whose build carries the
+pair-refinement counters; the spans on the clock of the
 profiler's exported trace; a span's cost off and on (printed); and the
 port's busy-time helpers on a synthetic interval list."""
 
@@ -17,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from prealps_tpu_torch import timing as ptiming
 from prealps_tpu_torch.core.generators import elasticity3d
 from prealps_tpu_torch.parallel.driver import DistributedECG
+from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
 from prealps_tpu_torch.solvers.ecg import ECGOptions
 from prealps_tpu_torch.utils import timing
 
@@ -185,6 +189,88 @@ def test_busy_ms_is_the_union_of_device_intervals(tmp_path):
 
     assert ptiming.device_intervals(Prof()) == [(100.0, 10.0), (105.0, 10.0), (130.0, 1.0)]
     assert ptiming.device_busy_ms(Prof()) == pytest.approx(0.016)
+
+
+# the benchmark cell ela_lorasc's configuration at 8³ (16 parts, 16 pairs at
+# most: one kept)
+LORASC = dict(nparts=16, br=3, grid=(9, 9, 8), deflation_tol=1e-2, max_deflation=16,
+              pencil="agg", correction="sigma", dtype=np.float32, device="cpu")
+LORASC_OPTS = ECGOptions(t=1, tol=1e-5, maxiter=500, variant="omin", layout="tbn")
+LORASC_PARENTS = {
+    "solve.prep": {"solve"}, "refine.round": {"solve"}, "solve.gather": {"solve"},
+    "solve.host_check": {"solve"}, "ecg.init": {"refine.round"},
+    "ecg.step": {"refine.round"}, "ecg.finalize": {"refine.round"},
+    "refine.resid": {"refine.round"}, "spmm": {"ecg.init", "ecg.step"},
+    "precond": {"ecg.init", "ecg.step"}, "precond.banded": {"precond"},
+    "host.read": {"refine.round", "ecg.finalize", "solve.gather"},
+}
+LORASC_STAGES = {"build.fmt_convert", "build.plan", "build.factor", "build.lanczos",
+                 "build.pair_refine"}
+# the tensor methods through which a solve can read a device value
+READS = ("__bool__", "__float__", "__int__", "item", "cpu")
+
+
+@pytest.fixture(scope="module")
+def lorasc():
+    """The build traced, with the profiler's flag read as set (the switch
+    the spans test): a CPU profiler recording every operation of the
+    Lanczos would take five times the build."""
+    a = elasticity3d(8, 8, 8, heterogeneous=False)
+    traces = []
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(timing, "_profiler_enabled", lambda: True)
+        m.setattr(timing, "_exports", [traces])
+        s = StencilLorascECG.build(a, opts=LORASC_OPTS, **LORASC)
+    b = np.random.default_rng(3).standard_normal(a.shape[0])
+    (build,) = [t.as_dict() for t in traces]
+    return s, a, b, build
+
+
+def test_lorasc_build_stages_and_counters(lorasc):
+    s, _, _, build = lorasc
+    spans, counters = build["spans"], build["counters"]
+    assert spans[0]["name"] == "build" and spans[0]["parent"] == -1
+    stages = [sp for sp in spans if sp["name"].startswith("build.")]
+    assert {sp["name"] for sp in stages} == LORASC_STAGES == {f"build.{k}" for k in s.timings}
+    assert all(sp["parent"] == 0 for sp in stages)
+    assert counters["lorasc.pairs_kept"] == s.precond.deflated > 0
+    assert counters["lorasc.pair_candidates"] >= s.precond.deflated
+    for k, v in s.timings.items():
+        ns = sum(sp["end_ns"] - sp["start_ns"] for sp in stages if sp["name"] == f"build.{k}")
+        assert ns * 1e-9 == pytest.approx(v, abs=1e-9)
+    assert set(s.precond.timings) == {"plan", "factor", "lanczos", "pair_refine"}
+
+
+def test_traced_lorasc_solve_nests_its_spans(lorasc, monkeypatch):
+    s, a, b, _ = lorasc
+    reads = []
+    for name in READS:
+        method = getattr(torch.Tensor, name)
+
+        def counted(self, *args, _method=method, **kw):
+            reads.append(name)
+            return _method(self, *args, **kw)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    monkeypatch.setattr(timing, "_profiler_enabled", lambda: True)
+    x, info = s.solve(b)
+    monkeypatch.undo()
+    tr = info["trace"]
+    spans, counters = tr["spans"], tr["counters"]
+    assert spans[0]["name"] == "solve" and spans[0]["parent"] == -1
+    names = [sp["name"] for sp in spans]
+    assert set(names) == set(LORASC_PARENTS) | {"solve"}
+    for sp in spans[1:]:
+        parent = spans[sp["parent"]]
+        assert parent["name"] in LORASC_PARENTS[sp["name"]], (sp["name"], parent["name"])
+        assert parent["start_ns"] <= sp["start_ns"] <= sp["end_ns"] <= parent["end_ns"]
+    assert counters["host.syncs"] == names.count("host.read") == len(reads) > 0
+    assert names.count("ecg.step") == info["iters"]
+    assert names.count("refine.round") == info["refine_rounds"] == names.count("refine.resid")
+    assert counters["launches.stencil_bsr_spmm_t_pallas_bs"] == 0     # plain route on the CPU
+    assert np.linalg.norm(b - a @ x) <= 1e-5 * np.linalg.norm(b)
+    x0, info0 = s.solve(b)
+    assert "trace" not in info0 and info0["iters"] == info["iters"]
+    assert np.array_equal(x0, x)
 
 
 def _docs(log_dir):

@@ -39,7 +39,10 @@ build is root ``build`` with stages ``build.fmt_convert``, ``build.plan``,
 ``timings``; a solve is root ``solve`` with ``solve.prep``,
 ``refine.round``, ``refine.resid`` (the finish), ``solve.gather`` and
 ``solve.host_check``, every blocking read through ``host_read``, and the
-trace in ``info["trace"]``.
+trace in ``info["trace"]``. On the card each apply replays the banded
+interior and separator solves as CUDA graphs (``lorasc_scale._BandedGraph``;
+counters ``lorasc.banded_solves``, ``lorasc.graph_solves`` and
+``lorasc.graph_captures``).
 
 Differences from the JAX driver: no jit caches, no chunked dispatch and no
 speculative finish (``ecg_run`` runs each round to its stop and the finish
@@ -209,7 +212,8 @@ class StencilLorascECG:
 
     @scope("precond")
     def _m_apply(self, r: torch.Tensor) -> torch.Tensor:
-        return lorasc_apply(self.precond.plan, self.precond.operands, r)
+        return lorasc_apply(self.precond.plan, self.precond.operands, r,
+                            self.precond.graphs)
 
     def _split_assign(self) -> torch.Tensor:
         """(br, nrb) rhs split: dof r·br + k goes to column (dof·t) // n."""

@@ -22,7 +22,11 @@ lorasc_eigsolve.c:31-205 PARPACK deflation):
 * **Apply**: in arrow coordinates through node-level gathers while the ECG
   operator stays in the original (stencil) ordering. ``factor_store="bf16"``
   stores the four banded factor tensors in bf16 after every build consumer
-  has run in f32; the solves widen them block by block.
+  has run in f32; the solves widen them block by block. On a CUDA panel the
+  built preconditioner's applies replay each banded solve as a CUDA graph
+  (``_BandedGraph``), one per solve and panel layout: the block loops issue
+  ~3 launches a block, each a few µs of device work. The build's own calls
+  (Lanczos, the lift, the PRESC operands) stay eager.
 
 Vectors are lane-major (t, br, nrb) panels; node-major intermediates are
 flat (nrb + 1, br·t) with a trailing zero node that padding indices point
@@ -60,11 +64,16 @@ from prealps_tpu_torch.ops.lanczos import (
     resolve_block_policy,
 )
 from prealps_tpu_torch.ops.spmm import stencil_bsr_spmm_t
+from prealps_tpu_torch.solvers.ecg import capture_graph
 from prealps_tpu_torch.utils.timing import Stages, add, counter, scope, sync
 
 # the σ build's f64 pair refinement: candidates it was given, pairs it kept
 PAIR_CANDIDATES = counter("lorasc.pair_candidates")
 PAIRS_KEPT = counter("lorasc.pairs_kept")
+# the banded solves: every call, calls run as a graph replay, graph captures
+BANDED_SOLVES = counter("lorasc.banded_solves")
+GRAPH_SOLVES = counter("lorasc.graph_solves")
+GRAPH_CAPTURES = counter("lorasc.graph_captures")
 REFINE_COLS = 32       # panel columns a full-size product of the refinement takes
 
 
@@ -261,16 +270,19 @@ def assemble_band_from_stencil(
 
 @dataclass
 class ScalableLorasc:
-    """Device LORASC. apply() maps lane-major panels (t, br, nrb) -> same."""
+    """Device LORASC. apply() maps lane-major panels (t, br, nrb) -> same.
+    ``graphs`` caches the banded solves' CUDA graphs of its applies
+    (``_graph_solve``); copies of a solver (``with_tol``) share it."""
 
     plan: ArrowBandPlan
     operands: dict = field(repr=False)   # device tensors, see build
     deflated: int = 0
     timings: dict = field(default_factory=dict)  # build stage wall clock (s)
     nev: int = 0   # Lanczos / Rayleigh-Ritz width the build used
+    graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        return lorasc_apply(self.plan, self.operands, r)
+        return lorasc_apply(self.plan, self.operands, r, self.graphs)
 
 
 def _gather_int(plan: ArrowBandPlan, ops, rn2: torch.Tensor) -> torch.Tensor:
@@ -341,16 +353,83 @@ def _sep_flat_t(plan: ArrowBandPlan, gb: torch.Tensor) -> torch.Tensor:
     return gb[:, 0].permute(0, 2, 1).reshape(plan.ng_pad, t)
 
 
+class _BandedGraph:
+    """One banded solve, ``solve(x)`` on a static input ``x`` of one shape,
+    strides and dtype, as a CUDA graph captured once and replayed on every
+    call. A call copies its panel into ``x`` (one ``copy_``), replays, and
+    returns a clone of the static output, which the next replay overwrites.
+    ``factors`` are the tensors the graph reads, so that it replays only
+    against them (``reads``).
+
+    The capture is ``solvers/ecg.py::capture_graph``, the ECG step graph's
+    too; a solve that cannot be captured raises RuntimeError.
+    ``capture=False`` runs ``solve`` on the static input eagerly in place of
+    a replay (a shape that does not capture, and the CPU tests of the
+    bookkeeping); such calls are not counted in ``lorasc.graph_solves``."""
+
+    def __init__(self, solve, v: torch.Tensor, factors: tuple, capture: bool = True):
+        self.solve, self.factors = solve, factors
+        self.x = v.clone()             # v's strides: the solve's kernels are eager's
+        self.y = self.graph = None
+        if capture:
+            self._capture()
+
+    def reads(self, factors: tuple) -> bool:
+        return all(a is b for a, b in zip(factors, self.factors))
+
+    def _capture(self):
+        self.graph, self.y = capture_graph(lambda: self.solve(self.x), self.x.device)
+        add(GRAPH_CAPTURES)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(v)
+        if self.graph is None:
+            return self.solve(self.x)
+        self.graph.replay()
+        add(GRAPH_SOLVES)
+        return self.y.clone()
+
+
+def _graph_path(v: torch.Tensor) -> bool:
+    """Whether a solve-time banded solve of ``v`` replays a CUDA graph: on a
+    CUDA panel. The CPU runs eagerly."""
+    return v.device.type == "cuda"
+
+
+def _graph_solve(graphs, key: str, solve, v: torch.Tensor, factors: tuple):
+    """``solve(v)``. With ``graphs`` (a built preconditioner's cache; None
+    in the build's calls) and on a CUDA panel, a replay of the graph of
+    ``key`` and v's shape, strides and dtype, captured on first use and
+    again where the operands hold other factors than it reads."""
+    add(BANDED_SOLVES)
+    if graphs is None or not _graph_path(v):
+        return solve(v)
+    k = (key, tuple(v.shape), v.stride(), v.dtype, v.device)
+    g = graphs.get(k)
+    if g is None or not g.reads(factors):
+        graphs.pop(k, None)            # free a stale graph's pool first
+        try:
+            g = _BandedGraph(solve, v, factors)
+        except RuntimeError:
+            g = _BandedGraph(solve, v, factors, capture=False)
+        graphs[k] = g
+    return g(v)
+
+
 @scope("precond.banded")
-def _agg_solve(plan, ops, g: torch.Tensor) -> torch.Tensor:
+def _agg_solve(plan, ops, g: torch.Tensor, graphs=None) -> torch.Tensor:
     fac = BlockBandedCholesky(ops["agg_linv"], ops["agg_moff"], ops["agg_failed"])
-    return _sep_flat_t(plan, block_banded_solve_t(fac, _sep_band_t(plan, g)))
+
+    def solve(x):
+        return _sep_flat_t(plan, block_banded_solve_t(fac, _sep_band_t(plan, x)))
+    return _graph_solve(graphs, "agg", solve, g, (fac.l_inv, fac.m_off))
 
 
 @scope("precond.banded")
-def _aii_solve(plan, ops, vb: torch.Tensor) -> torch.Tensor:
+def _aii_solve(plan, ops, vb: torch.Tensor, graphs=None) -> torch.Tensor:
     fac = BlockBandedCholesky(ops["aii_linv"], ops["aii_moff"], ops["aii_failed"])
-    return block_banded_solve_t(fac, vb)
+    return _graph_solve(graphs, "aii", lambda x: block_banded_solve_t(fac, x), vb,
+                        (fac.l_inv, fac.m_off))
 
 
 def _coarse_solve(ops: dict, c: torch.Tensor) -> torch.Tensor:
@@ -360,7 +439,8 @@ def _coarse_solve(ops: dict, c: torch.Tensor) -> torch.Tensor:
     return linv.T @ (linv @ c)
 
 
-def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor) -> torch.Tensor:
+def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor,
+                 graphs: dict | None = None) -> torch.Tensor:
     """M⁻¹ r (reference: lorasc.c:368-618 forward + backward sweeps), with
     the Agi/Aig products through the full stencil SpMM on zero-embedded
     vectors. Two correction modes, chosen by the operands present:
@@ -373,6 +453,8 @@ def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor) -> torch.Tenso
     The two sweep products use ``a_stencil_m`` where the build attached one
     (the bf16 copy of ``a_store="bf16"``: a preconditioner-side
     perturbation only; the iteration keeps the full-precision operator).
+    ``graphs``: the built preconditioner's cache of the banded solves' CUDA
+    graphs (None: eager).
     """
     a_t = ops.get("a_stencil_m", ops["a_stencil"])
     deflate = "w_lift" in ops
@@ -388,13 +470,13 @@ def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor) -> torch.Tenso
         vg = vg - ops["aw_sep"] @ _coarse_solve(ops, c1)
 
     # forward sweep: zi = Aii⁻¹ vi ; g = vg − Agi zi  (one SpMM)
-    zi = _aii_solve(plan, ops, vi)
+    zi = _aii_solve(plan, ops, vi, graphs)
     y = stencil_bsr_spmm_t(a_t, _from_node_major(plan, _embed_int(plan, ops, zi)))
     agi_zi = _gather_sep(plan, ops, _to_node_major(y))
     g = (vg - agi_zi) * ops["sep_mask"][:, None]
 
     # separator solve (+ low-rank σ correction: zg += E σ Eᵀ g)
-    zg = _agg_solve(plan, ops, g)
+    zg = _agg_solve(plan, ops, g, graphs)
     if not deflate:
         corr = ops["e_mat"].T @ g
         zg = zg + ops["e_mat"] @ (corr * ops["sigma"][:, None])
@@ -403,7 +485,7 @@ def lorasc_apply(plan: ArrowBandPlan, ops: dict, r: torch.Tensor) -> torch.Tenso
     # backward sweep: wi = zi − Aii⁻¹ (Aig zg)  (one SpMM)
     y2 = stencil_bsr_spmm_t(a_t, _from_node_major(plan, _embed_sep(plan, ops, zg)))
     aig_zg = _gather_int(plan, ops, _to_node_major(y2))
-    wi = zi - _aii_solve(plan, ops, aig_zg)
+    wi = zi - _aii_solve(plan, ops, aig_zg, graphs)
 
     w = _embed_int(plan, ops, wi) + _embed_sep(plan, ops, zg)
     out = _from_node_major(plan, w)

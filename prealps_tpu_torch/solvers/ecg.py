@@ -461,6 +461,33 @@ GRAPH_STEPS = counter("ecg.graph_steps")
 GRAPH_CAPTURES = counter("ecg.graph_captures")
 
 
+def capture_graph(fn, device):
+    """``fn()`` as a CUDA graph on ``device``, PyTorch's recipe: two warm-up
+    calls on a side stream (library handles and workspaces are made there),
+    then the capture on the same stream into the graph's private pool.
+    Returns the graph and what the captured call returned (tensors in the
+    pool, which every replay rewrites). A call that cannot be captured (one
+    that synchronises) raises RuntimeError, after the capture is ended."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+        graph.capture_begin()
+        try:
+            out = fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass            # the invalidated capture's own error
+            raise
+        graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return graph, out
+
+
 class _StepGraph:
     """The stacked ODIR-fused step's t×t algebra (b) as one CUDA graph,
     captured once and replayed every iteration, between the Gram (a) and
@@ -514,29 +541,7 @@ class _StepGraph:
             self.it += 1
 
     def _capture(self):
-        """PyTorch's recipe: warm up on a side stream (library handles and
-        workspaces are made there), then capture on the same stream into
-        the graph's private pool. A call that cannot be captured (one that
-        synchronises) raises RuntimeError, after the capture is ended."""
-        dev = self.g.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._body()
-            graph.capture_begin()
-            try:
-                self._body()
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass            # the invalidated capture's own error
-                raise
-            graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = graph
+        self.graph, _ = capture_graph(self._body, self.g.device)
         add(GRAPH_CAPTURES)
 
     def run(self, a_apply, m_apply, state: ECGState, tol_abs, red_tol,

@@ -1723,3 +1723,115 @@ def test_graph_stays_off_a_cpu_panel_and_a_group(cuda_device, tmp_path):
     case = dict(GRAPH_BUILD, opts=dict(t=12, tol=1e-5, maxiter=3000, layout="tbn"))
     out = _spawn_on_card(w.card_graph_steps, 2, (a, b, case), tmp_path / "g")
     assert all(iters > 0 and steps == 0 for iters, steps in out)
+
+
+# --- LORASC's banded solves as CUDA graphs ------------------------------------
+
+# the benchmark cell's LORASC configuration (16 parts, t 1 omin, f32 with
+# refinement) at 10³, with the σ correction and with balancing deflation
+BANDED_BUILD = dict(nparts=16, br=3, grid=(11, 11, 10), deflation_tol=1e-2,
+                    max_deflation=16, dtype=np.float32)
+BANDED_OPTS = ECGOptions(t=1, tol=1e-5, maxiter=500, variant="omin", layout="tbn")
+BANDED_STORES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def _banded_counts():
+    from prealps_tpu_torch.utils import timing
+
+    return tuple(timing.COUNTERS[k] for k in
+                 ("lorasc.banded_solves", "lorasc.graph_solves", "lorasc.graph_captures"))
+
+
+@pytest.fixture(scope="module")
+def banded_precond():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    from prealps_tpu_torch.core.scaling import sym_rac_scaling
+    from prealps_tpu_torch.precond.lorasc_scale import build_scalable_lorasc
+
+    a_s = sym_rac_scaling(elasticity3d(10, 10, 10))[0]
+    return build_scalable_lorasc(a_s, device="cuda:0", **BANDED_BUILD)
+
+
+@pytest.mark.parametrize("t", [1, 12])
+@pytest.mark.parametrize("store", sorted(BANDED_STORES))
+def test_graphed_banded_solves_are_bitwise_eager(cuda_device, banded_precond, store, t):
+    """``_aii_solve`` and ``_agg_solve`` through a graph cache against the
+    eager solves, factors stored in f32, in f64 (an f64 panel) and in bf16:
+    two calls of each on other panels, each result bitwise the eager solve
+    of its panel and the first unchanged by the second; one capture a solve,
+    then replays."""
+    from prealps_tpu_torch.precond import lorasc_scale as tls
+
+    pc = banded_precond
+    pl, ops = pc.plan, dict(pc.operands)
+    for k in ("aii_linv", "aii_moff", "agg_linv", "agg_moff"):
+        ops[k] = ops[k].to(BANDED_STORES[store])
+    dtype = torch.float64 if store == "f64" else torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    panels = []
+    for _ in range(2):
+        r = torch.randn((t, pl.br, pl.nrb), generator=gen, device=cuda_device, dtype=dtype)
+        panels.append((tls._gather_int(pl, ops, tls._to_node_major(r)),
+                       torch.randn((pl.ng_pad, t), generator=gen, device=cuda_device,
+                                   dtype=dtype)))
+    graphs = {}
+    c0 = _banded_counts()
+    got = [(tls._aii_solve(pl, ops, vi, graphs), tls._agg_solve(pl, ops, vg, graphs))
+           for vi, vg in panels]
+    c1 = _banded_counts()
+    assert [n - m for n, m in zip(c1, c0)] == [4, 4, 2]
+    assert all(g.graph is not None for g in graphs.values()) and len(graphs) == 2
+    for (vi, vg), (zi, zg) in zip(panels, got):
+        want_i, want_g = tls._aii_solve(pl, ops, vi), tls._agg_solve(pl, ops, vg)
+        assert zi.dtype == want_i.dtype == dtype and torch.equal(zi, want_i)
+        assert zg.dtype == want_g.dtype == dtype and torch.equal(zg, want_g)
+    assert not torch.equal(got[0][0], got[1][0])
+
+
+# the σ correction in the cell's configuration; balancing deflation on the
+# heterogeneous operator over 8 parts, where it keeps pairs at 10³ (the
+# homogeneous 16-part build keeps none there on the card)
+BANDED_SOLVE_CASES = {
+    "sigma": dict(heterogeneous=False, build=dict(correction="sigma")),
+    "deflate": dict(heterogeneous=True, build=dict(correction="deflate", nparts=8,
+                                                   max_deflation=64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BANDED_SOLVE_CASES))
+def test_graphed_lorasc_solve_is_bitwise_the_eager_solve(cuda_device, monkeypatch, case):
+    """StencilLorascECG at 10³ on the card: the build captures nothing (its
+    Lanczos, pair-refinement and lift panels stay eager); the first solve
+    captures the two banded solves at the solve's width, a second solve
+    (a ``with_tol`` copy, which shares the graphs) replays every banded
+    solve; x, iterations and rounds bitwise the eager solve's."""
+    from prealps_tpu_torch.parallel.lorasc_stencil import StencilLorascECG
+    from prealps_tpu_torch.precond import lorasc_scale as tls
+
+    spec = BANDED_SOLVE_CASES[case]
+    a = elasticity3d(10, 10, 10, heterogeneous=spec["heterogeneous"])
+    b = np.random.default_rng(20).standard_normal(a.shape[0])
+    c0 = _banded_counts()
+    s = StencilLorascECG.build(a, device=cuda_device, opts=BANDED_OPTS,
+                               **dict(BANDED_BUILD, **spec["build"]))
+    c1 = _banded_counts()
+    assert c1[0] > c0[0] and c1[1:] == c0[1:]
+    assert s.precond.deflated > 0 and s.precond.graphs == {}
+    assert ("w_lift" in s.precond.operands) == (case == "deflate")
+    x_g, info_g = s.solve(b)
+    c2 = _banded_counts()
+    assert c2[2] - c1[2] == 2
+    assert sorted(k[0] for k in s.precond.graphs) == ["agg", "aii"]
+    assert all(k[1][-2 if k[0] == "aii" else -1] == BANDED_OPTS.t for k in s.precond.graphs)
+    x_g2, info_g2 = s.with_tol(BANDED_OPTS.tol).solve(b)
+    c3 = _banded_counts()
+    assert c3[2] == c2[2] and c3[1] - c2[1] == c3[0] - c2[0] > 3 * info_g2["iters"]
+    monkeypatch.setattr(tls, "_graph_path", lambda v: False)
+    x_e, info_e = s.solve(b)
+    assert _banded_counts()[1:] == c3[1:]
+    for x, info in ((x_g, info_g), (x_g2, info_g2)):
+        assert np.array_equal(x, x_e)
+        for k in ("iters", "refine_rounds", "res", "breakdown"):
+            assert info[k] == info_e[k], k
+    assert np.linalg.norm(b - a @ x_e) <= 1e-5 * np.linalg.norm(b)

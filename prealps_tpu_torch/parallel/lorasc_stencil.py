@@ -71,7 +71,6 @@ from prealps_tpu_torch.ops.spmm import (
 from prealps_tpu_torch.precond.lorasc_scale import (
     ScalableLorasc,
     build_scalable_lorasc,
-    lorasc_apply,
 )
 from prealps_tpu_torch.solvers.ecg import (
     ECGOptions,
@@ -212,8 +211,7 @@ class StencilLorascECG:
 
     @scope("precond")
     def _m_apply(self, r: torch.Tensor) -> torch.Tensor:
-        return lorasc_apply(self.precond.plan, self.precond.operands, r,
-                            self.precond.graphs)
+        return self.precond.apply(r)
 
     def _split_assign(self) -> torch.Tensor:
         """(br, nrb) rhs split: dof r·br + k goes to column (dof·t) // n."""

@@ -64,7 +64,7 @@ from prealps_tpu_torch.ops.lanczos import (
     resolve_block_policy,
 )
 from prealps_tpu_torch.ops.spmm import stencil_bsr_spmm_t
-from prealps_tpu_torch.solvers.ecg import capture_graph
+from prealps_tpu_torch.utils.cuda_graph import capture_graph
 from prealps_tpu_torch.utils.timing import Stages, add, counter, scope, sync
 
 # the σ build's f64 pair refinement: candidates it was given, pairs it kept
@@ -359,32 +359,20 @@ class _BandedGraph:
     call. A call copies its panel into ``x`` (one ``copy_``), replays, and
     returns a clone of the static output, which the next replay overwrites.
     ``factors`` are the tensors the graph reads, so that it replays only
-    against them (``reads``).
+    against them (``reads``). The capture is ``utils/cuda_graph.py``'s; a
+    solve that cannot be captured raises RuntimeError."""
 
-    The capture is ``solvers/ecg.py::capture_graph``, the ECG step graph's
-    too; a solve that cannot be captured raises RuntimeError.
-    ``capture=False`` runs ``solve`` on the static input eagerly in place of
-    a replay (a shape that does not capture, and the CPU tests of the
-    bookkeeping); such calls are not counted in ``lorasc.graph_solves``."""
-
-    def __init__(self, solve, v: torch.Tensor, factors: tuple, capture: bool = True):
-        self.solve, self.factors = solve, factors
+    def __init__(self, solve, v: torch.Tensor, factors: tuple):
+        self.factors = factors
         self.x = v.clone()             # v's strides: the solve's kernels are eager's
-        self.y = self.graph = None
-        if capture:
-            self._capture()
+        self.graph, self.y = capture_graph(lambda: solve(self.x), self.x.device)
+        add(GRAPH_CAPTURES)
 
     def reads(self, factors: tuple) -> bool:
         return all(a is b for a, b in zip(factors, self.factors))
 
-    def _capture(self):
-        self.graph, self.y = capture_graph(lambda: self.solve(self.x), self.x.device)
-        add(GRAPH_CAPTURES)
-
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.x.copy_(v)
-        if self.graph is None:
-            return self.solve(self.x)
         self.graph.replay()
         add(GRAPH_SOLVES)
         return self.y.clone()
@@ -400,20 +388,20 @@ def _graph_solve(graphs, key: str, solve, v: torch.Tensor, factors: tuple):
     """``solve(v)``. With ``graphs`` (a built preconditioner's cache; None
     in the build's calls) and on a CUDA panel, a replay of the graph of
     ``key`` and v's shape, strides and dtype, captured on first use and
-    again where the operands hold other factors than it reads."""
+    again where the operands hold other factors than it reads. A shape
+    whose capture raised is cached as None and runs eagerly from then on."""
     add(BANDED_SOLVES)
     if graphs is None or not _graph_path(v):
         return solve(v)
     k = (key, tuple(v.shape), v.stride(), v.dtype, v.device)
-    g = graphs.get(k)
-    if g is None or not g.reads(factors):
+    if k not in graphs or (graphs[k] is not None and not graphs[k].reads(factors)):
         graphs.pop(k, None)            # free a stale graph's pool first
         try:
-            g = _BandedGraph(solve, v, factors)
+            graphs[k] = _BandedGraph(solve, v, factors)
         except RuntimeError:
-            g = _BandedGraph(solve, v, factors, capture=False)
-        graphs[k] = g
-    return g(v)
+            graphs[k] = None
+    g = graphs[k]
+    return solve(v) if g is None else g(v)
 
 
 @scope("precond.banded")

@@ -53,6 +53,7 @@ from prealps_tpu_torch.ops.blockops import (
     tri_inv,
 )
 from prealps_tpu_torch.solvers.panels import LAYOUTS, TBN
+from prealps_tpu_torch.utils.cuda_graph import capture_graph
 from prealps_tpu_torch.utils.timing import add, counter, host_read, scope
 
 
@@ -459,33 +460,6 @@ def _iter_odir_fused_stacked(state: ECGState, a_apply, m_apply, opts: ECGOptions
 
 GRAPH_STEPS = counter("ecg.graph_steps")
 GRAPH_CAPTURES = counter("ecg.graph_captures")
-
-
-def capture_graph(fn, device):
-    """``fn()`` as a CUDA graph on ``device``, PyTorch's recipe: two warm-up
-    calls on a side stream (library handles and workspaces are made there),
-    then the capture on the same stream into the graph's private pool.
-    Returns the graph and what the captured call returned (tensors in the
-    pool, which every replay rewrites). A call that cannot be captured (one
-    that synchronises) raises RuntimeError, after the capture is ended."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-        graph.capture_begin()
-        try:
-            out = fn()
-        except BaseException:
-            try:
-                graph.capture_end()
-            except RuntimeError:
-                pass            # the invalidated capture's own error
-            raise
-        graph.capture_end()
-    torch.cuda.current_stream(device).wait_stream(side)
-    return graph, out
 
 
 class _StepGraph:

@@ -1,11 +1,13 @@
 """LORASC's banded solves as CUDA graphs (``precond/lorasc_scale.py``:
 ``_graph_solve``, ``_BandedGraph``) on the CPU: a CPU solve stays eager,
 with the replay and capture counters at 0 and nothing cached; the build's
-own calls (Lanczos, the pair refinement) pass no cache; and the cache's
-bookkeeping with the solve called in place of a replay (a shape that does
-not capture): one entry per solve and panel layout, a new one where the
-operands hold other factors, each call's answer its own and bitwise the
-eager solve's. The capture itself needs a card (``tests/test_torch_cuda.py``)."""
+own calls (Lanczos, the pair refinement) pass no cache; the cache's
+bookkeeping with a stand-in for the capture whose replay runs the body
+again into the captured output: one entry per solve and panel layout, a
+new one where the operands hold other factors, each call's answer its own
+and bitwise the eager solve's; and a shape whose capture raises runs
+eagerly, tried once. The capture itself needs a card
+(``tests/test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -52,15 +54,27 @@ def lorasc():
     return s, a, b, x, info, calls
 
 
+class _Replay:
+    """A CPU stand-in for a captured graph: ``replay`` runs the body again
+    into the output of the first call, as a replay rewrites its pool."""
+
+    def __init__(self, fn):
+        self.fn, self.out = fn, fn()
+
+    def replay(self):
+        self.out.copy_(self.fn())
+
+
+def _capture(fn, device):
+    g = _Replay(fn)
+    return g, g.out
+
+
 @pytest.fixture
 def uncaptured(monkeypatch):
-    """Every banded solve takes the graph path, and no shape captures: the
-    cache keeps a runner whose replay is the solve called eagerly."""
-    def refuse(self):
-        raise RuntimeError("no capture off the card")
-
+    """Every banded solve takes the graph path, captured by ``_Replay``."""
     monkeypatch.setattr(tls, "_graph_path", lambda v: True)
-    monkeypatch.setattr(tls._BandedGraph, "_capture", refuse)
+    monkeypatch.setattr(tls, "capture_graph", _capture)
 
 
 def test_build_passes_no_cache(lorasc):
@@ -88,23 +102,47 @@ def test_cpu_solve_stays_eager(lorasc, monkeypatch):
 
 
 def test_uncaptured_cache_solves_bitwise_eager(lorasc, uncaptured):
-    """A solve through the cache (the solve called in place of a replay):
-    one entry for each banded solve, at the solve's panel width, and x and
-    iterations bitwise the eager solve's."""
+    """A solve through the cache (the body run again in place of a replay):
+    one entry for each banded solve, at the solve's panel width, captured
+    once and replayed on every call, and x and iterations bitwise the eager
+    solve's."""
     s, a, b, x0, info0, _ = lorasc
     before = _counts()
     x, info = s.solve(b)
-    assert _counts()[1:] == before[1:]
+    solves, graphed, captures = (n - m for n, m in zip(_counts(), before))
+    assert graphed == solves > 3 * info["iters"] and captures == 2
     assert np.array_equal(x, x0) and info["iters"] == info0["iters"]
     assert info["refine_rounds"] == info0["refine_rounds"]
     keys = sorted(s.precond.graphs)
     assert [k[0] for k in keys] == ["agg", "aii"]
-    assert all(g.graph is None for g in s.precond.graphs.values())
+    assert all(isinstance(g.graph, _Replay) for g in s.precond.graphs.values())
     pl = s.precond.plan
     shapes = {k[0]: k[1] for k in keys}
     assert shapes == {"agg": (pl.ng_pad, OPTS.t),
                       "aii": (pl.nblk_i, pl.nparts, OPTS.t, pl.bs_i)}
     s.precond.graphs.clear()
+
+
+def test_a_shape_that_does_not_capture_runs_eager(lorasc, monkeypatch):
+    """A capture that raises is tried once a shape: the cache keeps None
+    for it, and every call solves its own panel eagerly, bitwise."""
+    pc = lorasc[0].precond
+    tries = []
+
+    def refuse(fn, device):
+        tries.append(device)
+        raise RuntimeError("no capture off the card")
+
+    monkeypatch.setattr(tls, "_graph_path", lambda v: True)
+    monkeypatch.setattr(tls, "capture_graph", refuse)
+    graphs = {}
+    panels = [_panels(pc, 1, torch.float32, seed) for seed in (1, 2)]
+    before = _counts()
+    got = [tls._aii_solve(pc.plan, pc.operands, vi, graphs) for vi, _ in panels]
+    assert len(tries) == 1 and list(graphs.values()) == [None]
+    assert _counts()[1:] == before[1:]
+    for (vi, _), zi in zip(panels, got):
+        assert torch.equal(zi, tls._aii_solve(pc.plan, pc.operands, vi))
 
 
 def _panels(pc, t, dtype, seed):
